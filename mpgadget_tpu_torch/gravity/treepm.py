@@ -1,0 +1,206 @@
+"""TreePM short-range gravity orchestration (grav_short_tree analog),
+PyTorch port of mpgadget_tpu/gravity/treepm.py.
+
+Morton sort -> octree build -> block walk -> direct leaf sums -> unsort,
+with the reference's parameterization (TreeRcut, Asmth, BHOpeningAngle /
+relative opening, Plummer-equivalent softening 2.8x;
+gravshort-tree.c:32-155).  "Buffer full" conditions surface as overflow
+flags in the returned :class:`TreeForceResult` (the reference's
+export-buffer retry, treewalk.c:801-902).
+"""
+
+from dataclasses import dataclass, field
+from time import perf_counter
+
+import numpy as np
+import torch
+
+from .tree import TreeConfig
+from .tree32 import build_tree32, sort_by_morton32_payload
+from .treewalk import (WalkConfig, make_block_groups, make_leaf_sources,
+                       traverse_fused, evaluate_leaves)
+
+
+@dataclass
+class TreeForceResult:
+    accel: torch.Tensor         # f32[N,3] internal units, original order
+    potential: torch.Tensor     # f32[N] internal units (0 if not computed)
+    overflow: torch.Tensor      # bool: any capacity exceeded (redo bigger)
+    overflow_parts: dict = None  # name -> bool tensor, which capacity
+
+
+class StageTimer:
+    """Accumulated host wall seconds per tree-force stage, each lap ending
+    in a device synchronisation.  Passed to :func:`tree_force` only when
+    stage times are wanted: the synchronisations cost overlap."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.counts = {}
+        self._device = None
+        self._t0 = 0.0
+
+    def _now(self):
+        if self._device is not None and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        return perf_counter()
+
+    def start(self, device):
+        self._device = device
+        self._t0 = self._now()
+
+    def lap(self, name):
+        t = self._now()
+        self.seconds[name] = self.seconds.get(name, 0.0) + t - self._t0
+        self._t0 = t
+
+    def count(self, name, n):
+        self.counts[name] = self.counts.get(name, 0) + n
+
+
+def tree_force(ipos, mass, valid, acc_old_mag, *, leaf_max, max_level,
+               node_cap, group_size, walk_cfg, rcut_box, theta2, use_bh,
+               err_tol_force_acc, rs_inv_box, h_inv_box, g_over_box2,
+               with_potential, timer=None):
+    """Short-range tree force for all particles on their device.
+
+    acc_old_mag: |a_old| per particle in internal units (relative opening
+    criterion, gravshort-tree.c:221-240); geometry in box units, result
+    scaled by g_over_box2 = G/box^2.  timer: optional StageTimer that
+    accumulates the sort, build, walk, pack and pair-kernel seconds.
+    """
+    dev = ipos.device
+    if timer is not None:
+        timer.start(dev)
+    n = ipos.shape[0]
+    G = group_size
+    npad = (-n) % G
+    if npad:
+        ipos = torch.cat([ipos, ipos.new_zeros((npad, 3))])
+        mass = torch.cat([mass, mass.new_zeros(npad)])
+        valid = torch.cat([valid, valid.new_zeros(npad)])
+        acc_old_mag = torch.cat([acc_old_mag, acc_old_mag.new_zeros(npad)])
+
+    key_s, perm, ipos_s, valid_s, (mass_s, amag_s) = \
+        sort_by_morton32_payload(ipos, valid, (mass, acc_old_mag))
+    if timer is not None:
+        timer.lap("sort")
+
+    tree = build_tree32(key_s, ipos_s, mass_s, valid_s, leaf_max, max_level,
+                        node_cap, group_max=G)
+    pos_box = ipos_s.to(torch.float32) * 2.0 ** -32
+    if timer is not None:
+        timer.lap("build")
+
+    tpos, gc, gh, amin, active = make_block_groups(pos_box, valid_s, amag_s,
+                                                   G)
+    aold = err_tol_force_acc * amin / g_over_box2
+    acc0, pot0, leaf_idx, nl, walk_ovf = traverse_fused(
+        tree, tpos, gc, gh, aold, active, walk_cfg, rcut_box, theta2,
+        use_bh, rs_inv_box, h_inv_box, with_potential=with_potential,
+        timer=timer)
+    if timer is not None:
+        timer.lap("walk")
+
+    ntot = n + npad
+    nleaf_cap = int(walk_cfg.nleaf_frac * ntot) + 256
+    sr_cap = int(walk_cfg.sr_frac * ntot) + 256
+    leaf_src = make_leaf_sources(tree, pos_box, mass_s, valid_s, nleaf_cap,
+                                 sr_cap, walk_cfg.sub)
+    acc_box, pot_box, src_ovf = evaluate_leaves(
+        tree, leaf_src, tpos, leaf_idx, nl, acc0, pot0, walk_cfg,
+        rs_inv_box, h_inv_box, rcut_box, with_potential=with_potential,
+        timer=timer)
+
+    # unsort by scattering through perm (direct inverse, no argsort)
+    acc = torch.zeros((ntot, 3), dtype=torch.float32, device=dev)
+    acc[perm] = acc_box * g_over_box2
+    acc = torch.where(valid[:n, None], acc[:n], 0.0)
+    pot = torch.zeros(ntot, dtype=torch.float32, device=dev)
+    pot[perm] = pot_box
+    parts = {"nodes": tree.overflow, "leaf_table": leaf_src[3],
+             "leaf_list": walk_ovf.any(), "sources": src_ovf.any()}
+    overflow = (parts["nodes"] | parts["leaf_table"] | parts["leaf_list"]
+                | parts["sources"])
+    if timer is not None:
+        timer.lap("unsort")
+    return TreeForceResult(accel=acc, potential=pot[:n], overflow=overflow,
+                           overflow_parts=parts)
+
+
+@dataclass
+class TreeGravity:
+    """Stateful convenience wrapper around :func:`tree_force` holding the
+    reference parameterization; see gravshort-tree.c:97-140."""
+    boxsize: float
+    nmesh: int
+    asmth: float = 1.5
+    rcut: float = 6.0            # TreeRcut, units of asmth*cellsize
+    G: float = 43007.1
+    softening: float = 0.0       # FORCE_SOFTENING (=2.8*eps), internal
+    err_tol_force_acc: float = 0.002
+    bh_opening_angle: float = 0.175
+    max_bh_opening_angle: float = 0.9
+    tree_use_bh: int = 2         # 2: BH on first call only
+    tree_cfg: TreeConfig = field(default_factory=TreeConfig)
+    walk_cfg: WalkConfig = field(default_factory=WalkConfig)
+    with_potential: bool = True
+
+    def __post_init__(self):
+        self._use_bh_now = self.tree_use_bh > 0
+        self.last_overflow = None
+        self.last_overflow_parts = None
+        self.timer = None        # StageTimer to fill, if set
+
+    # geometry in box units
+    @property
+    def rcut_box(self):
+        return self.rcut * self.asmth / self.nmesh
+
+    @property
+    def rs_inv_box(self):
+        return self.nmesh / (2.0 * self.asmth)
+
+    @property
+    def h_inv_box(self):
+        return self.boxsize / max(self.softening, 1e-30)
+
+    def force_kwargs(self, n, use_bh=None):
+        """Scalar kwargs for tree_force at capacity n."""
+        if use_bh is None:
+            use_bh = self._use_bh_now
+        return dict(
+            leaf_max=self.tree_cfg.leaf_max,
+            max_level=min(self.tree_cfg.max_level, 16),
+            node_cap=int(self.tree_cfg.node_factor * n) + 64,
+            group_size=self.tree_cfg.group_max,
+            walk_cfg=self.walk_cfg,
+            rcut_box=float(np.float32(self.rcut_box)),
+            theta2=float(np.float32(
+                self.bh_opening_angle ** 2 if use_bh
+                else self.max_bh_opening_angle ** 2)),
+            use_bh=bool(use_bh),
+            err_tol_force_acc=float(np.float32(self.err_tol_force_acc)),
+            rs_inv_box=float(np.float32(self.rs_inv_box)),
+            h_inv_box=float(np.float32(self.h_inv_box)),
+            g_over_box2=float(np.float32(self.G / self.boxsize ** 2)),
+            with_potential=self.with_potential,
+        )
+
+    def compute(self, pdata, return_potential=False):
+        """Short-range accel (internal units) for all particles; with
+        return_potential also the short-range potential."""
+        acc_old = pdata.grav_accel + pdata.grav_pm
+        amag = torch.sqrt(torch.sum(acc_old * acc_old, dim=-1))
+        kw = self.force_kwargs(int(pdata.capacity))
+        kw["with_potential"] = self.with_potential or return_potential
+        res = tree_force(pdata.ipos, pdata.mass, pdata.valid, amag,
+                         timer=self.timer, **kw)
+        if self.tree_use_bh > 1:
+            self._use_bh_now = False  # BH on first call only
+        self.last_overflow = res.overflow
+        self.last_overflow_parts = res.overflow_parts
+        if return_potential:
+            return res.accel, res.potential * float(
+                np.float32(self.G / self.boxsize))
+        return res.accel

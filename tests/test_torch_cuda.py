@@ -1,0 +1,125 @@
+"""The port's CUDA path on a card (marked ``cuda``; each test skips when
+no card is present).  Imports torch and the port only, no JAX, so that it
+runs on a machine with a card and no JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpgadget_tpu_torch.gravity import pairkernel as pk
+from mpgadget_tpu_torch.gravity import treepm, treewalk
+from mpgadget_tpu_torch.pm import gravity as pm
+
+pytestmark = pytest.mark.cuda
+
+RS_INV = 42.666668
+H_INV = 300.0
+RCUT = 0.0703125
+
+# one intra-op thread: the suite runs in several worker processes that
+# share the machine's cores
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _pair_inputs(device, nb=8, G=256, S=1000, seed=5):
+    rng = np.random.RandomState(seed)
+    c = rng.rand(nb, 1, 3)
+    tgt = np.mod(c + rng.uniform(-0.01, 0.01, (nb, G, 3)), 1.0)
+    src = np.mod(c + rng.uniform(-0.1, 0.1, (nb, S, 3)), 1.0)
+    sm = rng.uniform(0.5, 1.5, (nb, S))
+    sm[:, -S // 10:] = 0.0
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=device)
+    return ([put(tgt[:, :, k]) for k in range(3)]
+            + [put(src[:, :, k]) for k in range(3)]
+            + [put(sm), put(rng.randn(nb, 3, G)), put(rng.randn(nb, G))])
+
+
+@pytest.mark.parametrize("with_potential", [False, True])
+@pytest.mark.parametrize("G,S", [(256, 1000), (100, 4096), (1024, 512)])
+def test_kernel_matches_plain(cuda, with_potential, G, S):
+    args = _pair_inputs(cuda, G=G, S=S)
+    before = pk.LAUNCHES
+    acc, pot = pk.block_pair_accumulate(*args, RS_INV, H_INV, RCUT,
+                                        with_potential=with_potential)
+    assert pk.LAUNCHES == before + 1
+    ref_acc, ref_pot = pk.block_pair_accumulate_reference(
+        *args, RS_INV, H_INV, RCUT, with_potential=with_potential)
+    # erfcf/expf vs torch's erfc/exp, and another summation order
+    assert float((acc - ref_acc).abs().max()) <= \
+        1e-4 * float(ref_acc.abs().max())
+    assert float((pot - ref_pot).abs().max()) <= \
+        1e-4 * float(ref_pot.abs().max())
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = _pair_inputs(cuda)
+    for k, bad in ((3, args[3].double()),
+                   (3, args[3].t().contiguous().t()),
+                   (3, args[3].cpu())):
+        a = list(args)
+        a[k] = bad
+        with pytest.raises(ValueError):
+            pk.block_pair_accumulate(*a, RS_INV, H_INV, RCUT)
+    big = _pair_inputs(cuda, nb=1, G=1056, S=64)
+    with pytest.raises(ValueError):
+        pk.block_pair_accumulate(*big, RS_INV, H_INV, RCUT)
+
+
+def _particles(n, seed, box):
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(0, box, (n, 3))
+    pos[: n // 4] = np.mod(box / 2 + rng.randn(n // 4, 3) * box * 0.01, box)
+    ipos = torch.as_tensor((pos / box * 2.0 ** 32).astype(np.int64))
+    mass = torch.as_tensor(rng.uniform(5, 15, n).astype(np.float32))
+    amag = torch.as_tensor(rng.uniform(0, 2e-3, n).astype(np.float32))
+    return ipos, mass, torch.ones(n, dtype=torch.bool), amag
+
+
+@pytest.mark.parametrize("use_bh", [0, 1])
+def test_tree_force_cuda_matches_cpu(cuda, use_bh):
+    """The whole tree force on the card (walk + pair kernel) against the
+    same function on the CPU (plain pair version)."""
+    box, n = 10000.0, 8192
+    tg = treepm.TreeGravity(boxsize=box, nmesh=32, softening=box / 300,
+                            tree_use_bh=use_bh, with_potential=True,
+                            walk_cfg=treewalk.WalkConfig(src_cap=8192))
+    kw = tg.force_kwargs(n)
+    cpu_args = _particles(n, 21, box)
+    before = pk.LAUNCHES
+    r_gpu = treepm.tree_force(*[a.to(cuda) for a in cpu_args], **kw)
+    assert pk.LAUNCHES == before + 1
+    r_cpu = treepm.tree_force(*cpu_args, **kw)
+    assert bool(r_gpu.overflow) == bool(r_cpu.overflow)
+    a_cpu = r_cpu.accel.numpy()
+    p_cpu = r_cpu.potential.numpy()
+    assert np.linalg.norm(r_gpu.accel.cpu().numpy() - a_cpu) <= \
+        1e-5 * np.linalg.norm(a_cpu)
+    assert np.linalg.norm(r_gpu.potential.cpu().numpy() - p_cpu) <= \
+        1e-5 * np.linalg.norm(p_cpu)
+
+
+def test_pm_force_cuda_matches_cpu(cuda):
+    box = 64000.0
+    ipos, mass, _, _ = _particles(16384, 8, box)
+    cfg = pm.PMConfig(nmesh=32, boxsize=box)
+    a_gpu, p_gpu, ps_gpu = pm.pm_force(ipos.to(cuda), mass.to(cuda), cfg)
+    a_cpu, p_cpu, ps_cpu = pm.pm_force(ipos, mass, cfg)
+    # cuFFT vs pocketfft, atomics vs ordered scatter-adds: 1e-5 by norm
+    assert np.linalg.norm(a_gpu.cpu().numpy() - a_cpu.numpy()) <= \
+        1e-5 * np.linalg.norm(a_cpu.numpy())
+    assert np.linalg.norm(p_gpu.cpu().numpy() - p_cpu.numpy()) <= \
+        1e-5 * np.linalg.norm(p_cpu.numpy())
+    np.testing.assert_allclose(ps_gpu.power, ps_cpu.power, rtol=1e-4)
