@@ -45,7 +45,7 @@ class Tree:
         return self.key_start.shape[0]
 
     @classmethod
-    def from_jax_numpy(cls, arrays: dict, device="cpu"):
+    def from_jax_numpy(cls, arrays: dict, device="cuda"):
         """Carry a JAX ``Tree`` (fields as numpy arrays) over into the
         port's tensors.  Integer fields become int64; the JAX uint32
         ``key_start`` is kept as its value."""

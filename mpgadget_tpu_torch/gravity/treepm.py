@@ -37,6 +37,7 @@ class StageTimer:
     def __init__(self):
         self.seconds = {}
         self.counts = {}
+        self.series = {}     # name -> one value per tree-force evaluation
         self._device = None
         self._t0 = 0.0
 
@@ -57,21 +58,31 @@ class StageTimer:
     def count(self, name, n):
         self.counts[name] = self.counts.get(name, 0) + n
 
+    def record(self, name, value):
+        self.series.setdefault(name, []).append(value)
 
-def tree_force(ipos, mass, valid, acc_old_mag, *, leaf_max, max_level,
-               node_cap, group_size, walk_cfg, rcut_box, theta2, use_bh,
-               err_tol_force_acc, rs_inv_box, h_inv_box, g_over_box2,
-               with_potential, timer=None):
-    """Short-range tree force for all particles on their device.
 
-    acc_old_mag: |a_old| per particle in internal units (relative opening
-    criterion, gravshort-tree.c:221-240); geometry in box units, result
-    scaled by g_over_box2 = G/box^2.  timer: optional StageTimer that
-    accumulates the sort, build, walk, pack and pair-kernel seconds.
-    """
-    dev = ipos.device
-    if timer is not None:
-        timer.start(dev)
+@dataclass
+class WalkInputs:
+    """The sorted particles, their tree and target blocks (see
+    :func:`walk_inputs`)."""
+    tree: object                # tree.Tree
+    perm: torch.Tensor          # int64[N+npad] sorted -> original row
+    pos_box: torch.Tensor       # f32[N+npad,3] sorted box coordinates
+    valid_s: torch.Tensor       # bool[N+npad] sorted validity
+    mass_s: torch.Tensor        # f32[N+npad] sorted mass
+    tpos: torch.Tensor          # f32[nb,G,3] target blocks
+    center: torch.Tensor        # f32[nb,3] block bounding-box centers
+    half: torch.Tensor          # f32[nb,3] and half-widths
+    amin: torch.Tensor          # f32[nb] block-minimum |old accel|
+    active: torch.Tensor        # bool[nb]
+    npad: int                   # padding rows appended to whole blocks
+
+
+def walk_inputs(ipos, mass, valid, acc_old_mag, *, leaf_max, max_level,
+                node_cap, group_size, timer=None):
+    """Pad to whole target blocks, Morton-sort, build the tree and cut
+    the sorted particles into blocks of group_size."""
     n = ipos.shape[0]
     G = group_size
     npad = (-n) % G
@@ -94,10 +105,34 @@ def tree_force(ipos, mass, valid, acc_old_mag, *, leaf_max, max_level,
 
     tpos, gc, gh, amin, active = make_block_groups(pos_box, valid_s, amag_s,
                                                    G)
-    aold = err_tol_force_acc * amin / g_over_box2
+    return WalkInputs(tree=tree, perm=perm, pos_box=pos_box, valid_s=valid_s,
+                      mass_s=mass_s, tpos=tpos, center=gc, half=gh,
+                      amin=amin, active=active, npad=npad)
+
+
+def tree_force(ipos, mass, valid, acc_old_mag, *, leaf_max, max_level,
+               node_cap, group_size, walk_cfg, rcut_box, theta2, use_bh,
+               err_tol_force_acc, rs_inv_box, h_inv_box, g_over_box2,
+               with_potential, timer=None):
+    """Short-range tree force for all particles on their device.
+
+    acc_old_mag: |a_old| per particle in internal units (relative opening
+    criterion, gravshort-tree.c:221-240); geometry in box units, result
+    scaled by g_over_box2 = G/box^2.  timer: optional StageTimer that
+    accumulates the sort, build, walk, pack and pair-kernel seconds.
+    """
+    dev = ipos.device
+    if timer is not None:
+        timer.start(dev)
+    n = ipos.shape[0]
+    w = walk_inputs(ipos, mass, valid, acc_old_mag, leaf_max=leaf_max,
+                    max_level=max_level, node_cap=node_cap,
+                    group_size=group_size, timer=timer)
+    tree, npad = w.tree, w.npad
+    aold = err_tol_force_acc * w.amin / g_over_box2
     acc0, pot0, leaf_idx, nl, walk_ovf = traverse_fused(
-        tree, tpos, gc, gh, aold, active, walk_cfg, rcut_box, theta2,
-        use_bh, rs_inv_box, h_inv_box, with_potential=with_potential,
+        tree, w.tpos, w.center, w.half, aold, w.active, walk_cfg, rcut_box,
+        theta2, use_bh, rs_inv_box, h_inv_box, with_potential=with_potential,
         timer=timer)
     if timer is not None:
         timer.lap("walk")
@@ -105,19 +140,19 @@ def tree_force(ipos, mass, valid, acc_old_mag, *, leaf_max, max_level,
     ntot = n + npad
     nleaf_cap = int(walk_cfg.nleaf_frac * ntot) + 256
     sr_cap = int(walk_cfg.sr_frac * ntot) + 256
-    leaf_src = make_leaf_sources(tree, pos_box, mass_s, valid_s, nleaf_cap,
-                                 sr_cap, walk_cfg.sub)
+    leaf_src = make_leaf_sources(tree, w.pos_box, w.mass_s, w.valid_s,
+                                 nleaf_cap, sr_cap, walk_cfg.sub)
     acc_box, pot_box, src_ovf = evaluate_leaves(
-        tree, leaf_src, tpos, leaf_idx, nl, acc0, pot0, walk_cfg,
+        tree, leaf_src, w.tpos, leaf_idx, nl, acc0, pot0, walk_cfg,
         rs_inv_box, h_inv_box, rcut_box, with_potential=with_potential,
         timer=timer)
 
     # unsort by scattering through perm (direct inverse, no argsort)
     acc = torch.zeros((ntot, 3), dtype=torch.float32, device=dev)
-    acc[perm] = acc_box * g_over_box2
+    acc[w.perm] = acc_box * g_over_box2
     acc = torch.where(valid[:n, None], acc[:n], 0.0)
     pot = torch.zeros(ntot, dtype=torch.float32, device=dev)
-    pot[perm] = pot_box
+    pot[w.perm] = pot_box
     parts = {"nodes": tree.overflow, "leaf_table": leaf_src[3],
              "leaf_list": walk_ovf.any(), "sources": src_ovf.any()}
     overflow = (parts["nodes"] | parts["leaf_table"] | parts["leaf_list"]

@@ -5,8 +5,11 @@ The targets are blocks of G consecutive Morton-sorted particles.  Each
 block runs a stackless preorder walk over the skip-pointer tree
 (descend = i+1, reject/accept = skip[i]); accepted nodes' monopoles are
 applied to the block's G targets inside the walk, and opened leaves are
-recorded.  Their particle ranges are then packed into a dense per-block
-source buffer and evaluated as block-dense pair interactions by
+recorded.  On CUDA tensors :func:`traverse_fused` launches the
+hand-written walk kernel ``csrc/treewalk.cu`` (one launch per call); on
+CPU tensors it runs :func:`traverse_fused_reference`, a plain batched
+loop.  The opened leaves' particle ranges are then packed into a dense
+per-block source buffer and evaluated as block-dense pair interactions by
 ``pairkernel.block_pair_accumulate`` (the CUDA kernel on CUDA tensors).
 
 Opening criteria mirror shall_we_open_node (gravshort-tree.c:221-245):
@@ -17,15 +20,18 @@ the block-minimum aold.
 
 Translation notes: JAX ``mode="drop"`` scatters become masked writes
 (or a spare column that takes the dropped writes); ``lax.cummax`` is
-``torch.cummax(...).values``; the node skip pointer and leaf flag are
-separate integer tensors (the JAX package bitcasts them into an f32 row
-only for the TPU gather).
+``torch.cummax(...).values``; the plain walk keeps the node skip pointer
+and leaf flag as separate integer tensors, the kernel's node table packs
+them into one int32 (:func:`pack_nodes`).
 """
 
+import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from .. import kernels
 from . import pairkernel
 from .shortrange import (shortrange_force_window, shortrange_pot_window,
                          softened_force_factor, softened_pot_factor)
@@ -43,9 +49,15 @@ class WalkConfig:
     chunk: int = 512            # source slots per plain-version chunk
 
 
-# walk iterations between host checks for "every block finished" (each
-# check synchronises with the device; extra iterations are masked no-ops)
+# plain walk: iterations between host checks for "every block finished"
+# (each check synchronises with the device; extra iterations are masked
+# no-ops)
 DONE_CHECK = 16
+MAX_G = 1024
+LEAF_BIT = -2 ** 31             # leaf flag of the packed int32 node meta
+
+LAUNCHES = 0                    # walk kernel launches (not plain calls)
+_fn = None
 
 
 def _wrap(d):
@@ -84,21 +96,40 @@ def make_block_groups(pos_box, valid_s, amag_s, group_size):
     return p, center, half, amin, active
 
 
-def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
-                   rcut, bh_angle2, use_bh, rs_inv, h_inv,
-                   with_potential=False, timer=None):
-    """Skip-pointer walk per block with fused monopole evaluation.
+def pack_nodes(tree):
+    """The walk kernel's node table, packed once per tree.
 
-    A plain batched loop: every iteration advances all unfinished blocks
-    by one node, with masks, until every block is done (the JAX package
-    runs a vmapped while_loop).  aold: ErrTolForceAcc * min |old accel|
-    over the block in box-unit force units; <= 0 means BH opening.
-
-    Returns (acc f32[nb,3,G] component-major, pot f32[nb,G], leaf_idx
-    int64[nb,LL], n_leaves int64[nb], overflow bool[nb]) in box-unit
-    force units.  timer: optional treepm.StageTimer; counts the
-    iterations ("walk_iterations").
+    Returns (nodes f32[C, 8], meta int32[C]): each node is two 16-byte
+    rows, (center, length) and (com, mass), and one int32, the skip
+    pointer with the leaf flag in bit 31.
     """
+    nodes = torch.cat([tree.center, tree.length[:, None], tree.com,
+                       tree.mass[:, None]], dim=1).contiguous()
+    meta = tree.skip.to(torch.int32) | torch.where(
+        tree.is_leaf, LEAF_BIT, 0).to(torch.int32)
+    return nodes, meta
+
+
+def _count(timer, tree, visits, monopoles):
+    """Walk statistics for a StageTimer: the longest block's node visits
+    ("walk_iterations"), and per evaluation the tree's nodes, the
+    visits' sum and the monopoles applied."""
+    if timer is None:
+        return
+    timer.count("walk_iterations", int(visits.max()) if visits.numel() else 0)
+    timer.record("walk_nodes", int(tree.n_nodes))
+    timer.record("walk_visits_sum", int(visits.sum()))
+    timer.record("walk_monopoles", int(monopoles.sum()))
+
+
+def traverse_fused_reference(tree, tpos, center, half, aold, active,
+                             cfg: WalkConfig, rcut, bh_angle2, use_bh,
+                             rs_inv, h_inv, with_potential=False,
+                             timer=None):
+    """Plain version of :func:`traverse_fused`: a batched loop in which
+    every iteration advances all unfinished blocks by one node, with
+    masks, until every block is done (the JAX package runs a vmapped
+    while_loop).  Same contract as :func:`traverse_fused`."""
     dev = tpos.device
     nb, G, _ = tpos.shape
     LL = cfg.leaf_list_max
@@ -115,6 +146,8 @@ def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
     # column LL takes the writes the JAX walk drops (list full / no leaf)
     leaves = torch.full((nb, LL + 1), C, dtype=torch.int64, device=dev)
     ovf = torch.zeros(nb, dtype=torch.bool, device=dev)
+    visits = torch.zeros(nb, dtype=torch.int64, device=dev)
+    monopoles = torch.zeros(nb, dtype=torch.int64, device=dev)
     ax = torch.zeros((nb, G), dtype=torch.float32, device=dev)
     ay = torch.zeros_like(ax)
     az = torch.zeros_like(ax)
@@ -123,6 +156,7 @@ def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
     while it % DONE_CHECK or bool((i < n_nodes).any()):
         it += 1
         live = i < n_nodes
+        visits += live.to(torch.int64)
         ic = torch.clamp(i, max=C - 1)
         row = node_f[ic]
         c, ln, m, com = row[:, 0:3], row[:, 3], row[:, 4], row[:, 5:8]
@@ -147,6 +181,7 @@ def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
         use_node = keep & ~must_open
         rec_leaf = keep & must_open & leaf
         descend = keep & must_open & ~leaf
+        monopoles += use_node.to(torch.int64)
 
         dx = _wrap(com[:, 0:1] - tx)
         dy = _wrap(com[:, 1:2] - ty)
@@ -166,10 +201,94 @@ def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
         ovf |= rec_leaf & ~room
         nl += (rec_leaf & room).to(torch.int64)
         i = torch.where(live, torch.where(descend, i + 1, skip), i)
-    if timer is not None:
-        timer.count("walk_iterations", it)
+    _count(timer, tree, visits, monopoles)
     acc = torch.stack([ax, ay, az], dim=1)
     return acc, pot, leaves[:, :LL], nl, ovf
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = kernels.load("treewalk").tree_walk_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 3 + [ctypes.c_int]
+                       + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
+        _fn = fn
+    return _fn
+
+
+def _launch(tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
+            use_bh, rs_inv, h_inv, with_potential, timer):
+    global LAUNCHES
+    nb, G, _ = tpos.shape
+    LL = cfg.leaf_list_max
+    C = tree.capacity
+    dev = tpos.device
+    if G > MAX_G:
+        raise ValueError(f"group size {G} > {MAX_G} threads per block")
+    nodes, meta = pack_nodes(tree)
+    f32, i32 = torch.float32, torch.int32
+    for name, t, shape, dtype in (
+            ("tpos", tpos, (nb, G, 3), f32), ("center", center, (nb, 3), f32),
+            ("half", half, (nb, 3), f32), ("aold", aold, (nb,), f32),
+            ("active", active, (nb,), torch.bool),
+            ("tree nodes", nodes, (C, 8), f32), ("tree meta", meta, (C,), i32),
+            ("tree.n_nodes", tree.n_nodes, (), torch.int64)):
+        kernels.check_tensor(name, t, shape, dtype)
+        if t.device != dev:
+            raise ValueError("walk inputs must be on one device")
+    fn = _kernel()
+    acc = torch.empty((nb, 3, G), dtype=f32, device=dev)
+    pot = torch.empty((nb, G), dtype=f32, device=dev)
+    leaves = torch.empty((nb, LL), dtype=torch.int64, device=dev)
+    nl = torch.empty(nb, dtype=torch.int64, device=dev)
+    ovf = torch.empty(nb, dtype=torch.bool, device=dev)
+    visits = torch.empty(nb, dtype=i32, device=dev)
+    monopoles = torch.empty(nb, dtype=i32, device=dev)
+    # a Python float meets an f32 tensor in PyTorch rounded to f32: pass
+    # the plain version's scalars the same way (rcut * rcut in double)
+    with torch.cuda.device(dev):
+        rc = fn(nodes.data_ptr(), meta.data_ptr(), tree.n_nodes.data_ptr(),
+                tpos.data_ptr(), center.data_ptr(), half.data_ptr(),
+                aold.data_ptr(), active.data_ptr(), acc.data_ptr(),
+                pot.data_ptr(), leaves.data_ptr(), nl.data_ptr(),
+                ovf.data_ptr(), visits.data_ptr(), monopoles.data_ptr(), nb,
+                G, C, LL, float(rcut), float(np.float32(rcut * rcut)),
+                float(np.float32(bh_angle2)), int(bool(use_bh)),
+                float(rs_inv), float(h_inv), int(with_potential),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"walk kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    _count(timer, tree, visits, monopoles)
+    return acc, pot, leaves, nl, ovf
+
+
+def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
+                   rcut, bh_angle2, use_bh, rs_inv, h_inv,
+                   with_potential=False, timer=None):
+    """Skip-pointer walk per block with fused monopole evaluation.
+
+    aold: ErrTolForceAcc * min |old accel| over the block in box-unit
+    force units; <= 0 means BH opening.  CPU tensors run the plain
+    version; any other tensor launches the walk kernel (one launch) or
+    raises.
+
+    Returns (acc f32[nb,3,G] component-major, pot f32[nb,G], leaf_idx
+    int64[nb,LL] (unused slots hold tree.capacity), n_leaves int64[nb],
+    overflow bool[nb]) in box-unit force units.  timer: optional
+    treepm.StageTimer; counts the longest block's node visits
+    ("walk_iterations") and records per-evaluation visit statistics.
+    """
+    if tpos.device.type == "cpu":
+        return traverse_fused_reference(
+            tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
+            use_bh, rs_inv, h_inv, with_potential=with_potential,
+            timer=timer)
+    return _launch(tree, tpos, center, half, aold, active, cfg, rcut,
+                   bh_angle2, use_bh, rs_inv, h_inv, with_potential, timer)
 
 
 def make_leaf_sources(tree, pos_box, mass_sorted, valid_sorted, nleaf_cap,
@@ -237,10 +356,12 @@ def evaluate_leaves(tree, leaf_src, tpos, leaf_idx, n_leaves, acc0, pot0,
     The opened leaves' sub-rows (see :func:`make_leaf_sources`) are
     compacted into a dense per-block source buffer of cfg.src_cap slots
     and summed by ``pairkernel.block_pair_accumulate``: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors.
+    for CUDA tensors, the plain version for CPU tensors.  Each block's
+    count of filled slots goes with it, so the padding is not computed.
 
     Returns (acc f32[N,3], pot f32[N], overflow bool[nb]) in sorted
-    particle order.  timer: optional treepm.StageTimer ("pack", "pair").
+    particle order.  timer: optional treepm.StageTimer ("pack", "pair"
+    seconds; per evaluation the sum and maximum of the source counts).
     """
     packed, node_first_sub, node_nsub, _ = leaf_src
     dev = tpos.device
@@ -290,13 +411,17 @@ def evaluate_leaves(tree, leaf_src, tpos, leaf_idx, n_leaves, acc0, pot0,
     sx, sy, sz, smass = (a.contiguous() for a in (sx, sy, sz, smass))
     acc0 = acc0.contiguous()
     pot0 = pot0.contiguous()
+    # real sources per block: the filled sub-rows; the rest is padding
+    count = (torch.clamp(total, max=SS) * sub).to(torch.int32)
     if timer is not None:
         timer.lap("pack")
+        timer.record("pair_sources_sum", int(count.sum()))
+        timer.record("pair_sources_max", int(count.max()))
 
     acc_b, pot = pairkernel.block_pair_accumulate(
         tx, ty, tz, sx, sy, sz, smass, acc0, pot0, float(rs_inv),
         float(h_inv), float(rcut), chunk=cfg.chunk,
-        with_potential=with_potential)
+        with_potential=with_potential, count=count)
     if timer is not None:
         timer.lap("pair")
     acc = acc_b.transpose(1, 2).reshape(n, 3)

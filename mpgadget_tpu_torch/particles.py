@@ -80,7 +80,7 @@ class ParticleData:
         return dataclasses.replace(self, **changes)
 
     @classmethod
-    def zeros(cls, n: int, device="cpu"):
+    def zeros(cls, n: int, device="cuda"):
         fields = {}
         for name, dt in _DTYPES.items():
             shape = (n, 3) if name in _VEC3 else (n,)
@@ -90,7 +90,7 @@ class ParticleData:
 
     @classmethod
     def from_numpy(cls, pos, vel, mass, ptype, pid, boxsize,
-                   capacity: Optional[int] = None, device="cpu"):
+                   capacity: Optional[int] = None, device="cuda"):
         """Build from host float arrays (IC/snapshot read path)."""
         n = len(pid)
         cap = capacity or n
@@ -116,7 +116,7 @@ class ParticleData:
             valid=torch.arange(cap, device=device) < n)
 
     @classmethod
-    def from_jax_numpy(cls, arrays: dict, device="cpu"):
+    def from_jax_numpy(cls, arrays: dict, device="cuda"):
         """Carry JAX ParticleData state (as numpy arrays, one per field;
         uint32 ``ipos``) over into the port's tensors."""
         fields = {}

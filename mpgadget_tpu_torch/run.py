@@ -265,7 +265,7 @@ class Simulation:
     # -- setup ---------------------------------------------------------
 
     @classmethod
-    def from_snapshot(cls, path, cfg_kwargs, device="cpu"):
+    def from_snapshot(cls, path, cfg_kwargs, device="cuda"):
         """Read an IC/snapshot bigfile (petaio_read_snapshot analog)."""
         bf = BigFile(path)
         header = snap_io.read_header(bf)

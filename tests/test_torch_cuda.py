@@ -1,6 +1,7 @@
 """The port's CUDA path on a card (marked ``cuda``; each test skips when
-no card is present).  Imports torch and the port only, no JAX, so that it
-runs on a machine with a card and no JAX:
+no card is present).  Imports torch, the port and the walk inputs of
+tests/test_torch_walkkernel.py only, no JAX, so that it runs on a machine
+with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -12,6 +13,7 @@ import torch
 from mpgadget_tpu_torch.gravity import pairkernel as pk
 from mpgadget_tpu_torch.gravity import treepm, treewalk
 from mpgadget_tpu_torch.pm import gravity as pm
+from test_torch_walkkernel import walk_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +31,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _every(args):
+    """A count of every slot for each block of _pair_inputs' args."""
+    return torch.full((args[0].shape[0],), args[3].shape[1],
+                      dtype=torch.int32, device=args[0].device)
 
 
 def _pair_inputs(device, nb=8, G=256, S=1000, seed=5):
@@ -53,11 +61,14 @@ def test_kernel_matches_plain(cuda, with_potential, G, S):
     args = _pair_inputs(cuda, G=G, S=S)
     before = pk.LAUNCHES
     acc, pot = pk.block_pair_accumulate(*args, RS_INV, H_INV, RCUT,
+                                        _every(args),
                                         with_potential=with_potential)
     assert pk.LAUNCHES == before + 1
     ref_acc, ref_pot = pk.block_pair_accumulate_reference(
-        *args, RS_INV, H_INV, RCUT, with_potential=with_potential)
-    # erfcf/expf vs torch's erfc/exp, and another summation order
+        *args, RS_INV, H_INV, RCUT, _every(args),
+        with_potential=with_potential)
+    # the fitted erfcx window and __expf vs torch's erfc/exp, and another
+    # summation order
     assert float((acc - ref_acc).abs().max()) <= \
         1e-4 * float(ref_acc.abs().max())
     assert float((pot - ref_pot).abs().max()) <= \
@@ -72,10 +83,106 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         a = list(args)
         a[k] = bad
         with pytest.raises(ValueError):
-            pk.block_pair_accumulate(*a, RS_INV, H_INV, RCUT)
+            pk.block_pair_accumulate(*a, RS_INV, H_INV, RCUT, _every(args))
     big = _pair_inputs(cuda, nb=1, G=1056, S=64)
     with pytest.raises(ValueError):
-        pk.block_pair_accumulate(*big, RS_INV, H_INV, RCUT)
+        pk.block_pair_accumulate(*big, RS_INV, H_INV, RCUT, _every(big))
+    nb = args[0].shape[0]
+    for bad in (torch.zeros(nb, dtype=torch.int64, device=cuda),
+                torch.zeros(nb, dtype=torch.int32),
+                torch.zeros(nb + 1, dtype=torch.int32, device=cuda),
+                torch.zeros((nb, 2), dtype=torch.int32, device=cuda)[:, 0]):
+        with pytest.raises(ValueError):
+            pk.block_pair_accumulate(*args, RS_INV, H_INV, RCUT, bad)
+
+
+@pytest.mark.parametrize("with_potential", [False, True])
+@pytest.mark.parametrize("S", [4096, 10000])
+def test_kernel_with_counts_matches_plain(cuda, with_potential, S):
+    """Per-block source counts: a block filled to S (several work items),
+    an empty block, and random counts between."""
+    nb = 8
+    rng = np.random.RandomState(S)
+    counts = np.concatenate([[S, 0], rng.randint(0, S // 8, nb - 2) * 8])
+    args = _pair_inputs(cuda, nb=nb, G=256, S=S)
+    sm = args[6].clone()
+    sm[torch.arange(S, device=cuda)[None, :]
+       >= torch.as_tensor(counts, device=cuda)[:, None]] = 0.0
+    args[6] = sm
+    cnt = torch.as_tensor(counts, dtype=torch.int32, device=cuda)
+    before = pk.LAUNCHES
+    acc, pot = pk.block_pair_accumulate(*args, RS_INV, H_INV, RCUT, cnt,
+                                        with_potential=with_potential)
+    assert pk.LAUNCHES == before + 1
+    ref_acc, ref_pot = pk.block_pair_accumulate_reference(
+        *args, RS_INV, H_INV, RCUT, cnt, with_potential=with_potential)
+    assert float((acc - ref_acc).abs().max()) <= \
+        1e-4 * float(ref_acc.abs().max())
+    assert float((pot - ref_pot).abs().max()) <= \
+        1e-4 * float(ref_pot.abs().max())
+    # the empty block keeps acc0 and pot0 exactly
+    assert torch.equal(acc[1], args[7][1]) and torch.equal(pot[1], args[8][1])
+    # the same sum twice: no float atomics
+    acc2, pot2 = pk.block_pair_accumulate(*args, RS_INV, H_INV, RCUT, cnt,
+                                          with_potential=with_potential)
+    assert torch.equal(acc, acc2) and torch.equal(pot, pot2)
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    return type(x)(**{k: _to_cpu(v) for k, v in x.__dict__.items()})
+
+
+@pytest.mark.parametrize("kind,use_bh,LL,rcut", [
+    ("blob", True, 512, RCUT), ("blob", False, 512, RCUT),
+    ("blob", True, 16, RCUT), ("clusters", True, 1024, 0.25),
+    ("clusters", False, 1024, 0.25)])
+def test_walk_kernel_matches_plain(cuda, kind, use_bh, LL, rcut):
+    """The walk kernel against the plain walk on 8192 clustered
+    particles: the same leaf lists, flags and visit and monopole counts;
+    acc and pot within 1e-5 by norm (another window formula). LL=16
+    overflows; "clusters" applies thousands of monopoles."""
+    args = walk_inputs(kind, cuda, n=8192, seed=21)
+    theta = 0.5 if kind == "clusters" else 0.175
+    kw = dict(rcut=rcut, bh_angle2=float(np.float32(
+        theta ** 2 if use_bh else 0.9 ** 2)), use_bh=use_bh,
+        rs_inv=3.0 / rcut, h_inv=H_INV, with_potential=True)
+    cfg = treewalk.WalkConfig(leaf_list_max=LL)
+    t_gpu, t_cpu = treepm.StageTimer(), treepm.StageTimer()
+    before = treewalk.LAUNCHES
+    res = treewalk.traverse_fused(*args, cfg, timer=t_gpu, **kw)
+    assert treewalk.LAUNCHES == before + 1
+    ref = treewalk.traverse_fused_reference(*[_to_cpu(a) for a in args],
+                                            cfg, timer=t_cpu, **kw)
+    acc, pot, leaf, nl, ovf = (a.cpu() for a in res)
+    racc, rpot, rleaf, rnl, rovf = ref
+    assert torch.equal(leaf, rleaf) and torch.equal(nl, rnl)
+    assert torch.equal(ovf, rovf)
+    if LL == 16:
+        assert bool(ovf.any())
+    assert t_gpu.counts == t_cpu.counts and t_gpu.series == t_cpu.series
+    assert (t_gpu.series["walk_monopoles"][0] > 1000) == (kind == "clusters")
+    assert np.linalg.norm((acc - racc).numpy()) <= \
+        1e-5 * np.linalg.norm(racc.numpy())
+    assert np.linalg.norm((pot - rpot).numpy()) <= \
+        1e-5 * np.linalg.norm(rpot.numpy())
+
+
+def test_walk_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    tree, tpos, center, half, aold, active = walk_inputs("blob", cuda,
+                                                         n=1024)
+    kw = dict(rcut=RCUT, bh_angle2=0.03, use_bh=True, rs_inv=RS_INV,
+              h_inv=H_INV)
+    cfg = treewalk.WalkConfig()
+    for k, bad in ((1, tpos.double()),
+                   (1, tpos.transpose(1, 2).contiguous().transpose(1, 2)),
+                   (2, center.cpu()), (4, aold[:-1]), (4, aold.double()),
+                   (5, active.to(torch.uint8))):
+        a = [tree, tpos, center, half, aold, active]
+        a[k] = bad
+        with pytest.raises(ValueError):
+            treewalk.traverse_fused(*a, cfg, **kw)
 
 
 def _particles(n, seed, box):
@@ -90,17 +197,17 @@ def _particles(n, seed, box):
 
 @pytest.mark.parametrize("use_bh", [0, 1])
 def test_tree_force_cuda_matches_cpu(cuda, use_bh):
-    """The whole tree force on the card (walk + pair kernel) against the
-    same function on the CPU (plain pair version)."""
+    """The whole tree force on the card (walk and pair kernels) against
+    the same function on the CPU (their plain versions)."""
     box, n = 10000.0, 8192
     tg = treepm.TreeGravity(boxsize=box, nmesh=32, softening=box / 300,
                             tree_use_bh=use_bh, with_potential=True,
                             walk_cfg=treewalk.WalkConfig(src_cap=8192))
     kw = tg.force_kwargs(n)
     cpu_args = _particles(n, 21, box)
-    before = pk.LAUNCHES
+    before, walks = pk.LAUNCHES, treewalk.LAUNCHES
     r_gpu = treepm.tree_force(*[a.to(cuda) for a in cpu_args], **kw)
-    assert pk.LAUNCHES == before + 1
+    assert pk.LAUNCHES == before + 1 and treewalk.LAUNCHES == walks + 1
     r_cpu = treepm.tree_force(*cpu_args, **kw)
     assert bool(r_gpu.overflow) == bool(r_cpu.overflow)
     a_cpu = r_cpu.accel.numpy()

@@ -66,7 +66,8 @@ def _exact(tx, ty, tz, sx, sy, sz, sm, acc0, pot0):
 
 def _port(args, with_potential, chunk=128):
     t = [torch.as_tensor(a) for a in args]
-    acc, pot = pk.block_pair_accumulate(*t, RS_INV, H_INV, RCUT,
+    every = torch.full((t[0].shape[0],), t[3].shape[1], dtype=torch.int32)
+    acc, pot = pk.block_pair_accumulate(*t, RS_INV, H_INV, RCUT, every,
                                         chunk=chunk,
                                         with_potential=with_potential)
     return acc.numpy(), pot.numpy()

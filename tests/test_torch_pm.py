@@ -76,10 +76,10 @@ def test_fixed_point_round_trip_and_from_jax_numpy():
                         capacity=128)
     arrays = {k: np.asarray(getattr(jp, k))
               for k in ParticleData.__dataclass_fields__}
-    tp = ParticleData.from_jax_numpy(arrays)
+    tp = ParticleData.from_jax_numpy(arrays, device="cpu")
     tq = ParticleData.from_numpy(pos, rng.randn(100, 3), np.ones(100),
                                  np.ones(100, np.int32), np.arange(100), box,
-                                 capacity=128)
+                                 capacity=128, device="cpu")
     assert tp.capacity == 128 and tp.num_valid == 100
     np.testing.assert_array_equal(tp.ipos.numpy(),
                                   np.asarray(jp.ipos).astype(np.int64))

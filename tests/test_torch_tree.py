@@ -109,7 +109,7 @@ def _walk_inputs(seed):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     fields = {k: np.asarray(getattr(jt, k))
               for k in Tree.__dataclass_fields__}
-    tt = Tree.from_jax_numpy(fields)
+    tt = Tree.from_jax_numpy(fields, device="cpu")
     return jt, tt, jgroups, tgroups, pos_box, mass_s
 
 
@@ -209,7 +209,7 @@ def test_tree_gravity_vs_direct_pairwise(clustered):
     mass = rng.uniform(0.5, 1.5, n)
     pdata = ParticleData.from_numpy(pos, np.zeros((n, 3)), mass,
                                     np.ones(n, np.int32), np.arange(n) + 1,
-                                    box)
+                                    box, device="cpu")
     tg = ttp.TreeGravity(boxsize=box, nmesh=nmesh, asmth=1.5, rcut=4.5,
                          G=1.0, softening=box / 200.0, tree_use_bh=1,
                          walk_cfg=ttw.WalkConfig(leaf_list_max=1024,
@@ -244,7 +244,7 @@ def test_tree_gravity_bh_first_call_and_cutoff():
     pos = np.array([[100.0, 500, 500], [800.0, 500, 500]])
     pdata = ParticleData.from_numpy(pos, np.zeros((2, 3)), np.ones(2),
                                     np.ones(2, np.int32), np.array([1, 2]),
-                                    box)
+                                    box, device="cpu")
     tg = ttp.TreeGravity(boxsize=box, nmesh=32, asmth=1.5, rcut=4.5, G=1.0,
                          softening=1.0, tree_use_bh=2,
                          walk_cfg=ttw.WalkConfig(leaf_list_max=64,
