@@ -10,7 +10,8 @@ fails the run (non-zero exit, no result line) if it fails:
 1. the card: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles both kernels, the pair kernel K1 (csrc/pairkernel.cu)
-   and the walk kernel K2 (csrc/treewalk.cu), one nvcc each, in parallel;
+   and the walk kernel K2 (csrc/treewalk.cu), and the two measurement
+   aids, one nvcc each, in parallel;
 3. K1: the pair kernel against its plain PyTorch version on the card at
    the main path's shapes (nb=1024 blocks, G=256 targets, S=4096
    sources), with and without potential, on inputs from a seed, once
@@ -18,15 +19,22 @@ fails the run (non-zero exit, no result line) if it fails:
    filled to S, one empty, random counts between); tolerance 1e-4 of
    max |result|;
 4. L2: one L2 round trip, timed by a pointer chase (csrc/l2chase.cu,
-   built with the kernels and loaded only here: the latency that bounds
-   each of the walk's dependent node visits);
+   built with the kernels and loaded only here: the latency of each
+   load in the walk's chain of dependent loads);
 5. K2: the walk kernel against its plain version on the card, on the
    dm-small lattice IC's first tree (BH opening, 512 leaves per block),
    at a retry-grown leaf list (relative opening, 4096 leaves, with
-   potential), and on 64^3 particles in eight clusters (BH, 512 leaves,
+   potential), on 64^3 particles in eight clusters (BH, 512 leaves,
    with potential), where monopoles do most of the work (the lattice
-   applies none): the same leaf lists, leaf counts, overflow flags and
-   visit counts, acc and pot within 1e-5 by norm;
+   applies none), and on the lattice moved by the box shift of the
+   slice's second step (relative opening), where blocks that straddle a
+   jump of the Z curve open thousands of leaves, at 512 leaves (they
+   overflow) and at the 8192 the retries reach: the same leaf lists,
+   leaf counts, overflow flags and visit counts, acc and pot within 1e-5
+   by norm.  In every case a second launch must give the same bits, and
+   the serial walk the port began with (csrc/treewalk_serial.cu, loaded
+   only here) is timed beside the kernel and must give the same bits
+   too;
 6. accuracy: the tree force on the card (walk + pair kernels) against
    direct pairwise summation, 4096 particles, as the repo's tree tests do;
 7. slice: the examples/dm-small configuration at full width (64^3 DM
@@ -40,8 +48,11 @@ Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
 counted as 2), for the work these inputs need: padding is not work, a
 pair beyond rcut needs only its distance, and the walk reads each node
-of the tree once (revisits hit L2; the walk's latency floor, printed
-beside its bound, counts them).
+of the tree once (revisits hit L2).  Beside the walk's bound stands its
+critical path, the longest chain of loads of which each needs the one
+before, times one L2 round trip: the kernel's (the longest block's sum
+of each round's longest sibling chain) and a serial walk's (the longest
+block's visits).
 
 The last two lines of standard output are the kernel table and the
 result, each one JSON object.
@@ -225,6 +236,24 @@ def time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean milliseconds of the device work of one call of fn: the call
+    is captured once in a CUDA graph and the graph replayed, so that the
+    host's time to enqueue it (allocations, launches) does not count.  fn
+    must not synchronise."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
+
+
 def pairs_within(tx, ty, tz, sx, sy, sz, count, rcut, batch=64, chunk=512):
     """Number of (target, real source) pairs closer than rcut."""
     import torch
@@ -362,10 +391,57 @@ def clustered_ipos(n, seed=31):
     return np.minimum((pos * 2.0 ** 32).astype(np.int64), 2 ** 32 - 1)
 
 
+SHIFT = (0.04367676, 0.01198168, 0.02141668)   # box units: what
+#   run.py:_update_random_offset draws at dm-small's second step
+
+
+def serial_walk_fn():
+    """The serial walk's entry point (csrc/treewalk_serial.cu), a
+    yardstick that only this script loads."""
+    import ctypes
+    from mpgadget_tpu_torch import kernels
+    fn = kernels.load("treewalk_serial").tree_walk_serial_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 3 + [ctypes.c_int]
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def serial_walk(fn, packed, tree, tpos, center, half, aold, active, cfg,
+                rcut, bh_angle2, use_bh, rs_inv, h_inv, with_potential):
+    """One launch of the serial walk on the walk kernel's inputs; returns
+    (acc, pot, leaf_idx, n_leaves, overflow, visits, monopoles)."""
+    import numpy as np
+    import torch
+    nodes, meta = packed
+    nb, G, _ = tpos.shape
+    dev = tpos.device
+    LL = cfg.leaf_list_max
+    out = (torch.empty((nb, 3, G), dtype=torch.float32, device=dev),
+           torch.empty((nb, G), dtype=torch.float32, device=dev),
+           torch.empty((nb, LL), dtype=torch.int64, device=dev),
+           torch.empty(nb, dtype=torch.int64, device=dev),
+           torch.empty(nb, dtype=torch.bool, device=dev),
+           torch.empty(nb, dtype=torch.int32, device=dev),
+           torch.empty(nb, dtype=torch.int32, device=dev))
+    rc = fn(nodes.data_ptr(), meta.data_ptr(), tree.n_nodes.data_ptr(),
+            tpos.data_ptr(), center.data_ptr(), half.data_ptr(),
+            aold.data_ptr(), active.data_ptr(), *(t.data_ptr() for t in out),
+            nb, G, tree.capacity, LL, float(rcut),
+            float(np.float32(rcut * rcut)), float(np.float32(bh_angle2)),
+            int(bool(use_bh)), float(rs_inv), float(h_inv),
+            int(with_potential), torch.cuda.current_stream(dev).cuda_stream)
+    check(rc == 0, f"serial walk launch failed: CUDA error {rc}")
+    return out
+
+
 def walk_phase(workdir, l2_ns, device="cuda", ngrid=NGRID, nmesh=NMESH):
     """The walk kernel against its plain version on the dm-small lattice
-    IC's first tree and on the same particles in clusters; returns one
-    dict per case."""
+    IC's first tree, on the same particles in clusters and on the lattice
+    after a box shift, with the serial walk beside it; returns one dict
+    per case."""
+    import numpy as np
     import torch
     from mpgadget_tpu_torch.gravity import treewalk as tw
     from mpgadget_tpu_torch.gravity.treepm import StageTimer, walk_inputs
@@ -378,11 +454,17 @@ def walk_phase(workdir, l2_ns, device="cuda", ngrid=NGRID, nmesh=NMESH):
     amag = torch.sqrt(torch.sum(acc_old * acc_old, dim=-1))
     ipos_clusters = torch.as_tensor(clustered_ipos(int(pd.capacity)),
                                     device=pd.ipos.device)
+    shift = torch.as_tensor((np.array(SHIFT) * 2.0 ** 32).astype(np.int64),
+                            device=pd.ipos.device)
+    ipos_shifted = (pd.ipos + shift[None, :]) & 0xFFFFFFFF
+    serial_fn = serial_walk_fn() if device == "cuda" else None
     out = []
     for name, ipos, use_bh, LL, wp in (
             ("lattice", pd.ipos, True, 512, False),
             ("lattice", pd.ipos, False, 4096, True),
-            ("clusters", ipos_clusters, True, 512, True)):
+            ("clusters", ipos_clusters, True, 512, True),
+            ("shifted", ipos_shifted, False, 512, False),
+            ("shifted", ipos_shifted, False, 8192, False)):
         kw = tg.force_kwargs(int(pd.capacity), use_bh=use_bh)
         w = walk_inputs(ipos, pd.mass, pd.valid, amag,
                         leaf_max=kw["leaf_max"], max_level=kw["max_level"],
@@ -419,7 +501,38 @@ def walk_phase(workdir, l2_ns, device="cuda", ngrid=NGRID, nmesh=NMESH):
             abs_err = max(abs_err, float((pot - rpot).abs().max()))
         check(err <= WALK_TOL, f"walk kernel acc/pot differ by {err:.3e} "
               f"> {WALK_TOL:g} by norm ({case})")
-        ms = time_ms(lambda: tw.traverse_fused(*args, with_potential=wp), 10)
+        if name == "shifted":
+            check(bool(ovf.any()) == (LL == 512),
+                  f"overflowing blocks not as expected ({case})")
+
+        # a second launch, and the serial walk: the same bits
+        packed = tw.pack_nodes(w.tree)
+        again, stats = tw.walk_kernel(*args, with_potential=wp,
+                                      packed=packed)
+        check(all(torch.equal(a, b) for a, b in zip(res, again)),
+              f"two launches of the walk kernel differ ({case})")
+        rounds = int(stats["rounds"].max())
+        loads = int(stats["loads"].max())
+        check(int(stats["serial"].sum()) == 0,
+              f"the walk kernel's stack ran out of room ({case})")
+        ser = serial_walk(serial_fn, packed, *args, wp)
+        check(all(torch.equal(a, b) for a, b in zip(res, ser[:5]))
+              and torch.equal(ser[5], stats["visits"])
+              and torch.equal(ser[6], stats["monopoles"]),
+              f"walk kernel and serial walk differ in some bit ({case})")
+
+        # the kernel is shorter than the host takes to enqueue it, so the
+        # device times come from graph replays; eager_ms is what a caller
+        # sees who makes call after call
+        ms = graph_ms(lambda: tw.traverse_fused(*args, with_potential=wp),
+                      20)
+        eager_ms = time_ms(lambda: tw.traverse_fused(
+            *args, with_potential=wp), 20)
+        serial_ms = graph_ms(lambda: serial_walk(serial_fn, packed, *args,
+                                                 wp), 10)
+        alone_ms = graph_ms(lambda: tw.walk_kernel(
+            *args, with_potential=wp, packed=packed), 20)
+        pack_ms = graph_ms(lambda: tw.pack_nodes(w.tree), 20)
         nb, G = w.tpos.shape[:2]
         nodes = t_kernel.series["walk_nodes"][0]
         visits = t_kernel.series["walk_visits_sum"][0]
@@ -428,22 +541,37 @@ def walk_phase(workdir, l2_ns, device="cuda", ngrid=NGRID, nmesh=NMESH):
         if name == "clusters":
             check(mono > 0, "clustered walk applied no monopole")
         bound_ms, bound_by = walk_bound(nb, G, LL, nodes, visits, mono, wp)
-        latency_ms = vmax * l2_ns * 1e-6
+        path_ms = loads * l2_ns * 1e-6
+        serial_path_ms = vmax * l2_ns * 1e-6
         print(f"kernel traverse_fused {name} nb={nb} G={G} LL={LL} "
               f"{'BH' if use_bh else 'relative'} with_potential={wp}: "
               f"identical leaf lists ({int(nl.sum())} leaves, "
               f"{int(ovf.sum())} blocks overflowed); acc/pot err by norm "
               f"{err:.6e} (tol {WALK_TOL:g}), max abs {abs_err:.6e}; "
-              f"tree nodes {nodes}, visits {visits} (longest block "
+              f"two launches and the serial walk bit-identical; "
+              f"tree nodes {nodes}, deepest level "
+              f"{int(w.tree.level.max())}, visits {visits} (longest block "
               f"{vmax}), monopoles {mono} (pair terms "
-              f"{mono * G}); kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
-              f"bound_ms={bound_ms:.6f} ({bound_by}); latency floor "
-              f"{latency_ms:.6f} ms (longest block x one L2 round trip)",
-              flush=True)
+              f"{mono * G}); kernel_ms={ms:.6f} (device time of the "
+              f"wrapper, with pack_nodes {pack_ms:.6f}; the kernel alone "
+              f"{alone_ms:.6f}; called again and again by the host "
+              f"{eager_ms:.6f}) serial_walk_ms={serial_ms:.6f} "
+              f"plain_ms={plain_ms:.6f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by}); critical path "
+              f"{path_ms:.6f} ms (longest block {loads} dependent loads "
+              f"in {rounds} rounds, x one L2 round trip; mean block "
+              f"{float(stats['loads'].float().mean()):.1f} loads in "
+              f"{float(stats['rounds'].float().mean()):.1f} rounds), a "
+              f"serial walk's {serial_path_ms:.6f} ms (longest block "
+              f"{vmax} visits)", flush=True)
         out.append(dict(case=case, max_abs_err=abs_err, rel=err, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, visits=visits, visits_max=vmax,
-                        monopoles=mono, latency_ms=latency_ms))
+                        alone_ms=alone_ms, eager_ms=eager_ms,
+                        serial_ms=serial_ms,
+                        pack_ms=pack_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, visits=visits,
+                        visits_max=vmax, monopoles=mono, rounds_max=rounds,
+                        loads_max=loads,
+                        path_ms=path_ms, serial_path_ms=serial_path_ms))
     return out
 
 
@@ -661,11 +789,11 @@ def run():
                    for c, v, m, wp in zip(ser["walk_nodes"],
                                           ser["walk_visits_sum"],
                                           ser["walk_monopoles"], npot))
-    k2_latency = res["counts"]["walk_iterations"] * l2_ns * 1e-6
+    k2_serial = res["counts"]["walk_iterations"] * l2_ns * 1e-6
     print(f"slice bounds, all evaluations: K1 {k1_bound:.6f} ms for the "
-          f"real sources at the full pair cost; walk {k2_bound:.6f} ms, "
-          f"latency floor "
-          f"{k2_latency:.6f} ms (longest blocks x one L2 round trip)")
+          f"real sources at the full pair cost; walk {k2_bound:.6f} ms (a "
+          f"serial walk's critical path would be {k2_serial:.6f} ms: "
+          f"longest blocks' visits x one L2 round trip)")
     print(f"tree counts: {res['counts']}; overflow retries (capacities "
           f"that overflowed): {res['retries']}; final src_cap "
           f"{res['src_cap']}")
@@ -698,6 +826,10 @@ def run():
         "max_abs_err": max(r["max_abs_err"] for r in wres),
         "max_rel_err": max(r["rel"] for r in wres),
         "monopoles_compared": sum(r["monopoles"] for r in wres),
+        "critical_path_ms": k2["path_ms"],
+        "serial_critical_path_ms": k2["serial_path_ms"],
+        "serial_walk_ms": k2["serial_ms"],
+        "kernel_alone_ms": k2["alone_ms"], "eager_ms": k2["eager_ms"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None}]}))

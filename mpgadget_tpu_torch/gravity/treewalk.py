@@ -6,10 +6,11 @@ block runs a stackless preorder walk over the skip-pointer tree
 (descend = i+1, reject/accept = skip[i]); accepted nodes' monopoles are
 applied to the block's G targets inside the walk, and opened leaves are
 recorded.  On CUDA tensors :func:`traverse_fused` launches the
-hand-written walk kernel ``csrc/treewalk.cu`` (one launch per call); on
-CPU tensors it runs :func:`traverse_fused_reference`, a plain batched
-loop.  The opened leaves' particle ranges are then packed into a dense
-per-block source buffer and evaluated as block-dense pair interactions by
+hand-written walk kernel ``csrc/treewalk.cu`` (one launch per call; it
+takes the same nodes in parallel, see :func:`walk_kernel`); on CPU
+tensors it runs :func:`traverse_fused_reference`, a plain batched loop.
+The opened leaves' particle ranges are then packed into a dense per-block
+source buffer and evaluated as block-dense pair interactions by
 ``pairkernel.block_pair_accumulate`` (the CUDA kernel on CUDA tensors).
 
 Opening criteria mirror shall_we_open_node (gravshort-tree.c:221-245):
@@ -54,6 +55,7 @@ class WalkConfig:
 # no-ops)
 DONE_CHECK = 16
 MAX_G = 1024
+STACK_CAP = 3072                # the walk kernel's stack entries per block
 LEAF_BIT = -2 ** 31             # leaf flag of the packed int32 node meta
 
 LAUNCHES = 0                    # walk kernel launches (not plain calls)
@@ -113,13 +115,17 @@ def pack_nodes(tree):
 def _count(timer, tree, visits, monopoles):
     """Walk statistics for a StageTimer: the longest block's node visits
     ("walk_iterations"), and per evaluation the tree's nodes, the
-    visits' sum and the monopoles applied."""
+    visits' sum and the monopoles applied (one read from the device)."""
     if timer is None:
         return
-    timer.count("walk_iterations", int(visits.max()) if visits.numel() else 0)
-    timer.record("walk_nodes", int(tree.n_nodes))
-    timer.record("walk_visits_sum", int(visits.sum()))
-    timer.record("walk_monopoles", int(monopoles.sum()))
+    longest = visits.max() if visits.numel() else visits.sum()
+    longest, nodes, total, mono = torch.stack(
+        [longest.long(), tree.n_nodes.long(), visits.sum(),
+         monopoles.sum()]).tolist()
+    timer.count("walk_iterations", longest)
+    timer.record("walk_nodes", nodes)
+    timer.record("walk_visits_sum", total)
+    timer.record("walk_monopoles", mono)
 
 
 def traverse_fused_reference(tree, tpos, center, half, aold, active,
@@ -211,7 +217,7 @@ def _kernel():
     if _fn is None:
         fn = kernels.load("treewalk").tree_walk_f32
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 3 + [ctypes.c_int]
                        + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
@@ -219,16 +225,32 @@ def _kernel():
     return _fn
 
 
-def _launch(tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
-            use_bh, rs_inv, h_inv, with_potential, timer):
+def walk_kernel(tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
+                use_bh, rs_inv, h_inv, with_potential=False,
+                stack_cap=STACK_CAP, packed=None):
+    """One launch of the walk kernel on CUDA tensors (no synchronisation).
+
+    Returns :func:`traverse_fused`'s five results and a dict of int32[nb]
+    device tensors: "visits" and "monopoles" (nodes visited, monopoles
+    applied), "rounds" (rounds of the block's stack), "loads" (the
+    dependent loads on the block's critical path: each round's longest
+    sibling chain) and "serial" (nodes visited in the serial mode that
+    takes over when the stack has no room; see csrc/treewalk.cu).
+    stack_cap below STACK_CAP only serves to test that mode; packed: the
+    tree's :func:`pack_nodes`, if the caller has it already.
+    """
     global LAUNCHES
     nb, G, _ = tpos.shape
     LL = cfg.leaf_list_max
     C = tree.capacity
     dev = tpos.device
     if G > MAX_G:
-        raise ValueError(f"group size {G} > {MAX_G} threads per block")
-    nodes, meta = pack_nodes(tree)
+        raise ValueError(f"group size {G} > {MAX_G} targets per block")
+    if not 1 <= stack_cap <= STACK_CAP:
+        raise ValueError(f"stack_cap {stack_cap} outside [1, {STACK_CAP}]")
+    if not 1 <= C < 2 ** 30:
+        raise ValueError(f"tree capacity {C} outside [1, 2^30)")
+    nodes, meta = pack_nodes(tree) if packed is None else packed
     f32, i32 = torch.float32, torch.int32
     for name, t, shape, dtype in (
             ("tpos", tpos, (nb, G, 3), f32), ("center", center, (nb, 3), f32),
@@ -245,8 +267,9 @@ def _launch(tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
     leaves = torch.empty((nb, LL), dtype=torch.int64, device=dev)
     nl = torch.empty(nb, dtype=torch.int64, device=dev)
     ovf = torch.empty(nb, dtype=torch.bool, device=dev)
-    visits = torch.empty(nb, dtype=i32, device=dev)
-    monopoles = torch.empty(nb, dtype=i32, device=dev)
+    stats = {name: torch.empty(nb, dtype=i32, device=dev)
+             for name in ("visits", "monopoles", "rounds", "loads",
+                         "serial")}
     # a Python float meets an f32 tensor in PyTorch rounded to f32: pass
     # the plain version's scalars the same way (rcut * rcut in double)
     with torch.cuda.device(dev):
@@ -254,16 +277,18 @@ def _launch(tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
                 tpos.data_ptr(), center.data_ptr(), half.data_ptr(),
                 aold.data_ptr(), active.data_ptr(), acc.data_ptr(),
                 pot.data_ptr(), leaves.data_ptr(), nl.data_ptr(),
-                ovf.data_ptr(), visits.data_ptr(), monopoles.data_ptr(), nb,
-                G, C, LL, float(rcut), float(np.float32(rcut * rcut)),
+                ovf.data_ptr(), stats["visits"].data_ptr(),
+                stats["monopoles"].data_ptr(), stats["rounds"].data_ptr(),
+                stats["loads"].data_ptr(), stats["serial"].data_ptr(), nb,
+                G, C, LL, int(stack_cap),
+                float(rcut), float(np.float32(rcut * rcut)),
                 float(np.float32(bh_angle2)), int(bool(use_bh)),
                 float(rs_inv), float(h_inv), int(with_potential),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    _count(timer, tree, visits, monopoles)
-    return acc, pot, leaves, nl, ovf
+    return (acc, pot, leaves, nl, ovf), stats
 
 
 def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
@@ -287,8 +312,11 @@ def traverse_fused(tree, tpos, center, half, aold, active, cfg: WalkConfig,
             tree, tpos, center, half, aold, active, cfg, rcut, bh_angle2,
             use_bh, rs_inv, h_inv, with_potential=with_potential,
             timer=timer)
-    return _launch(tree, tpos, center, half, aold, active, cfg, rcut,
-                   bh_angle2, use_bh, rs_inv, h_inv, with_potential, timer)
+    res, stats = walk_kernel(tree, tpos, center, half, aold, active, cfg,
+                             rcut, bh_angle2, use_bh, rs_inv, h_inv,
+                             with_potential=with_potential)
+    _count(timer, tree, stats["visits"], stats["monopoles"])
+    return res
 
 
 def make_leaf_sources(tree, pos_box, mass_sorted, valid_sorted, nleaf_cap,

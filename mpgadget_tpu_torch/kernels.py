@@ -31,7 +31,9 @@ SOURCES = {
     # the walk's open/discard decisions must round as the plain version's
     # separate PyTorch operations do: no multiply-add contraction
     "treewalk": ("treewalk.cu", ("-fmad=false",)),
-    # measurement aid that only chip_smoke.py loads: an L2 pointer chase
+    # measurement aids that only chip_smoke.py loads: the serial walk the
+    # port began with, as a yardstick, and an L2 pointer chase
+    "treewalk_serial": ("treewalk_serial.cu", ("-fmad=false",)),
     "l2chase": ("l2chase.cu", ()),
 }
 

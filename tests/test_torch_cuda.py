@@ -13,7 +13,7 @@ import torch
 from mpgadget_tpu_torch.gravity import pairkernel as pk
 from mpgadget_tpu_torch.gravity import treepm, treewalk
 from mpgadget_tpu_torch.pm import gravity as pm
-from test_torch_walkkernel import walk_inputs
+from test_torch_walkkernel import _stack_walk, walk_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -169,6 +169,70 @@ def test_walk_kernel_matches_plain(cuda, kind, use_bh, LL, rcut):
         1e-5 * np.linalg.norm(rpot.numpy())
 
 
+@pytest.mark.parametrize("kind,use_bh,LL,rcut,stack_cap,node_cap", [
+    ("clusters", True, 1024, 0.25, 3072, None),
+    ("blob", False, 512, RCUT, 3072, None),
+    # a stack too small for the rounds: they are taken again with fewer
+    # entries, and serial walks take over
+    ("clusters", True, 1024, 0.25, 100, None),
+    ("clusters", False, 64, 0.25, 1, None),
+    # a tree that overflowed its capacity, walked past its rows
+    ("blob", True, 512, 1.0, 3072, 299),
+    ("blob", True, 512, 1.0, 40, 299)])
+def test_walk_kernel_rounds_and_serial_mode(cuda, kind, use_bh, LL, rcut,
+                                            stack_cap, node_cap):
+    """The kernel's stack at its full and at a tiny capacity (where the
+    serial mode takes over), also on a tree that overflowed its rows: the
+    plain walk's results, the numpy mirror's rounds, dependent loads and
+    serial visits block by block, and the same bits from a second
+    launch."""
+    args = walk_inputs(kind, cuda, node_cap=node_cap)
+    tree, tpos, center, half, aold, active = args
+    active = active.clone()
+    active[3] = False
+    args = (tree, tpos, center, half, aold, active)
+    theta = 0.5 if kind == "clusters" else 0.175
+    bh_angle2 = float(np.float32(theta ** 2 if use_bh else 0.9 ** 2))
+    kw = dict(rcut=rcut, bh_angle2=bh_angle2, use_bh=use_bh,
+              rs_inv=3.0 / rcut, h_inv=H_INV, with_potential=True)
+    cfg = treewalk.WalkConfig(leaf_list_max=LL)
+    before = treewalk.LAUNCHES
+    res, stats = treewalk.walk_kernel(*args, cfg, stack_cap=stack_cap, **kw)
+    res2, stats2 = treewalk.walk_kernel(*args, cfg, stack_cap=stack_cap,
+                                        **kw)
+    assert treewalk.LAUNCHES == before + 2
+    for a, b in zip(res, res2):
+        assert torch.equal(a, b)
+    for name in stats:
+        assert torch.equal(stats[name], stats2[name])
+    t_cpu = treepm.StageTimer()
+    ref = treewalk.traverse_fused_reference(*[_to_cpu(a) for a in args],
+                                            cfg, timer=t_cpu, **kw)
+    acc, pot, leaf, nl, ovf = (a.cpu() for a in res)
+    racc, rpot, rleaf, rnl, rovf = ref
+    assert torch.equal(leaf, rleaf) and torch.equal(nl, rnl)
+    assert torch.equal(ovf, rovf)
+    st = {k: v.cpu().numpy() for k, v in stats.items()}
+    assert t_cpu.counts["walk_iterations"] == st["visits"].max()
+    assert t_cpu.series["walk_visits_sum"] == [st["visits"].sum()]
+    assert t_cpu.series["walk_monopoles"] == [st["monopoles"].sum()]
+    assert np.linalg.norm((acc - racc).numpy()) <= \
+        1e-5 * np.linalg.norm(racc.numpy())
+    assert np.linalg.norm((pot - rpot).numpy()) <= \
+        1e-5 * np.linalg.norm(rpot.numpy())
+    assert (st["serial"].sum() > 0) == (stack_cap < 3072)
+    assert st["rounds"][3] == 0 and st["visits"][3] == 0
+    nodes, meta = (a.cpu().numpy() for a in treewalk.pack_nodes(tree))
+    c, h, ao, act = (a.cpu().numpy() for a in (center, half, aold, active))
+    for b in range(tpos.shape[0]):
+        _, _, v, monos, rounds, loads, serial = _stack_walk(
+            nodes, meta, int(tree.n_nodes), tree.capacity, c[b], h[b], ao[b],
+            act[b], LL, rcut, bh_angle2, use_bh, stack_cap=stack_cap)
+        assert (v, len(monos), rounds, loads, serial) == (
+            st["visits"][b], st["monopoles"][b], st["rounds"][b],
+            st["loads"][b], st["serial"][b])
+
+
 def test_walk_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     tree, tpos, center, half, aold, active = walk_inputs("blob", cuda,
                                                          n=1024)
@@ -183,6 +247,10 @@ def test_walk_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         a[k] = bad
         with pytest.raises(ValueError):
             treewalk.traverse_fused(*a, cfg, **kw)
+    for cap in (0, treewalk.STACK_CAP + 1):
+        with pytest.raises(ValueError):
+            treewalk.walk_kernel(tree, tpos, center, half, aold, active, cfg,
+                                 stack_cap=cap, **kw)
 
 
 def _particles(n, seed, box):

@@ -3,10 +3,13 @@ table and its plain version, the pair kernel's work list and source
 counts, the fitted window, and the card as the entry points' default.
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py).
-Here the walk kernel's per-block loop is mirrored in float32 numpy, one
-rounded operation at a time as the kernel is compiled (no multiply-add
-contraction), and held against the plain batched walk: the leaf lists
-must be the same bit for bit.
+Here the walk kernel's per-block procedure is mirrored in float32 numpy,
+one rounded operation at a time as the kernel is compiled (no
+multiply-add contraction), and held against the plain batched walk: the
+leaf lists must be the same bit for bit.  Two mirrors: the serial walk
+(one node after the other, the order that defines the results) and the
+kernel's rounds over a sorted stack of ranges and markers, which must
+give the serial walk's leaves and monopoles in its order.
 """
 
 import inspect
@@ -42,7 +45,7 @@ ERFCX_REL_ERR = 1e-6      # stated in shortrange.cuh
 torch.set_num_threads(1)
 
 
-def walk_inputs(kind, device="cpu", n=4096, seed=9):
+def walk_inputs(kind, device="cpu", n=4096, seed=9, node_cap=None):
     """The walk's inputs on ``device`` (tests/test_torch_cuda.py shares
     them).  "blob": uniform with a quarter in one small blob, a slow old
     acceleration (the relative criterion opens every node); "clusters":
@@ -63,46 +66,65 @@ def walk_inputs(kind, device="cpu", n=4096, seed=9):
                         device=device),
         torch.ones(n, dtype=torch.bool, device=device),
         torch.as_tensor(amag.astype(np.float32), device=device), leaf_max=32,
-        max_level=15, node_cap=int(0.35 * n) + 64, group_size=256)
+        max_level=15, node_cap=node_cap or int(0.35 * n) + 64,
+        group_size=256)
     aold = float(np.float32(0.002)) * w.amin
     return w.tree, w.tpos, w.center, w.half, aold, w.active
 
 
-def _scalar_walk(nodes, meta, n_nodes, C, center, half, aold, active, LL,
-                 rcut, bh_angle2, use_bh):
-    """One block's walk decisions as the kernel makes them: every
-    operation a rounded float32 operation, in the kernel's order."""
+DISCARD, MONOPOLE, LEAF, DESCEND = range(4)
+
+
+def _decide(nodes, meta, C, i, center, half, aold, rcut2, bh2, bh_only):
+    """(fate, skip pointer) of node i for one block as the kernel decides
+    it: every operation a rounded float32 operation, in the kernel's
+    order.  An index at or past C reads row C - 1."""
     f = np.float32
-    rcut2 = f(rcut * rcut)
-    bh2 = f(bh_angle2)
+    ic = min(i, C - 1)
+    cx, cy, cz, ln, _, _, _, m = nodes[ic]
+    mt = int(meta[ic])
+    dc = [abs(f(d - np.rint(d))) for d in (f(cx - center[0]),
+                                           f(cy - center[1]),
+                                           f(cz - center[2]))]
+    hl = f(f(0.5) * ln)
+    dm = [max(f(f(d - h) - hl), f(0)) for d, h in zip(dc, half)]
+    r2min = f(f(f(dm[0] * dm[0]) + f(dm[1] * dm[1])) + f(dm[2] * dm[2]))
+    skip = mt & 0x7FFFFFFF
+    if r2min > rcut2:
+        return DISCARD, skip
+    opened = f(ln * ln) > f(bh2 * r2min)
+    if not bh_only:
+        opened = opened or f(f(m * ln) * ln) > f(f(r2min * r2min) * aold)
+    l6 = f(f(0.6) * ln)
+    opened = opened or r2min <= 0 or all(d < f(h + l6)
+                                         for d, h in zip(dc, half))
+    if not opened:
+        return MONOPOLE, skip
+    return (LEAF if mt < 0 else DESCEND), skip
+
+
+def _scalar_walk(nodes, meta, n_nodes, C, center, half, aold, active, LL,
+                 rcut, bh_angle2, use_bh, monos=None):
+    """One block's serial walk, one node after the other.  Returns
+    (leaves, overflow, visits, monopoles); the accepted nodes are
+    appended to ``monos`` in the order they are applied."""
+    rcut2 = np.float32(rcut * rcut)
+    bh2 = np.float32(bh_angle2)
     bh_only = use_bh or aold <= 0
     leaves, ovf, visits, mono = [], False, 0, 0
     i = 0 if active else n_nodes
     while i < n_nodes:
-        ic = min(i, C - 1)
-        cx, cy, cz, ln, _, _, _, m = nodes[ic]
-        mt = int(meta[ic])
         visits += 1
-        dc = [abs(f(d - np.rint(d))) for d in (f(cx - center[0]),
-                                               f(cy - center[1]),
-                                               f(cz - center[2]))]
-        hl = f(f(0.5) * ln)
-        dm = [max(f(f(d - h) - hl), f(0)) for d, h in zip(dc, half)]
-        r2min = f(f(f(dm[0] * dm[0]) + f(dm[1] * dm[1])) + f(dm[2] * dm[2]))
-        skip = mt & 0x7FFFFFFF
-        if r2min > rcut2:
+        fate, skip = _decide(nodes, meta, C, i, center, half, aold, rcut2,
+                             bh2, bh_only)
+        if fate == DISCARD:
             i = skip
-            continue
-        opened = f(ln * ln) > f(bh2 * r2min)
-        if not bh_only:
-            opened = opened or f(f(m * ln) * ln) > f(f(r2min * r2min) * aold)
-        l6 = f(f(0.6) * ln)
-        opened = opened or r2min <= 0 or all(d < f(h + l6)
-                                             for d, h in zip(dc, half))
-        if not opened:
+        elif fate == MONOPOLE:
             mono += 1
+            if monos is not None:
+                monos.append(i)
             i = skip
-        elif mt < 0:
+        elif fate == LEAF:
             if len(leaves) < LL:
                 leaves.append(i)
             else:
@@ -111,6 +133,97 @@ def _scalar_walk(nodes, meta, n_nodes, C, center, half, aold, active, LL,
         else:
             i += 1
     return leaves, ovf, visits, mono
+
+
+def _stack_walk(nodes, meta, n_nodes, C, center, half, aold, active, LL,
+                rcut, bh_angle2, use_bh, window=256, stack_cap=3072, sibs=8):
+    """One block's walk as csrc/treewalk.cu runs it.  The stack (its top
+    is the list's end) holds, ascending from the top, ranges (a, b) of
+    preorder indices still to walk and markers (node, -fate).  A round
+    takes the top w entries; in a range up to ``sibs`` siblings are
+    visited, each found through the one before, and it becomes each
+    sibling's marker or its children's range, and the range of the
+    siblings left; markers that no range precedes leave in order.  A
+    round whose new entries would not fit is taken again with as few
+    entries as are sure to fit; when that is none, the top entry is taken
+    alone, a range walked serially.  A skip pointer outside (a, b] counts
+    as b.  Returns (leaves, overflow, visits, monopole nodes in the order
+    applied, rounds, dependent loads, serial visits)."""
+    rcut2 = np.float32(rcut * rcut)
+    bh2 = np.float32(bh_angle2)
+    bh_only = use_bh or aold <= 0
+    leaves, monos = [], []
+    n_opened = visits = rounds = loads = serial = 0
+    safe = False
+
+    def emit(node, fate):
+        nonlocal n_opened
+        if fate == LEAF:
+            if n_opened < LL:
+                leaves.append(node)
+            n_opened += 1
+        else:
+            monos.append(node)
+
+    def visit(a, b):
+        fate, skip = _decide(nodes, meta, C, a, center, half, aold, rcut2,
+                             bh2, bh_only)
+        return fate, (b if skip <= a or skip > b else skip)
+
+    stack = [(0, n_nodes)] if active and n_nodes > 0 else []
+    while stack:
+        rounds += 1
+        w = min(window, len(stack))
+        if safe:
+            w = min(w, (stack_cap - len(stack)) // (2 * sibs))
+        if w <= 0:
+            safe = False
+            a, b = stack.pop()
+            if b < 0:
+                emit(a, -b)
+                continue
+            while a < b:
+                fate, skip = visit(a, b)
+                visits += 1
+                serial += 1
+                loads += 1
+                if fate == DESCEND:
+                    a += 1
+                else:
+                    if fate != DISCARD:
+                        emit(a, fate)
+                    a = skip
+            continue
+        new, seen, deepest = [], 0, 0
+        for a, b in stack[:-w - 1:-1]:                  # ascending
+            if b < 0:
+                new.append((a, b))
+                continue
+            k = 0
+            while a < b and k < sibs:
+                fate, skip = visit(a, b)
+                k += 1
+                if fate in (MONOPOLE, LEAF):
+                    new.append((a, -fate))
+                if fate == DESCEND and a + 1 < skip:
+                    new.append((a + 1, skip))
+                a = skip
+            if a < b:
+                new.append((a, b))
+            seen += k
+            deepest = max(deepest, k)
+        loads += deepest
+        assert new == sorted(new, key=lambda e: e[0])
+        final = next((k for k, e in enumerate(new) if e[1] >= 0), len(new))
+        safe = len(stack) - w + len(new) - final > stack_cap
+        if safe:                # nothing is written: take fewer
+            continue
+        del stack[-w:]
+        visits += seen
+        for a, b in new[:final]:
+            emit(a, -b)
+        stack.extend(reversed(new[final:]))
+    return leaves, n_opened > LL, visits, monos, rounds, loads, serial
 
 
 @pytest.mark.parametrize("kind,use_bh,LL,rcut", [
@@ -153,6 +266,77 @@ def test_kernel_walk_order_matches_plain_walk(kind, use_bh, LL, rcut):
     assert timer.series["walk_monopoles"] == [sum(mono)]
     assert (sum(mono) > 100) == (kind == "clusters")
     assert torch.isfinite(acc).all() and torch.isfinite(pot).all()
+
+
+@pytest.mark.parametrize("kind,use_bh,LL,rcut,stack_cap,node_cap", [
+    ("blob", True, 512, RCUT, 3072, None),
+    ("blob", False, 512, RCUT, 3072, None),
+    ("blob", True, 24, RCUT, 3072, None),
+    ("clusters", True, 512, 0.25, 3072, None),
+    ("clusters", False, 512, 0.25, 3072, None),
+    # a stack too small for its rounds: they are taken again with fewer
+    # entries, and serial walks take over
+    ("blob", True, 24, RCUT, 40, None),
+    ("clusters", True, 512, 0.25, 100, None),
+    ("clusters", False, 512, 0.25, 1, None),
+    # a tree that overflowed its capacity (770 nodes, 299 rows): rcut of
+    # the box and BH keep its last row, a level-2 cell, opened, so that
+    # the walk runs on through the indices past the rows to its end
+    ("blob", True, 512, 1.0, 3072, 299),
+    ("blob", True, 512, 1.0, 16, 299)])
+def test_kernel_stack_walk_matches_plain_walk(kind, use_bh, LL, rcut,
+                                              stack_cap, node_cap):
+    """The kernel's rounds over its sorted stack (mirrored in float32
+    numpy) give the plain walk's leaf lists, flags and counts, and the
+    serial walk's monopoles in its order; block 3 is inactive."""
+    tree, tpos, center, half, aold, active = walk_inputs(kind,
+                                                         node_cap=node_cap)
+    active = active.clone()
+    active[3] = False
+    assert bool(tree.overflow) == (node_cap is not None)
+    bh_angle2 = float(np.float32((0.5 if kind == "clusters" else 0.175) ** 2
+                                 if use_bh else 0.9 ** 2))
+    timer = treepm.StageTimer()
+    acc, pot, leaf_idx, nl, ovf = tw.traverse_fused(
+        tree, tpos, center, half, aold, active,
+        tw.WalkConfig(leaf_list_max=LL), rcut, bh_angle2, use_bh,
+        3.0 / rcut, H_INV, with_potential=True, timer=timer)
+    if LL == 24:
+        assert bool(ovf.any())
+    nodes, meta = (a.numpy() for a in tw.pack_nodes(tree))
+    n_nodes, C = int(tree.n_nodes), tree.capacity
+    c, h, ao, act = (a.numpy() for a in (center, half, aold, active))
+    visits, mono, serial, rounds = [], [], [], []
+    for b in range(tpos.shape[0]):
+        args = (nodes, meta, n_nodes, C, c[b], h[b], ao[b], act[b], LL, rcut,
+                bh_angle2, use_bh)
+        leaves, bovf, v, monos, r, ld, ser = _stack_walk(
+            *args, stack_cap=stack_cap)
+        assert ld <= 8 * r + ser
+        serial_monos = []
+        assert _scalar_walk(*args, monos=serial_monos) == (
+            leaves, bovf, v, len(monos))
+        assert monos == serial_monos
+        assert int(nl[b]) == len(leaves)
+        np.testing.assert_array_equal(leaf_idx[b, :len(leaves)].numpy(),
+                                      leaves)
+        assert (leaf_idx[b, len(leaves):] == C).all()
+        assert bool(ovf[b]) == bovf
+        visits.append(v)
+        mono.append(len(monos))
+        serial.append(ser)
+        rounds.append(r)
+    assert visits[3] == 0 and rounds[3] == 0 and int(nl[3]) == 0
+    assert timer.counts["walk_iterations"] == max(visits)
+    assert timer.series["walk_visits_sum"] == [sum(visits)]
+    assert timer.series["walk_monopoles"] == [sum(mono)]
+    # the full stack never leaves the rounds, and they are far fewer than
+    # the visits; a small one falls back to serial walks
+    assert (sum(serial) > 0) == (stack_cap < 3072)
+    if stack_cap == 3072 and node_cap is None:
+        assert max(rounds) <= 12 and max(visits) > 20 * max(rounds)
+    if node_cap is not None:
+        assert n_nodes > C and max(visits) > C
 
 
 def test_pack_nodes_round_trips_every_field():
