@@ -42,7 +42,29 @@ fails the run (non-zero exit, no result line) if it fails:
    SplitGravityTimestepsOn=0 and SnapshotWithFOF=0, on a seeded lattice
    IC: build_simulation -> Simulation.run(max_steps=3) ->
    write_snapshot, with both kernels' launch counts read around it; then
-   phase 3 again at the slice's final S if overflow retries grew it.
+   phase 3 again at the slice's final S if overflow retries grew it;
+8. compaction: the tree force on 64^3 clustered particles with a seeded
+   20% of the targets active (half the targets of a seeded 40% of the
+   blocks), walked over exactly the active blocks, against the same force
+   with every block walked: the same bits on active rows; and both
+   kernels against their plain versions at those compacted shapes, to
+   the tolerances of phases 3 and 5;
+9. genic: examples/dm-small/paramfile.genic through the port's CLI,
+   python -m mpgadget_tpu_torch.genic.main (Ngrid 64, Nmesh 128, Seed
+   181170, z=9, UnitaryAmplitude) with the
+   Eisenstein-Hu spectrum in place of the absent class_pk_9.dat
+   (WhichSpectrum 1, Sigma8 0.8, InputPowerRedshift 0): header, IDs and
+   masses, and the IC's P(k) at Nmesh 128 keeps the linear spectrum's
+   shape over its 6 lowest-k bins to rtol 0.1 (examples/dm-small/
+   check_results.py:62-75);
+10. hierarchical dm-small: build_simulation on examples/dm-small/
+   paramfile.gadget as it ships (SplitGravityTimestepsOn 1), from that
+   IC, with only SnapshotWithFOF set to 0 -> Simulation.run() to a = 0.25
+   (HIER_STEPS) -> write_snapshot, the launch counts reset just
+   before and read just after; per PM step its seconds, substeps, bin
+   histogram and active targets per evaluation; finite state, no particle
+   lost, the snapshot read back, and the growth of P(k) between the first
+   and last outputs equal to D1^2 to rtol 0.18 (check_results.py:76-81).
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -70,6 +92,8 @@ NGRID = 64            # dm-small: 64^3 particles
 NMESH = 128           # dm-small: Nmesh 128
 BOXSIZE = 64000.0     # kpc/h
 A_START = 0.1         # z = 9
+HIER_STEPS = None     # PM steps of the hierarchical dm-small run (None:
+#                       the whole run to its TimeMax, a = 0.25)
 KERNEL_TOL = 1e-4     # max |kernel - plain| / max |plain|
 WALK_TOL = 1e-5       # |kernel - plain| / |plain| by norm (acc, pot)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
@@ -692,6 +716,444 @@ def slice_phase(workdir, device, ngrid=NGRID, nmesh=NMESH, max_steps=3):
                 group=sim._tree_grav.tree_cfg.group_max,
                 capacity=int(sim.pdata.capacity))
 
+def compaction_phase(l2_ns, device="cuda", ngrid=NGRID, nmesh=NMESH,
+                     seed=41):
+    """The active-target tree force (compacted to the active blocks)
+    against the same force with every block walked, on 64^3 clustered
+    particles; then both kernels against their plain versions at the
+    compacted shapes, their inputs taken from the compacted call."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treepm
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+
+    n = ngrid ** 3
+    dev = torch.device(device)
+    rng = np.random.RandomState(seed)
+    ipos = torch.as_tensor(clustered_ipos(n), device=dev)
+    mass = torch.ones(n, dtype=torch.float32, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    amag = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32),
+                           device=dev) * 1e3
+    tg = treepm.TreeGravity(boxsize=BOXSIZE, nmesh=nmesh,
+                            softening=2.8 / 30.0 * BOXSIZE / ngrid,
+                            tree_use_bh=0, with_potential=True)
+    # the active set: half the targets of a seeded 40% of the blocks
+    kw = tg.force_kwargs(n)
+    G = kw["group_size"]
+    nb = n // G
+    w = treepm.walk_inputs(ipos, mass, valid, amag, leaf_max=kw["leaf_max"],
+                           max_level=kw["max_level"],
+                           node_cap=kw["node_cap"], group_size=G)
+    blocks = rng.choice(nb, int(0.4 * nb), replace=False)
+    rows = (blocks[:, None] * G + np.arange(G)).reshape(-1)
+    rows = rows[rng.uniform(size=rows.size) < 0.5]
+    act = torch.zeros(n, dtype=torch.bool, device=dev)
+    act[w.perm[torch.as_tensor(rows, device=dev)]] = True
+
+    captured = {}
+    real_walk, real_pair = treepm.traverse_fused, pk.block_pair_accumulate
+
+    def spy_walk(*a, **k):
+        captured["walk"] = (a, k)
+        return real_walk(*a, **k)
+
+    def spy_pair(*a, **k):
+        captured["pair"] = (a, k)
+        return real_pair(*a, **k)
+
+    for attempt in range(6):
+        kw = tg.force_kwargs(n)
+        treepm.traverse_fused, pk.block_pair_accumulate = spy_walk, spy_pair
+        try:
+            res_c = treepm.tree_force(ipos, mass, valid, amag,
+                                      target_active=act, **kw)
+        finally:
+            treepm.traverse_fused = real_walk
+            pk.block_pair_accumulate = real_pair
+        if not bool(res_c.overflow):
+            break
+        tg.grow()
+    check(not bool(res_c.overflow), "compaction phase: walk overflow")
+    res_f = treepm.tree_force(ipos, mass, valid, amag, **kw)
+    torch.cuda.synchronize()
+    nact = int(act.sum())
+    same = (torch.equal(res_c.accel[act], res_f.accel[act])
+            and torch.equal(res_c.potential[act], res_f.potential[act]))
+    diff = max(rel_norm(res_c.accel[act], res_f.accel[act]),
+               rel_norm(res_c.potential[act], res_f.potential[act]))
+    print(f"compaction: {nact} active targets of {n} in "
+          f"{res_c.n_active_blocks} of {nb} blocks (LL "
+          f"{kw['walk_cfg'].leaf_list_max}, S {kw['walk_cfg'].src_cap}); "
+          f"acc and pot on active rows "
+          f"{'bit-identical' if same else 'NOT bit-identical'} to every "
+          f"block walked (difference by norm {diff:.6e})", flush=True)
+    check(same, f"compacted tree force differs from the full one on "
+          f"active rows ({diff:.3e} by norm)")
+
+    # K2 at the compacted shapes
+    args, wkw = captured["walk"]
+    wkw = {k: v for k, v in wkw.items() if k != "timer"}
+    t_kernel, t_plain = treepm.StageTimer(), treepm.StageTimer()
+    kres = tw.traverse_fused(*args, timer=t_kernel, **wkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = tw.traverse_fused_reference(*args, timer=t_plain, **wkw)
+    torch.cuda.synchronize()
+    walk_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(kres[2:], ref[2:])),
+          "walk kernel leaf lists differ (compacted)")
+    check(t_kernel.series == t_plain.series
+          and t_kernel.counts == t_plain.counts,
+          "walk kernel visit counts differ (compacted)")
+    wp = wkw["with_potential"]
+    walk_err = max(rel_norm(kres[0], ref[0]), rel_norm(kres[1], ref[1]))
+    walk_abs = max(float((kres[0] - ref[0]).abs().max()),
+                   float((kres[1] - ref[1]).abs().max()))
+    check(walk_err <= WALK_TOL, f"walk kernel acc/pot differ by "
+          f"{walk_err:.3e} > {WALK_TOL:g} by norm (compacted)")
+    nbc, G = args[1].shape[:2]
+    LL = args[6].leaf_list_max
+    nodes = t_kernel.series["walk_nodes"][0]
+    visits = t_kernel.series["walk_visits_sum"][0]
+    mono = t_kernel.series["walk_monopoles"][0]
+    walk_ms = graph_ms(lambda: tw.traverse_fused(*args, **wkw), 20)
+    wb_ms, wb_by = walk_bound(nbc, G, LL, nodes, visits, mono, wp)
+    print(f"kernel traverse_fused compacted nb={nbc} G={G} LL={LL} "
+          f"with_potential={wp}: identical leaf lists and visit counts "
+          f"({visits} visits, {mono} monopoles); acc/pot err by norm "
+          f"{walk_err:.6e} (tol {WALK_TOL:g}), max abs {walk_abs:.6e}; "
+          f"kernel_ms={walk_ms:.6f} (graph replays) "
+          f"plain_ms={walk_plain_ms:.6f} bound_ms={wb_ms:.6f} ({wb_by})",
+          flush=True)
+
+    # K1 at the compacted shapes
+    a, pkw = captured["pair"]
+    acc, pot = pk.block_pair_accumulate(*a, **pkw)
+    torch.cuda.synchronize()
+    racc, rpot = pk.block_pair_accumulate_reference(*a, **pkw)
+    torch.cuda.synchronize()
+    rel = max(float((acc - racc).abs().max())
+              / max(float(racc.abs().max()), 1e-30),
+              float((pot - rpot).abs().max())
+              / max(float(rpot.abs().max()), 1e-30))
+    pair_abs = max(float((acc - racc).abs().max()),
+                   float((pot - rpot).abs().max()))
+    check(rel <= KERNEL_TOL, f"pair kernel disagrees with plain version "
+          f"(compacted): {rel:.3e} > {KERNEL_TOL:g}")
+    count = pkw["count"]
+    tx, ty, tz, sx, sy, sz = a[:6]
+    rcut = a[11]
+    within = pairs_within(tx, ty, tz, sx, sy, sz, count, rcut)
+    sources = int(count.sum())
+    pair_ms = time_ms(lambda: pk.block_pair_accumulate(*a, **pkw), 20)
+    pair_plain_ms = time_ms(
+        lambda: pk.block_pair_accumulate_reference(*a, **pkw), 1)
+    pb_ms, pb_by = pair_bound(nbc, G, sources, pkw["with_potential"],
+                              within)
+    print(f"kernel block_pair_accumulate compacted nb={nbc} G={G} "
+          f"S={sx.shape[1]} sum(count)={sources} pairs within rcut {within}"
+          f" with_potential={pkw['with_potential']}: "
+          f"err/max|plain|={rel:.6e} (tol {KERNEL_TOL:g}) max_abs_err="
+          f"{pair_abs:.6e} kernel_ms={pair_ms:.6f} "
+          f"plain_ms={pair_plain_ms:.6f} bound_ms={pb_ms:.6f} ({pb_by})",
+          flush=True)
+    return dict(nb=nbc, active=nact, bit_identical=same,
+                walk=dict(max_abs_err=walk_abs, rel=walk_err, ms=walk_ms,
+                          plain_ms=walk_plain_ms, bound_ms=wb_ms,
+                          bound_by=wb_by),
+                pair=dict(max_abs_err=pair_abs, rel=rel, ms=pair_ms,
+                          plain_ms=pair_plain_ms, bound_ms=pb_ms,
+                          bound_by=pb_by))
+
+
+# stand-ins for the absent class_pk_9.dat (examples/dm-small/
+# paramfile.genic): the Eisenstein-Hu spectrum normalised by Sigma8 today
+GENIC_OVERRIDE = {"WhichSpectrum": 1, "Sigma8": 0.8,
+                  "InputPowerRedshift": 0}
+
+
+def modecount_rebin(kk, pk, modes, minmodes=2, ndesired=20):
+    """Rebin P(k) so each bin holds enough modes (the helper of
+    examples/dm-small/check_results.py)."""
+    import numpy as np
+    logkk = np.log10(kk)
+    mdlogk = (np.max(logkk) - np.min(logkk)) / ndesired
+    istart = iend = 1
+    count = 0
+    k_list, pk_list = [kk[0]], [pk[0]]
+    targetlogk = mdlogk + logkk[istart]
+    while iend < np.size(logkk) - 1:
+        count += modes[iend]
+        iend += 1
+        if count >= minmodes and logkk[iend - 1] >= targetlogk:
+            pk_list.append(np.sum(modes[istart:iend]
+                                  * pk[istart:iend]) / count)
+            k_list.append(np.sum(modes[istart:iend]
+                                 * kk[istart:iend]) / count)
+            istart = iend
+            targetlogk = mdlogk + logkk[istart]
+            count = 0
+    return np.array(k_list), np.array(pk_list)
+
+
+def read_power(fn):
+    """(k, P, D1) of a powerspectrum-*.txt, rebinned as check_results.py
+    does."""
+    import numpy as np
+    data = np.loadtxt(fn)
+    good = data[:, 0] > 0
+    kk, pk = modecount_rebin(data[good, 0], data[good, 1], data[good, 2])
+    d1 = 1.0
+    with open(fn) as fh:
+        for line in fh:
+            if line.startswith("# D1"):
+                d1 = float(line.split("=")[1].strip())
+            if not line.startswith("#"):
+                break
+    return kk, pk, d1
+
+
+def genic_phase(workdir, device="cuda", ngrid=None):
+    """examples/dm-small/paramfile.genic, with GENIC_OVERRIDE written into
+    a copy in workdir, through the port's CLI (python -m
+    mpgadget_tpu_torch.genic.main, run in workdir: the paramfile's
+    OutputDir is relative); returns a dict with the IC's path.  On the
+    CPU, where the CLI refuses to run, the function it calls runs."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.cosmology import Cosmology
+    from mpgadget_tpu_torch.genic.main import run_genic
+    from mpgadget_tpu_torch.genic.power import PowerParams, PowerSpec
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.params import create_genic_parameter_set
+    from mpgadget_tpu_torch.particles import pos_to_fixed
+    from mpgadget_tpu_torch.pm.gravity import PMConfig, measure_power
+    from mpgadget_tpu_torch.utils import get_unitsystem
+    from mpgadget_tpu_torch.utils.constants import CM_PER_MPC
+
+    over = dict(GENIC_OVERRIDE)
+    if ngrid is not None:       # a smaller rehearsal on the CPU
+        over["Ngrid"] = ngrid
+    with open(os.path.join(HERE, "examples", "dm-small",
+                           "paramfile.genic")) as fh:
+        lines = [ln for ln in fh.read().splitlines()
+                 if ln.split("=")[0].strip() not in over]
+    paramfile = os.path.join(workdir, "paramfile.genic")
+    with open(paramfile, "w") as fh:
+        fh.write("\n".join(lines + [f"{k} = {v}" for k, v in over.items()])
+                 + "\n")
+    ps = create_genic_parameter_set()
+    ps.parse_file(paramfile)
+    ng = ps["Ngrid"]
+    path = os.path.join(workdir, ps["OutputDir"], ps["FileBase"])
+    t0 = time.perf_counter()
+    if device == "cuda":
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        out = subprocess.run(
+            [sys.executable, "-m", "mpgadget_tpu_torch.genic.main",
+             paramfile], cwd=workdir, env=env, capture_output=True,
+            text=True, timeout=600)
+        check(out.returncode == 0, "genic CLI failed: "
+              + (out.stdout + out.stderr)[-2000:])
+    else:
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            run_genic(ps, device=device)
+        finally:
+            os.chdir(cwd)
+    seconds = time.perf_counter() - t0
+    bf = BigFile(path)
+    hdr = snap_io.read_header(bf)
+    sp = snap_io.read_species(bf, 1, hdr)
+    n = ng ** 3
+    units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
+                           hdr.UnitVelocity_in_cm_per_s)
+    atime = 1.0 / (1.0 + ps["Redshift"])
+    cp = Cosmology(
+        Omega0=ps["Omega0"], OmegaBaryon=ps["OmegaBaryon"],
+        OmegaLambda=ps["OmegaLambda"], HubbleParam=ps["HubbleParam"],
+        CMBTemperature=ps["CMBTemperature"],
+        RadiationOn=bool(ps["RadiationOn"]),
+        MNu=(ps["MNue"], ps["MNum"], ps["MNut"]),
+        TimeBegin=atime).init_units(units)
+    box = ps["BoxSize"]
+    # the particles carry all matter but the neutrinos' share
+    mass = (cp.Omega0 - cp.ONu(1.0)) * cp.RhoCrit * box ** 3 / n
+    check(list(np.asarray(hdr.TotNumPart, np.int64)) == [0, n, 0, 0, 0, 0],
+          f"IC header TotNumPart {hdr.TotNumPart}")
+    check(abs(hdr.Time - atime) < 1e-12 and hdr.BoxSize == box
+          and hdr.Omega0 == ps["Omega0"] and hdr.HubbleParam == 0.7,
+          "IC header Time/BoxSize/cosmology")
+    check(abs(hdr.MassTable[1] / mass - 1) < 1e-12
+          and np.allclose(sp["mass"], mass, rtol=1e-6, atol=0),
+          f"IC masses {hdr.MassTable[1]} vs {mass}")
+    check(np.array_equal(np.sort(sp["pid"]), np.arange(1, n + 1)),
+          "IC IDs are not 1..N")
+    check(np.isfinite(sp["pos"]).all() and np.isfinite(sp["vel"]).all()
+          and ((sp["pos"] >= 0) & (sp["pos"] < box)).all(),
+          "IC positions/velocities")
+    vrms = float(np.sqrt(np.mean(np.sum(sp["vel"] ** 2, axis=1))))
+    check(vrms > 0, "IC has no velocities")
+
+    ipos = torch.as_tensor(pos_to_fixed(sp["pos"], box).astype(np.int64),
+                           device=device)
+    weights = torch.as_tensor(sp["mass"], dtype=torch.float32,
+                              device=device)
+    pm_nmesh = 2 * ng
+    power = measure_power(ipos, weights, PMConfig(
+        nmesh=pm_nmesh, boxsize=box, unitlength_in_cm=hdr.UnitLength_in_cm))
+    kk, pk = modecount_rebin(power.k, power.power, power.nmodes)
+    lin = PowerSpec(PowerParams(WhichSpectrum=1,
+                                PrimordialIndex=ps["PrimordialIndex"]),
+                    cp, atime, units.UnitLength_in_cm)
+    scale = units.UnitLength_in_cm / CM_PER_MPC   # h/Mpc -> internal
+    nbins = min(6, len(kk))
+    pk_lin = lin.delta_spec(kk[:nbins] * scale) ** 2
+    ratio = pk[:nbins] / pk_lin
+    shape_err = float(np.max(np.abs(ratio / np.mean(ratio) - 1)))
+    print(f"genic dm-small (Ngrid {ng}, Nmesh {ps['Nmesh'] or 2 * ng}, "
+          f"Seed {ps['Seed']}, z={ps['Redshift']:g}, EH spectrum): "
+          f"{seconds:.6f} s on {device} ("
+          f"{'the CLI process' if device == 'cuda' else 'run_genic'}); "
+          f"{n} particles, mass "
+          f"{hdr.MassTable[1]:.9g}, rms velocity {vrms:.6g}; IC P(k) at "
+          f"Nmesh {pm_nmesh}, {nbins} lowest-k bins k={kk[:nbins].tolist()} "
+          f"P/P_lin={ratio.tolist()}: largest deviation from their mean "
+          f"{shape_err:.6f} (rtol 0.1)", flush=True)
+    check(shape_err <= 0.1, f"IC P(k) shape differs from the linear "
+          f"spectrum by {shape_err:.3f} > 0.1")
+    return dict(path=path, seconds=seconds, shape_err=shape_err,
+                npart=n)
+
+
+def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
+    """examples/dm-small/paramfile.gadget as it ships (hierarchical
+    timebins) from the genic IC in workdir, SnapshotWithFOF off; both
+    kernels' LAUNCHES are reset just before the run and read just after
+    the snapshot."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.gravity.treepm import StageTimer
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.main import build_simulation
+
+    override = {"SnapshotWithFOF": 0}
+    if nmesh is not None:       # a smaller rehearsal on the CPU
+        override["Nmesh"] = nmesh
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        sim, _ = build_simulation(
+            os.path.join(HERE, "examples", "dm-small", "paramfile.gadget"),
+            override=override, device=device)
+        check(sim.cfg.split_gravity_timesteps,
+              "paramfile.gadget no longer sets SplitGravityTimestepsOn")
+        out = os.path.abspath(sim.cfg.output_dir)
+        npart = sim.pdata.num_valid
+        sim.tree_timer = StageTimer()
+        step_seconds = []
+        run_step = sim.step_hierarchical
+
+        def timed_step(dti):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_sub = run_step(dti)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - t0)
+            return n_sub
+
+        sim.step_hierarchical = timed_step
+        pk.LAUNCHES = 0
+        tw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        nsteps = sim.run(max_steps=max_steps, verbose=True)
+        snap = os.path.abspath(sim.write_snapshot())
+        run_seconds = time.perf_counter() - t0
+        launches = {"pair": pk.LAUNCHES, "walk": tw.LAUNCHES}
+    finally:
+        os.chdir(cwd)
+
+    check(nsteps == max_steps or sim.ti_current == sim.timeline.ti_end,
+          f"ran {nsteps} PM steps to a={sim.atime}")
+    check(len(sim.step_log) == nsteps, "a PM step was not hierarchical")
+    for i, (log, sec) in enumerate(zip(sim.step_log, step_seconds)):
+        hist = {b: c for b, c in enumerate(log["bins"]) if c}
+        print(f"hierarchical PM step {i + 1}: {sec:.6f} s, "
+              f"{log['n_sub']} substeps, bins {hist}, active targets per "
+              f"evaluation {log['actives']}", flush=True)
+    check(any(sum(1 for c in log["bins"] if c) > 1 for log in sim.step_log)
+          and max(log["n_sub"] for log in sim.step_log) > 1,
+          "no sub-cycling: every particle in one bin")
+    calls = sim.tree_force_calls
+    if device == "cuda":
+        for name, n in launches.items():
+            check(n >= calls, f"{name} kernel launched {n} times for "
+                  f"{calls} tree-force evaluations")
+    pd = sim.pdata
+    valid = pd.valid
+    check(int(valid.sum()) == npart, "particles lost")
+    check(bool(torch.isfinite(pd.vel[valid]).all()
+               & torch.isfinite(pd.grav_accel[valid]).all()
+               & torch.isfinite(pd.grav_pm[valid]).all()),
+          "state not finite")
+    check(float(pd.grav_accel[valid].abs().max()) > 0, "tree force is zero")
+    bf = BigFile(snap)
+    hdr = snap_io.read_header(bf)
+    sp = snap_io.read_species(bf, 1, hdr)
+    check(int(hdr.TotNumPart[1]) == npart and len(sp["pid"]) == npart
+          and np.isfinite(sp["pos"]).all() and np.isfinite(sp["vel"]).all(),
+          "hierarchical snapshot does not read back")
+    files = sorted(f for f in os.listdir(out)
+                   if f.startswith("powerspectrum-"))
+    check(len(files) >= 2, f"power spectra written: {files}")
+    kk, pk0, d0 = read_power(os.path.join(out, files[0]))
+    kk1, pk1, d1 = read_power(os.path.join(out, files[-1]))
+    nbins = min(6, len(kk))
+    growth = np.interp(kk[:nbins], kk1, pk1) / pk0[:nbins]
+    want = (d1 / d0) ** 2
+    growth_err = float(np.max(np.abs(growth / want - 1)))
+    print(f"P(k) growth {files[0]} -> {files[-1]} over {nbins} lowest-k "
+          f"bins: {growth.tolist()} against D1^2 ratio {want:.6f}, largest "
+          f"deviation {growth_err:.6f} (rtol 0.18)", flush=True)
+    check(growth_err <= 0.18, f"P(k) growth off D1^2 by {growth_err:.3f}")
+    return dict(nsteps=nsteps, atime=sim.atime, launches=launches,
+                tree_force_calls=calls, force_evals=sim.force_evals,
+                step_seconds=step_seconds, run_seconds=run_seconds,
+                step_log=sim.step_log, stages=dict(sim.tree_timer.seconds),
+                series=dict(sim.tree_timer.series),
+                walltime=dict(sim.walltime.totals), retries=sim.tree_retries,
+                leaf_list_max=sim._tree_grav.walk_cfg.leaf_list_max,
+                group=sim._tree_grav.tree_cfg.group_max,
+                growth_err=growth_err, npart=npart,
+                snapshot=os.path.basename(snap), powerspectra=len(files))
+
+
+def hier_bounds(res):
+    """K1's and K2's bounds summed over the hierarchical run's
+    evaluations, each at its own (compacted) nb, with the potential where
+    it was computed (the snapshots')."""
+    ser = res["series"]
+    nbs = ser["active_blocks"]
+    npot = ser["with_potential"]
+    G, LL = res["group"], res["leaf_list_max"]
+    k1 = sum(pair_bound(nb, G, s, wp)[0]
+             for nb, s, wp in zip(nbs, ser["pair_sources_sum"], npot))
+    k2 = sum(walk_bound(nb, G, LL, c, v, m, wp)[0]
+             for nb, c, v, m, wp in zip(nbs, ser["walk_nodes"],
+                                        ser["walk_visits_sum"],
+                                        ser["walk_monopoles"], npot))
+    return k1, k2
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "mpgadget_tpu_torch")):
@@ -780,8 +1242,7 @@ def run():
           + "; walk tree nodes " + str(ser["walk_nodes"]) + ", visits "
           + str(ser["walk_visits_sum"]) + ", monopoles "
           + str(ser["walk_monopoles"]))
-    # the snapshot's evaluation (the last) carries the potential
-    npot = [False] * (len(ser["pair_sources_sum"]) - 1) + [True]
+    npot = ser["with_potential"]      # the snapshot's evaluation
     k1_bound = sum(pair_bound(nb, G, s, wp)[0]
                    for s, wp in zip(ser["pair_sources_sum"], npot))
     k2_bound = sum(walk_bound(nb, G, WalkConfig().leaf_list_max, c, v, m,
@@ -803,28 +1264,74 @@ def run():
     print(f"snapshot {res['snapshot']} read back; "
           f"{res['powerspectra']} power spectra written", flush=True)
 
+    cres = compaction_phase(l2_ns)
+    with tempfile.TemporaryDirectory() as work:
+        gres = genic_phase(work)
+        hres = hier_phase(work)
+    hsteps = hres["step_seconds"]
+    print(f"hierarchical dm-small 64^3 Nmesh {NMESH} from the genic IC on "
+          f"{card}: {hres['nsteps']} PM steps to a={hres['atime']:.6f} in "
+          f"{sum(hsteps):.6f} s of steps ({hres['run_seconds']:.6f} s with "
+          f"the first forces and the last snapshot); tree-force evaluations "
+          f"{hres['tree_force_calls']}, kernel launches {hres['launches']}",
+          flush=True)
+    print(f"force_evals {hres['force_evals']}: "
+          f"{hres['force_evals'] / sum(hsteps):.1f} per second; PM steps "
+          f"per second {hres['nsteps'] / sum(hsteps):.6f}; particle-steps/s "
+          f"{hres['npart'] * hres['nsteps'] / sum(hsteps):.1f} on {card}")
+    hst = hres["stages"]
+    print("hierarchical tree stage seconds, summed over all evaluations: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in hst.items())
+          + f"; PM seconds {hres['walltime'].get('PMgrav', 0.0):.6f}, tree "
+          f"seconds {hres['walltime'].get('Tree', 0.0):.6f} on {card}")
+    hser = hres["series"]
+    print("per evaluation: active blocks " + str(hser["active_blocks"])
+          + "; K1 sum(count) " + str(hser["pair_sources_sum"])
+          + "; walk visits " + str(hser["walk_visits_sum"])
+          + ", monopoles " + str(hser["walk_monopoles"]))
+    hk1, hk2 = hier_bounds(hres)
+    print(f"hierarchical bounds, all evaluations at their compacted nb: "
+          f"K1 {hk1:.6f} ms (real sources at the full pair cost), K2 "
+          f"{hk2:.6f} ms; overflow retries {hres['retries']}", flush=True)
+
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096
     k2 = wres[0]                    # the lattice's first tree, LL = 512
+    launches = {k: res["launches"][k] + hres["launches"][k]
+                for k in ("pair", "walk")}
     print(json.dumps({"kernels": [{
         "name": "block_pair_accumulate", "route": "cuda",
         "source": "mpgadget_tpu_torch/csrc/pairkernel.cu",
         "replaces": "mpgadget_tpu/gravity/pairkernel.py:129",
-        "launches": res["launches"]["pair"],
-        "max_abs_err": max(r[wp]["max_abs_err"] for r in kres
-                           for wp in (False, True)),
-        "max_rel_err": max(r[wp]["rel"] for r in kres
-                           for wp in (False, True)),
+        "launches": launches["pair"],
+        "launches_by_path": {"global": res["launches"]["pair"],
+                             "hierarchical": hres["launches"]["pair"]},
+        "max_abs_err": max([r[wp]["max_abs_err"] for r in kres
+                            for wp in (False, True)]
+                           + [cres["pair"]["max_abs_err"]]),
+        "max_rel_err": max([r[wp]["rel"] for r in kres
+                            for wp in (False, True)]
+                           + [cres["pair"]["rel"]]),
+        "compacted": {k: cres["pair"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")} | {"nb": cres["nb"]},
+        "hierarchical_bound_ms": hk1,
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None}, {
         "name": "traverse_fused", "route": "cuda",
         "source": "mpgadget_tpu_torch/csrc/treewalk.cu",
         "replaces": "mpgadget_tpu/gravity/treewalk.py:114",
-        "launches": res["launches"]["walk"],
+        "launches": launches["walk"],
+        "launches_by_path": {"global": res["launches"]["walk"],
+                             "hierarchical": hres["launches"]["walk"]},
         # over all walk cases, the clustered one's monopoles included
-        "max_abs_err": max(r["max_abs_err"] for r in wres),
-        "max_rel_err": max(r["rel"] for r in wres),
+        "max_abs_err": max([r["max_abs_err"] for r in wres]
+                           + [cres["walk"]["max_abs_err"]]),
+        "max_rel_err": max([r["rel"] for r in wres]
+                           + [cres["walk"]["rel"]]),
+        "compacted": {k: cres["walk"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")} | {"nb": cres["nb"]},
+        "hierarchical_bound_ms": hk2,
         "monopoles_compared": sum(r["monopoles"] for r in wres),
         "critical_path_ms": k2["path_ms"],
         "serial_critical_path_ms": k2["serial_path_ms"],

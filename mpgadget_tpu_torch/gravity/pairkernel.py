@@ -24,8 +24,8 @@ from .shortrange import (shortrange_force_window, shortrange_pot_window,
                          softened_force_factor, softened_pot_factor)
 
 MAX_G = 1024
-MAX_ITEMS = 32768         # work items per launch at most (bounds the
-#                           kernel's partial sums: MAX_ITEMS x 4 x G f32)
+MAX_BLOCK_ITEMS = 32      # work items per block at most (bounds the
+#                           kernel's partial sums: 32 x 4 x G f32 a block)
 PLAIN_BLOCK_BATCH = 512   # blocks per plain-version batch (bounds memory)
 
 LAUNCHES = 0          # kernel launches (not plain-version calls)
@@ -49,12 +49,15 @@ def _kernel():
     return _fn
 
 
-def item_sources(nb, S):
-    """Sources per work item: 512, doubled while nb blocks of S slots
-    could need more than MAX_ITEMS items.  Small items keep the last round
-    of the persistent grid short."""
+def item_sources(S):
+    """Sources per work item: 512, doubled while a block of S slots could
+    need more than MAX_BLOCK_ITEMS items.  Small items keep the last round
+    of the persistent grid short.  A function of S alone: a block's items,
+    and so the order in which its partial sums are added, do not depend
+    on how many blocks share the launch, so a block gets the same bits
+    in a launch over every block and over the active ones only."""
     T = 512
-    while T < S and nb * (-(-S // T)) > MAX_ITEMS:
+    while T < S and -(-S // T) > MAX_BLOCK_ITEMS:
         T *= 2
     return T
 
@@ -99,7 +102,7 @@ def _launch(tx, ty, tz, sx, sy, sz, sm, acc0, pot0, rs_inv, h_inv, rcut,
         kernels.check_tensor(name, t, shape, torch.float32)
     kernels.check_tensor("count", count, (nb,), torch.int32)
     fn = _kernel()
-    T = item_sources(nb, S)
+    T = item_sources(S)
     item_block, item_start, first_item, n_items, M = pair_work_items(
         count, S, T)
     acc = torch.empty_like(acc0)
@@ -127,8 +130,8 @@ def block_pair_accumulate_reference(tx, ty, tz, sx, sy, sz, sm, acc0, pot0,
     """Plain PyTorch version: chunked over S, batched over blocks (the
     jnp branch of mpgadget_tpu's evaluate_leaves).  Same contract as
     :func:`block_pair_accumulate`.  Slots at or past a block's count are
-    left out: their mass is taken as zero, and a chunk past every count
-    of its batch is not computed (it would add zeros)."""
+    left out: their mass is taken as zero, and a chunk past a block's
+    count is not computed for that block (it would add zeros)."""
     nb, G = tx.shape
     S = sx.shape[1]
     CH = min(chunk, S)
@@ -149,22 +152,31 @@ def block_pair_accumulate_reference(tx, ty, tz, sx, sy, sz, sm, acc0, pot0,
         pb = pot[bs]
         for c0 in range(0, send, CH):
             cs = slice(c0, c0 + CH)
-            dx = _wrap(sx[bs, None, cs] - txb)
-            dy = _wrap(sy[bs, None, cs] - tyb)
-            dz = _wrap(sz[bs, None, cs] - tzb)
-            m = sm[bs, None, cs]
+            # the blocks of the batch whose count reaches into this chunk
+            live = torch.nonzero(cnt[bs] > c0).squeeze(1)
+            if live.shape[0] == txb.shape[0]:
+                live = slice(None)
+            dx = _wrap(sx[bs][live, None, cs] - txb[live])
+            dy = _wrap(sy[bs][live, None, cs] - tyb[live])
+            dz = _wrap(sz[bs][live, None, cs] - tzb[live])
+            m = sm[bs][live, None, cs]
             rr = torch.sqrt(dx * dx + dy * dy + dz * dz)      # (B, G, CH)
-            ff = softened_force_factor(rr, h_inv) \
-                * shortrange_force_window(rr, rs_inv) * m
-            ff = torch.where(rr < rcut, ff, 0.0)
-            ax += torch.sum(ff * dx, dim=2)
-            ay += torch.sum(ff * dy, dim=2)
-            az += torch.sum(ff * dz, dim=2)
+            # the pair terms only for the pairs within rcut, zero elsewhere
+            near = rr < rcut
+            rn = rr[near]
+            mn = m.expand_as(rr)[near]
+            ff = torch.zeros_like(rr)
+            ff[near] = softened_force_factor(rn, h_inv) \
+                * shortrange_force_window(rn, rs_inv) * mn
+            ax[live] += torch.sum(ff * dx, dim=2)
+            ay[live] += torch.sum(ff * dy, dim=2)
+            az[live] += torch.sum(ff * dz, dim=2)
             if with_potential:
-                pp = softened_pot_factor(rr, h_inv) \
-                    * shortrange_pot_window(rr, rs_inv) * m
-                pp = torch.where((rr > 0) & (rr < rcut), pp, 0.0)
-                pb += torch.sum(pp, dim=2)
+                pp = torch.zeros_like(rr)
+                pp[near] = torch.where(
+                    rn > 0, softened_pot_factor(rn, h_inv)
+                    * shortrange_pot_window(rn, rs_inv) * mn, 0.0)
+                pb[live] += torch.sum(pp, dim=2)
     return acc, pot
 
 

@@ -57,7 +57,9 @@ def softened_pot_factor(r, h_inv):
 def direct_shortrange_pairwise(ipos, mass, valid, boxsize, rs_inv, rcut,
                                h_inv, with_potential=True, batch=1024):
     """O(N^2) direct short-range force (grav_short_pair analog,
-    gravshort-pair.c:22), the oracle of the force-accuracy tests.
+    gravshort-pair.c:22), the oracle of the force-accuracy tests.  Every
+    pair's distance is computed; the force terms only for the pairs
+    closer than rcut, summed per target in source order.
 
     ipos: int64[N,3] fixed-point positions in [0, 2^32).
     Returns (accel f32[N,3], potential f32[N]).
@@ -68,17 +70,19 @@ def direct_shortrange_pairwise(ipos, mass, valid, boxsize, rs_inv, rcut,
     pot = torch.zeros(n, dtype=torch.float32, device=ipos.device)
     for b0 in range(0, n, batch):
         blk = ipos[b0:b0 + batch]
-        d = ((ipos[None, :, :] - blk[:, None, :]) & 0xFFFFFFFF)
-        d = torch.where(d >= 2 ** 31, d - 2 ** 32, d)       # int32 view
+        # the int32 view of the wrapped difference, in box ticks
+        d = ((ipos[None, :, :] - blk[:, None, :] + 2 ** 31) & 0xFFFFFFFF) \
+            - 2 ** 31
         d = d.to(torch.float32) * scale                      # (B, N, 3)
         r = torch.sqrt(torch.sum(d * d, dim=-1))
-        fac = softened_force_factor(r, h_inv) \
-            * shortrange_force_window(r, rs_inv)
-        m = torch.where(valid[None, :] & (r > 0) & (r < rcut),
-                        mass[None, :], 0.0)
-        acc[b0:b0 + batch] = torch.sum((m * fac)[:, :, None] * d, dim=1)
+        near = valid[None, :] & (r > 0) & (r < rcut)
+        t, j = torch.nonzero(near, as_tuple=True)
+        rn = r[t, j]
+        m = mass[j]
+        fac = m * softened_force_factor(rn, h_inv) \
+            * shortrange_force_window(rn, rs_inv)
+        acc.index_add_(0, t + b0, fac[:, None] * d[t, j])
         if with_potential:
-            wp = shortrange_pot_window(r, rs_inv)
-            pot[b0:b0 + batch] = torch.sum(
-                m * softened_pot_factor(r, h_inv) * wp, dim=1)
+            pot.index_add_(0, t + b0, m * softened_pot_factor(rn, h_inv)
+                           * shortrange_pot_window(rn, rs_inv))
     return acc, pot

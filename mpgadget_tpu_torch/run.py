@@ -1,26 +1,29 @@
 """Simulation driver: begrun/run analog (libgadget/run.c), PyTorch port of
 the dark-matter-only part of mpgadget_tpu/run.py.
 
-One device, a global (power-of-two quantized) PM timestep, KDK
-integration with exact FLRW factors, TreePM forces, in-line power spectra
-and snapshot output at sync points.  Switches this port does not carry
-yet raise NotImplementedError naming the parameter (see
+One device, a power-of-two quantized PM timestep, KDK integration with
+exact FLRW factors, TreePM forces, in-line power spectra and snapshot
+output at sync points.  The PM step is either one global KDK step or,
+with SplitGravityTimestepsOn, sub-cycled over per-particle power-of-two
+timebins whose short-range force is computed for the active set only
+(:meth:`Simulation.step_hierarchical`).  Switches this port does not
+carry yet raise NotImplementedError naming the parameter (see
 :func:`check_supported`); none is silently ignored.
 """
 
 import os
 import time as _time
-from dataclasses import dataclass, field, replace as dc_replace
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .cosmology import Cosmology
-from .timeline import Timeline
+from .timeline import Timeline, get_timestep_bin
 from .timefac import ExactTimeFactors
-from .timestep import (TimestepParams, get_long_range_timestep_dloga,
-                       get_pm_timestep_ti)
+from .timestep import (TimestepParams, assign_particle_bins,
+                       get_long_range_timestep_dloga, get_pm_timestep_ti)
 from .particles import ParticleData, fixed_to_pos
 from .pm import pm_force, PMConfig
 from .integrate import drift, kick, MASK32
@@ -201,8 +204,6 @@ def check_supported(cfg: SimConfig, has_gas: bool):
     Gas-only switches matter only when gas is present, as in the JAX
     package (with HydroOn = 0 gas particles are collisionless)."""
     always = (
-        ("SplitGravityTimestepsOn", cfg.split_gravity_timesteps
-         and cfg.tree_grav_on),
         ("SnapshotWithFOF", cfg.snapshot_with_fof),
         ("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
         ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
@@ -224,7 +225,7 @@ def check_supported(cfg: SimConfig, has_gas: bool):
         if on:
             raise NotImplementedError(
                 f"{name} is not supported by mpgadget_tpu_torch yet "
-                "(dark-matter-only global KDK TreePM)")
+                "(dark-matter-only TreePM)")
 
 
 class Simulation:
@@ -255,6 +256,12 @@ class Simulation:
         # seconds; each stage then ends in a device synchronisation)
         self.tree_timer = None
         self.tree_force_calls = 0
+        # short-range force targets summed over evaluations (all valid
+        # particles per global step, the closing set per substep)
+        self.force_evals = 0
+        # one dict per hierarchical PM step: substeps, the bin histogram
+        # at its start and the closing targets of each evaluation
+        self.step_log = []
         # one entry per overflow retry: the capacities that overflowed
         self.tree_retries = []
         # random internal box shift (partmanager.h:79-84): decorrelates
@@ -385,7 +392,10 @@ class Simulation:
         self.tree_force_calls += 1
         return self._tree_grav.compute(self.pdata, **kw)
 
-    def _compute_tree_forces(self):
+    def _compute_tree_forces(self, active=None):
+        """Short-range forces for every particle, or (active: bool[N])
+        for the blocks holding an active target; inactive rows keep their
+        old grav_accel."""
         if self._tree_grav is None:
             self._tree_grav = self._make_tree_gravity()
         # restartable walk: double capacities on overflow (the export-
@@ -394,28 +404,22 @@ class Simulation:
             # a failed (overflowed) attempt must not consume the "BH
             # opening on the first call" state (TreeUseBH=2)
             bh_prev = self._tree_grav._use_bh_now
-            accel = self._tree_compute()
+            accel = self._tree_compute(target_active=active)
             if not bool(self._tree_grav.last_overflow):
                 break
             self.tree_retries.append(tuple(
                 k for k, v in self._tree_grav.last_overflow_parts.items()
                 if bool(v)))
             self._tree_grav._use_bh_now = bh_prev
-            wc = self._tree_grav.walk_cfg
-            self._tree_grav.walk_cfg = dc_replace(
-                wc, leaf_list_max=wc.leaf_list_max * 2,
-                src_cap=wc.src_cap * 2,
-                nleaf_frac=min(1.0, wc.nleaf_frac * 2),
-                sr_frac=min(1.0, wc.sr_frac * 2))
-            self._tree_grav.tree_cfg = dc_replace(
-                self._tree_grav.tree_cfg,
-                node_factor=min(
-                    2.0, self._tree_grav.tree_cfg.node_factor * 2))
+            self._tree_grav.grow()
         else:
             raise RuntimeError(
                 "tree walk capacity overflow after retries: increase "
                 "WalkConfig.leaf_list_max/src_cap or "
                 "TreeConfig.node_factor")
+        if active is not None:
+            accel = torch.where(active[:, None], accel,
+                                self.pdata.grav_accel)
         self.pdata = self.pdata.replace(grav_accel=accel)
 
     def _dm_mean_sep(self):
@@ -444,6 +448,43 @@ class Simulation:
         accel = self.pdata.grav_pm + self.pdata.grav_accel
         vel = kick(self.pdata.vel, accel, self.tf.gravkick(t0, t1))
         self.pdata = self.pdata.replace(vel=vel)
+
+    def _apply_pm_half_kick(self, t0, t1):
+        """Long-range-only kick (apply_PM_half_kick, timestep.c)."""
+        vel = kick(self.pdata.vel, self.pdata.grav_pm,
+                   self.tf.gravkick(t0, t1))
+        self.pdata = self.pdata.replace(vel=vel)
+
+    def _bin_half_kick(self, mask, bins, ti, maxbin, opening):
+        """Per-timebin short-range half kick for the particles in mask,
+        each over half of its own bin's interval (apply_half_kick for the
+        active list, timestep.c:520-600).  The kick factors are tabulated
+        on the host for the bins the masked particles occupy (each is a
+        quadrature)."""
+        bins = torch.clamp(bins, 0, maxbin).long()
+        gfac = np.zeros(maxbin + 1, np.float32)
+        for b in torch.unique(bins[mask]).tolist():
+            if b < 1:
+                continue
+            db = 1 << b
+            ta, tb = (ti, ti + db // 2) if opening else (ti - db // 2, ti)
+            gfac[b] = self.tf.gravkick(ta, tb)
+        gk = torch.as_tensor(gfac, device=self.device)[bins]
+        vel = self.pdata.vel + torch.where(
+            mask[:, None], self.pdata.grav_accel * gk[:, None], 0.0)
+        self.pdata = self.pdata.replace(vel=vel)
+
+    def _drift_all(self, ti, dti):
+        """Drift every particle (positions and predicted Hsml) over
+        [ti, ti + dti]."""
+        ddrift = self.tf.drift(ti, ti + dti)
+        hsml = self.pdata.hsml + self.pdata.dt_hsml * float(
+            np.float32(ddrift))
+        hsml = torch.clamp(hsml, 0.0, 0.45 * self.cfg.boxsize)
+        self.pdata = self.pdata.replace(
+            ipos=drift(self.pdata.ipos, self.pdata.vel, ddrift,
+                       1.0 / self.cfg.boxsize),
+            hsml=hsml)
 
     def _update_random_offset(self):
         """Re-randomize the internal box shift (update_random_offset,
@@ -479,25 +520,101 @@ class Simulation:
         if self.cfg.random_particle_offset > 0 and self._nstep_total:
             self._update_random_offset()
         self._nstep_total += 1
-        inv_box = 1.0 / self.cfg.boxsize
         # K: half kick with forces at t0
         self._apply_half_kick(t0, th)
         # D: full drift (positions and predicted Hsml)
-        ddrift = self.tf.drift(t0, t1)
-        hsml = self.pdata.hsml + self.pdata.dt_hsml * float(
-            np.float32(ddrift))
-        hsml = torch.clamp(hsml, 0.0, 0.45 * self.cfg.boxsize)
-        self.pdata = self.pdata.replace(
-            ipos=drift(self.pdata.ipos, self.pdata.vel, ddrift, inv_box),
-            hsml=hsml)
+        self._drift_all(t0, dti)
         self.ti_current = t1
         # Forces at t1
         self.compute_forces()
+        self.force_evals += self.pdata.num_valid
         # K: half kick with forces at t1
         self._apply_half_kick(th, t1)
 
+    def step_hierarchical(self, dti_pm: int):
+        """One PM interval with per-particle timebin sub-cycling
+        (find_timesteps + the active-list KDK of run.c:374-520,
+        timestep.c:298-503); returns the number of substeps.
+
+        Particles carry power-of-two bins from the acceleration criterion;
+        each substep advances the clock by the smallest active bin, drifts
+        every particle, and recomputes the short-range force only for the
+        targets closing their bin interval.  The PM force is a global half
+        kick at each end of the interval.  Bins and tick counts are int64
+        tensors (1 << bin)."""
+        t0 = self.ti_current
+        t_end = t0 + dti_pm
+        if self.cfg.random_particle_offset > 0 and self._nstep_total:
+            self._update_random_offset()
+        self._nstep_total += 1
+        mid = t0 + dti_pm // 2
+        self._apply_pm_half_kick(t0, mid)
+
+        soft = 2.8 * self.cfg.gravity_softening * self._dm_mean_sep()
+        bins = assign_particle_bins(
+            self.pdata, None, None, self.CP, self.atime, soft, self.timeline,
+            t0, self.cfg.timestep, dti_pm)
+        # a bin's interval must divide both t0 and dti_pm, or its
+        # boundaries never meet the clock (is_timebin_active analog)
+        maxbin = get_timestep_bin(dti_pm)
+        tz = (t0 & -t0).bit_length() - 1 if t0 > 0 else 62
+        tzp = (dti_pm & -dti_pm).bit_length() - 1
+        maxbin = max(1, min(maxbin, tz, tzp))
+        bins = torch.clamp(bins, 1, maxbin)
+        if self.cfg.timestep.ForceEqualTimesteps:
+            bins = torch.full_like(bins, int(bins.min()))
+        self.pdata = self.pdata.replace(timebin=bins)
+        dtib = torch.ones_like(bins, dtype=torch.int64) << bins.long()
+        valid = self.pdata.valid
+        log = dict(bins=torch.bincount(bins[valid].long(),
+                                       minlength=maxbin + 1).tolist(),
+                   actives=[])
+
+        ti = t0
+        n_sub = 0
+        while ti < t_end:
+            active = valid & ((ti & (dtib - 1)) == 0)
+            self._bin_half_kick(active, bins, ti, maxbin, opening=True)
+            dti_s = int(torch.where(active, dtib, 1 << 62).min())
+            dti_s = min(dti_s, t_end - ti)
+            # drift ALL particles (drift is global, drift.c)
+            self._drift_all(ti, dti_s)
+            ti += dti_s
+            self.ti_current = ti
+            closing = valid & ((ti & (dtib - 1)) == 0)
+            n_closing = int(closing.sum())
+            self._compute_tree_forces(active=closing)
+            self._bin_half_kick(closing, bins, ti, maxbin, opening=False)
+            self.force_evals += n_closing
+            log["actives"].append(n_closing)
+            # re-derive the bins of the closing particles from the fresh
+            # forces (timestep.c:298-503): a bin may shrink at its own
+            # boundary, and grow only when the longer interval is aligned
+            # with the clock (is_timebin_active rule)
+            if ti < t_end and not self.cfg.timestep.ForceEqualTimesteps:
+                new_bins = assign_particle_bins(
+                    self.pdata, None, None, self.CP, self.atime, soft,
+                    self.timeline, ti, self.cfg.timestep, dti_pm)
+                new_bins = torch.clamp(new_bins, 1, maxbin)
+                dtin = torch.ones_like(dtib) << new_bins.long()
+                aligned_new = (ti & (dtin - 1)) == 0
+                bins = torch.where(closing & (new_bins < bins), new_bins,
+                                   bins)
+                bins = torch.where(closing & (new_bins > bins)
+                                   & aligned_new, new_bins, bins)
+                self.pdata = self.pdata.replace(timebin=bins)
+                dtib = torch.ones_like(dtib) << bins.long()
+            n_sub += 1
+        # long-range force refresh + closing PM kick at the sync point
+        self.compute_forces(tree=False)
+        self._apply_pm_half_kick(mid, t_end)
+        log["n_sub"] = n_sub
+        self.step_log.append(log)
+        return n_sub
+
     def run(self, max_steps: Optional[int] = None, verbose=True):
-        """Main loop (run.c:314-800), global KDK steps."""
+        """Main loop (run.c:314-800): global KDK steps, or hierarchical
+        ones with SplitGravityTimestepsOn."""
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         from .utils.hci import (HCIManager, HCI_STOP, HCI_TERMINATE,
                                 HCI_CHECKPOINT, HCI_TIMEOUT,
@@ -525,7 +642,10 @@ class Simulation:
                 raise RuntimeError(
                     f"Bad timestep {dti}; emergency snapshot "
                     f"{self.cfg.snapshot_base}_999 written")
-            self.step(dti)
+            if self.cfg.split_gravity_timesteps and self.cfg.tree_grav_on:
+                self.step_hierarchical(dti)
+            else:
+                self.step(dti)
             nsteps += 1
             hci.update_longest_step(_time.monotonic() - step_t0)
             sp = self.timeline.find_current_sync_point(self.ti_current)

@@ -1,10 +1,11 @@
-"""Global PM timestep criterion (PyTorch port of the part of
-mpgadget_tpu/timestep.py that the global KDK step uses).
+"""Timestep criteria and per-particle timebins (PyTorch port of
+mpgadget_tpu/timestep.py).
 
 The PM (long-range) step comes from the max RMS displacement criterion
 (timestep.c:1220-1300), quantized onto the power-of-two integer
-timeline.  The per-type velocity reductions run on the device; the
-scalar policy runs on the host.
+timeline; per-particle power-of-two bins come from the acceleration and
+Courant criteria (find_timesteps, timestep.c:298-503).  Per-particle
+reductions run on the device; the scalar policy runs on the host.
 """
 
 from dataclasses import dataclass
@@ -12,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .timeline import round_down_power_of_two
+from .timeline import round_down_power_of_two, get_timestep_bin
 
 
 @dataclass
@@ -86,3 +87,73 @@ def get_pm_timestep_ti(dloga, timeline, times_ti_current, pm_kick_ti):
         raise RuntimeError("Trying to go beyond the last sync point")
     dti_max = nxt.ti - pm_kick_ti
     return min(dti, dti_max)
+
+
+def _f32(x, device):
+    """A host scalar as a 0-dim f32 tensor on the device: divisions by it
+    round as a division (a Python float divisor lets CUDA multiply by its
+    reciprocal instead)."""
+    return torch.tensor(float(np.float32(x)), dtype=torch.float32,
+                        device=device)
+
+
+def _particle_dloga(grav_accel, grav_pm, valid, is_gas, hsml, dt_hsml,
+                    max_signal_vel, atime, eta_eps, hubble, courant_fac,
+                    fac3, max_dloga):
+    """Per-particle combined dloga: gravity acceleration criterion
+    (timestep.c:1063-1073) + Courant/Hsml criteria for gas
+    (timestep.c:1075-1090).  f32, in the JAX package's order of
+    operations."""
+    dev = grav_accel.device
+    acc = (grav_accel + grav_pm) / (_f32(atime, dev) * _f32(atime, dev))
+    # max(., 1e-60) in f32 is max(., 0)
+    ac = torch.sqrt(torch.clamp(torch.sum(acc * acc, dim=-1),
+                                min=float(np.float32(1e-60))))
+    dloga = torch.sqrt(_f32(eta_eps, dev) / ac) * _f32(hubble, dev)
+    vsig = torch.clamp(max_signal_vel, min=float(np.float32(1e-30)))
+    dt_c = 2.0 * _f32(courant_fac, dev) * _f32(atime, dev) * hsml / (
+        _f32(fac3, dev) * vsig)
+    dt_h = _f32(courant_fac, dev) * _f32(atime, dev) * _f32(atime, dev) \
+        * torch.abs(hsml / (dt_hsml + float(np.float32(1e-20))))
+    dloga_h = torch.minimum(dt_c, dt_h) * _f32(hubble, dev)
+    dloga = torch.where(is_gas, torch.minimum(dloga, dloga_h), dloga)
+    mx = _f32(max_dloga, dev)
+    return torch.where(valid, torch.minimum(dloga, mx), mx)
+
+
+def assign_particle_bins(pdata, sph, gas_mask, CP, atime, softening,
+                         timeline, ti_current, par: TimestepParams,
+                         dti_max):
+    """Per-particle power-of-two timebins (find_timesteps,
+    timestep.c:298-503): gravity + hydro criteria, clamped to
+    [1, bin(dti_max)].  Returns int32[N] bins on the particles' device.
+
+    sph: the gas state (``max_signal_vel``), read only when given; with
+    sph None every particle takes the gravity criterion alone.  The bin
+    is floor(log2(max(dti, 2))) in f32 with log2 as log(x) / log(2), as
+    the JAX package computes it, so identical inputs give identical
+    bins."""
+    from .utils.constants import GAMMA
+    dev = pdata.device
+    hubble = CP.hubble_function(atime)
+    eta_eps = 2 * par.ErrTolIntAccuracy * atime * softening
+    fac3 = atime ** (3 * (1 - GAMMA) / 2.0)
+    if sph is not None:
+        msv, hsml, dt_hsml = (sph.max_signal_vel, pdata.hsml,
+                              pdata.dt_hsml)
+    else:
+        z = torch.zeros(pdata.capacity, dtype=torch.float32, device=dev)
+        msv = hsml = dt_hsml = z
+        gas_mask = torch.zeros(pdata.capacity, dtype=torch.bool, device=dev)
+    dloga = _particle_dloga(
+        pdata.grav_accel, pdata.grav_pm, pdata.valid, gas_mask, hsml,
+        dt_hsml, msv, atime, eta_eps, hubble, par.CourantFac, fac3,
+        par.MaxSizeTimestep)
+    dloga_tick = timeline._interval_dloga(ti_current)
+    maxbin = get_timestep_bin(dti_max)
+    dti = dloga / _f32(dloga_tick, dev)
+    x = torch.clamp(dti, min=2.0)
+    bins = torch.floor(torch.log(x) / torch.log(_f32(2.0, dev))).to(
+        torch.int32)
+    bins = torch.clamp(bins, 1, maxbin)
+    return torch.where(pdata.valid, bins, maxbin)

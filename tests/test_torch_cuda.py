@@ -298,3 +298,62 @@ def test_pm_force_cuda_matches_cpu(cuda):
     assert np.linalg.norm(p_gpu.cpu().numpy() - p_cpu.numpy()) <= \
         1e-5 * np.linalg.norm(p_cpu.numpy())
     np.testing.assert_allclose(ps_gpu.power, ps_cpu.power, rtol=1e-4)
+
+
+def test_active_target_tree_force_is_bitwise_the_full_one(cuda):
+    """tree_force with target_active walks exactly the active blocks (a
+    compacted nb on both kernels); on active rows acceleration and
+    potential have the bits of the force with every block walked."""
+    box, n = 10000.0, 8192
+    tg = treepm.TreeGravity(boxsize=box, nmesh=32, softening=box / 300,
+                            tree_use_bh=0, with_potential=True,
+                            walk_cfg=treewalk.WalkConfig(leaf_list_max=2048,
+                                                         src_cap=16384))
+    kw = tg.force_kwargs(n)
+    args = [a.to(cuda) for a in _particles(n, 21, box)]
+    rng = np.random.RandomState(8)
+    act = np.zeros(n, bool)
+    act[rng.choice(n // 4, 300, replace=False)] = True   # in the clump
+    act = torch.as_tensor(act, device=cuda)
+    before, walks = pk.LAUNCHES, treewalk.LAUNCHES
+    r_act = treepm.tree_force(*args, target_active=act, **kw)
+    assert pk.LAUNCHES == before + 1 and treewalk.LAUNCHES == walks + 1
+    r_all = treepm.tree_force(*args, **kw)
+    nb = n // kw["group_size"]
+    assert 0 < r_act.n_active_blocks <= nb // 2
+    assert r_all.n_active_blocks == nb
+    assert not bool(r_act.overflow) and not bool(r_all.overflow)
+    assert torch.equal(r_act.accel[act], r_all.accel[act])
+    assert torch.equal(r_act.potential[act], r_all.potential[act])
+
+
+def test_genic_displacement_cuda_matches_cpu(cuda):
+    """The Zel'dovich displacement and density fields on the card
+    (cuFFT) against the same function on the CPU, from the same modes."""
+    from mpgadget_tpu_torch.genic import zeldovich as zel
+    nmesh, box = 64, 64000.0
+    noise = torch.as_tensor(np.random.RandomState(5).randn(
+        nmesh, nmesh, nmesh).astype(np.float32))
+    modes = torch.fft.rfftn(noise) * (1.0 / nmesh ** 1.5)
+    logk = np.linspace(np.log(1e-5), np.log(0.02), 256)
+    logd = 0.5 * np.log(2e9 * np.exp(logk)
+                        / (1 + (np.exp(logk) / 1e-4) ** 2) ** 1.5)
+    table = (torch.as_tensor(logk, dtype=torch.float32),
+             torch.as_tensor(logd, dtype=torch.float32))
+    ipos = torch.as_tensor((np.random.RandomState(6).uniform(
+        0, 1, (32768, 3)) * 2.0 ** 32).astype(np.int64))
+    d_cpu, _ = zel.displacement_fields(modes, table, table, nmesh, box, ipos)
+    g_table = tuple(t.to(cuda) for t in table)
+    d_gpu, _ = zel.displacement_fields(modes.to(cuda), g_table, g_table,
+                                       nmesh, box, ipos.to(cuda))
+    assert d_gpu.is_cuda
+    assert np.linalg.norm(d_gpu.cpu().numpy() - d_cpu.numpy()) <= \
+        1e-5 * np.linalg.norm(d_cpu.numpy())
+    rho_cpu = zel.density_field(modes, table, nmesh, box, ipos)
+    rho_gpu = zel.density_field(modes.to(cuda), g_table, nmesh, box,
+                                ipos.to(cuda))
+    assert np.linalg.norm(rho_gpu.cpu().numpy() - rho_cpu.numpy()) <= \
+        1e-5 * np.linalg.norm(rho_cpu.numpy())
+    # the generator on the card is seeded as well
+    assert torch.equal(zel.gaussian_modes(7, 16, device=cuda),
+                       zel.gaussian_modes(7, 16, device=cuda))

@@ -37,7 +37,8 @@ COPIED = ("utils/constants.py", "utils/unitsystem.py", "utils/paramset.py",
           "utils/walltime.py", "utils/hci.py", "utils/__init__.py",
           "params.py", "cosmology.py", "timefac.py", "timeline.py",
           "io/bigfile.py", "io/_native.py", "io/snapshot.py",
-          "io/registry.py", "io/__init__.py")
+          "io/registry.py", "io/__init__.py", "genic/power.py",
+          "genic/thermal.py")
 
 PARAMS = """
 InitCondFile = {ic}
@@ -153,7 +154,7 @@ def test_snapshot_written_by_port_reads_back(ic_path, tmp_path):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("SplitGravityTimestepsOn", 1), ("SnapshotWithFOF", 1),
+    ("SnapshotWithFOF", 1),
     ("MassiveNuLinRespOn", 1), ("BlackHoleOn", 1), ("StarformationOn", 1),
     ("LightconeOn", 1), ("PlaneOutputList", "0.11"),
     ("OutputEnergyDebug", 1), ("HybridNeutrinosOn", 1)])
@@ -186,6 +187,8 @@ def test_restart_flag_3_raises(monkeypatch):
 def test_port_imports_no_jax():
     code = ("import sys, mpgadget_tpu_torch.main, mpgadget_tpu_torch.run; "
             "import mpgadget_tpu_torch.gravity.treepm; "
+            "import mpgadget_tpu_torch.genic.main, "
+            "mpgadget_tpu_torch.genic.glass; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mpgadget_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")

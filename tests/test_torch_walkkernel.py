@@ -380,10 +380,14 @@ def test_pair_work_list_covers_each_count_once_in_order(T):
 
 
 @pytest.mark.parametrize("nb,S,T", [(1024, 4096, 512), (1024, 65536, 2048),
-                                    (4, 100, 512), (8192, 8192, 2048)])
+                                    (4, 100, 512), (8192, 8192, 512)])
 def test_pair_work_items_stay_within_the_partials(nb, S, T):
-    assert pk.item_sources(nb, S) == T
-    assert nb * (-(-S // T)) <= pk.MAX_ITEMS
+    # the item size depends on S alone (the same for any number of
+    # blocks); at nb = 1024 it is what a bound of 32768 items per launch
+    # gave
+    assert pk.item_sources(S) == T
+    M = pk.pair_work_items(torch.full((nb,), S, dtype=torch.int32), S, T)[4]
+    assert M == nb * (-(-S // T)) <= nb * pk.MAX_BLOCK_ITEMS
 
 
 def _pair_inputs(nb, G, S, counts, seed=5):
