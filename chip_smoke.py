@@ -9,9 +9,10 @@ fails the run (non-zero exit, no result line) if it fails:
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles both kernels, the pair kernel K1 (csrc/pairkernel.cu)
-   and the walk kernel K2 (csrc/treewalk.cu), and the two measurement
-   aids, one nvcc each, in parallel;
+2. build: compiles the three kernels, the pair kernel K1
+   (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu) and the
+   neighbour walk K3 (csrc/neighbors.cu), and the two measurement aids,
+   one nvcc each, in parallel;
 3. K1: the pair kernel against its plain PyTorch version on the card at
    the main path's shapes (nb=1024 blocks, G=256 targets, S=4096
    sources), with and without potential, on inputs from a seed, once
@@ -58,13 +59,33 @@ fails the run (non-zero exit, no result line) if it fails:
    shape over its 6 lowest-k bins to rtol 0.1 (examples/dm-small/
    check_results.py:62-75);
 10. hierarchical dm-small: build_simulation on examples/dm-small/
-   paramfile.gadget as it ships (SplitGravityTimestepsOn 1), from that
-   IC, with only SnapshotWithFOF set to 0 -> Simulation.run() to a = 0.25
-   (HIER_STEPS) -> write_snapshot, the launch counts reset just
-   before and read just after; per PM step its seconds, substeps, bin
-   histogram and active targets per evaluation; finite state, no particle
-   lost, the snapshot read back, and the growth of P(k) between the first
-   and last outputs equal to D1^2 to rtol 0.18 (check_results.py:76-81).
+   paramfile.gadget as it ships (SplitGravityTimestepsOn 1,
+   SnapshotWithFOF 1), from that IC -> Simulation.run() to a = 0.25
+   (HIER_STEPS), which writes a snapshot and a FOF catalogue (PIG) at
+   each output, -> write_snapshot, the launch counts reset just before
+   and read just after; per PM step its seconds, substeps, bin histogram
+   and active targets per evaluation; finite state, no particle lost, the
+   snapshot read back, the growth of P(k) between the first and last
+   outputs equal to D1^2 to rtol 0.18 (check_results.py:76-81); each PIG
+   read back and consistent (group rows, lengths >= FOFHaloMinLength,
+   grouped particles per type with sorted GroupIDs), its halos per
+   log10 mass bin, halos in the last one, and check_hmf's 9e12 Msun
+   printed as met or not (not enforced: EH spectrum, the port's own
+   realisation);
+11. FOF of the final state: Simulation.run_fof from a cold leaf-list
+   cache, K3's launch count reset just before and read just after, with
+   the seconds of each stage and min-label round; the labels held to
+   scipy's connected components (cKDTree with boxsize, positions in f64
+   from the fixed point): every component at ll(1-1e-5) inside one port
+   group, every port group inside one component at ll(1+1e-5);
+12. K3: the neighbour walk against its plain version on the card, on the
+   final state's FOF inputs (asymmetric, at the LL the FOF reached) and
+   on 64^3 clustered particles (symmetric, a seeded hmax, LL 16, which
+   some groups overflow): the same leaf lists, counts, flags and visits,
+   two launches bit-identical, device time by CUDA graph replays;
+13. RestartFlag 3: python -m mpgadget_tpu_torch.main paramfile.gadget 3
+   <the last snapshot>, whose PIG must read back and pass the checks of
+   phase 10.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -74,7 +95,10 @@ of the tree once (revisits hit L2).  Beside the walk's bound stands its
 critical path, the longest chain of loads of which each needs the one
 before, times one L2 round trip: the kernel's (the longest block's sum
 of each round's longest sibling chain) and a serial walk's (the longest
-block's visits).
+block's visits).  K3's bound is the node rows read once, the groups
+read and the leaf lists written, against NEIGHBOR_OPS per visit; beside
+it stands the walk's own bound, which counts only the listed leaves
+written and not the fill of the lists' unused slots.
 
 The last two lines of standard output are the kernel table and the
 result, each one JSON object.
@@ -107,6 +131,12 @@ MONOPOLE_OPS = {False: 64, True: 70}  # the walk keeps r = 0 in the pot
 WALK_DECISION_OPS = 44   # per visit: wrap and |d| 12, dmin 10, r2min 5,
 #                          criteria 11, inside 7 (csrc/treewalk.cu)
 WALK_ROW_BYTES = 36      # per node: two float4 rows and one int
+# K3 per visit (csrc/neighbors.cu): wrap and |d| 12, half length 1, dmin 9,
+# r2min 5, reach^2 and the test 2, and the max with hmax when symmetric
+NEIGHBOR_OPS = {False: 29, True: 30}
+NEIGHBOR_ROW_BYTES = {False: 20, True: 24}   # float4 row, int meta, hmax
+NEIGHBOR_GROUP_BYTES = 36    # per group read: node, center, half, radius
+HMF_MSUN = 9e12   # check_hmf: the largest halo (check_results.py:104-115)
 
 PARAMS = """
 InitCondFile = {ic}
@@ -183,6 +213,20 @@ def walk_bound(nb, G, LL, nodes, visits, monopoles, with_potential):
     # and monopole counts written
     nbytes = (min(nodes, visits) * WALK_ROW_BYTES + nb * G * 12 + nb * 29
               + nb * G * 16 + nb * LL * 8 + nb * 17)
+    return bound(ops, nbytes)
+
+
+def neighbor_bound(ng, LL, nodes, visits, symmetric, listed=None):
+    """K3's bound for `visits` node visits of ng groups over a tree of
+    `nodes` nodes: each node row read once (at most the visits), the
+    groups read, and the leaf lists (ng x LL int32), counts, flags and
+    visit counts written.  listed: count only that many list entries
+    written, the leaves the walk records, without the fill of the unused
+    slots (the walk's own bound)."""
+    ops = visits * NEIGHBOR_OPS[symmetric]
+    written = ng * LL if listed is None else listed
+    nbytes = (min(nodes, visits) * NEIGHBOR_ROW_BYTES[symmetric]
+              + ng * NEIGHBOR_GROUP_BYTES + written * 4 + ng * 9)
     return bound(ops, nbytes)
 
 
@@ -1031,11 +1075,50 @@ def genic_phase(workdir, device="cuda", ngrid=None):
                 npart=n)
 
 
+def pig_check(path, min_length):
+    """Read a PIG back through the port's bigfile and hold it to its own
+    schema: NumFOFGroupsTotal rows of FOFGroups, every LengthByType row
+    at least min_length, NumPartInGroupTotal rows of grouped particles
+    per type whose GroupIDs are sorted.  Returns (groups,
+    halo count per log10 mass bin in Msun as {bin start: count}, the
+    largest mass in Msun or 0)."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    bf = BigFile(path)
+    attrs = bf.open("Header").attrs
+    ng = int(np.asarray(attrs["NumFOFGroupsTotal"]).reshape(-1)[0])
+    npart = np.asarray(attrs["NumPartInGroupTotal"]).astype(np.int64)
+    mass = bf.open("FOFGroups/Mass").read()
+    lbt = np.asarray(bf.open("FOFGroups/LengthByType").read(),
+                     np.int64).reshape(-1, 6)
+    name = os.path.basename(path)
+    check(len(mass) == ng and lbt.shape[0] == ng
+          and len(bf.open("FOFGroups/GroupID").read()) == ng,
+          f"{name}: NumFOFGroupsTotal {ng} against {len(mass)} rows")
+    check(bool((lbt.sum(axis=1) >= min_length).all()),
+          f"{name}: a group shorter than {min_length}")
+    check(int(npart.sum()) == int(lbt.sum()),
+          f"{name}: NumPartInGroupTotal {npart} against LengthByType")
+    for t in np.nonzero(npart)[0]:
+        gid = bf.open(f"{t}/GroupID").read().astype(np.int64)
+        check(len(gid) == npart[t]
+              and len(bf.open(f"{t}/Position").read()) == npart[t],
+              f"{name}: type {t} rows against NumPartInGroupTotal")
+        check(bool((np.diff(gid) >= 0).all()) and gid[0] >= 1
+              and gid[-1] <= ng, f"{name}: GroupIDs not sorted in 1..{ng}")
+    hh = float(np.asarray(attrs["HubbleParam"]).reshape(-1)[0])
+    msun = mass.astype(np.float64) * 1e10 / hh
+    lg = np.floor(np.log10(msun)).astype(int)
+    bins = {int(b): int((lg == b).sum()) for b in np.unique(lg)}
+    return ng, bins, float(msun.max()) if ng else 0.0
+
+
 def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
     """examples/dm-small/paramfile.gadget as it ships (hierarchical
-    timebins) from the genic IC in workdir, SnapshotWithFOF off; both
-    kernels' LAUNCHES are reset just before the run and read just after
-    the snapshot."""
+    timebins, SnapshotWithFOF 1: a PIG beside every output) from the
+    genic IC in workdir; every kernel's LAUNCHES is reset just before the
+    run and read just after the snapshot.  Returns its measurements and
+    the simulation (the FOF phase takes its final state)."""
     import numpy as np
     import torch
     from mpgadget_tpu_torch.gravity import pairkernel as pk
@@ -1044,8 +1127,9 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
     from mpgadget_tpu_torch.io.bigfile import BigFile
     from mpgadget_tpu_torch.io import snapshot as snap_io
     from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.ops import pairs
 
-    override = {"SnapshotWithFOF": 0}
+    override = {}
     if nmesh is not None:       # a smaller rehearsal on the CPU
         override["Nmesh"] = nmesh
     cwd = os.getcwd()
@@ -1054,8 +1138,9 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
         sim, _ = build_simulation(
             os.path.join(HERE, "examples", "dm-small", "paramfile.gadget"),
             override=override, device=device)
-        check(sim.cfg.split_gravity_timesteps,
-              "paramfile.gadget no longer sets SplitGravityTimestepsOn")
+        check(sim.cfg.split_gravity_timesteps and sim.cfg.snapshot_with_fof,
+              "paramfile.gadget no longer sets SplitGravityTimestepsOn and "
+              "SnapshotWithFOF")
         out = os.path.abspath(sim.cfg.output_dir)
         npart = sim.pdata.num_valid
         sim.tree_timer = StageTimer()
@@ -1075,11 +1160,13 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
         sim.step_hierarchical = timed_step
         pk.LAUNCHES = 0
         tw.LAUNCHES = 0
+        pairs.LAUNCHES = 0
         t0 = time.perf_counter()
         nsteps = sim.run(max_steps=max_steps, verbose=True)
         snap = os.path.abspath(sim.write_snapshot())
         run_seconds = time.perf_counter() - t0
-        launches = {"pair": pk.LAUNCHES, "walk": tw.LAUNCHES}
+        launches = {"pair": pk.LAUNCHES, "walk": tw.LAUNCHES,
+                    "neighbors": pairs.LAUNCHES}
     finally:
         os.chdir(cwd)
 
@@ -1095,10 +1182,17 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
           and max(log["n_sub"] for log in sim.step_log) > 1,
           "no sub-cycling: every particle in one bin")
     calls = sim.tree_force_calls
+    pigs = sorted(f for f in os.listdir(out) if f.startswith("PIG_"))
+    # one PIG beside every snapshot of the run (not the smoke's own last)
+    check(len(pigs) == sim.snapshot_count - 1 >= 1,
+          f"PIG catalogues written: {pigs}")
     if device == "cuda":
-        for name, n in launches.items():
-            check(n >= calls, f"{name} kernel launched {n} times for "
-                  f"{calls} tree-force evaluations")
+        for name in ("pair", "walk"):
+            check(launches[name] >= calls, f"{name} kernel launched "
+                  f"{launches[name]} times for {calls} tree-force "
+                  "evaluations")
+        check(launches["neighbors"] >= len(pigs), f"neighbour kernel "
+              f"launched {launches['neighbors']} times for {len(pigs)} FOF")
     pd = sim.pdata
     valid = pd.valid
     check(int(valid.sum()) == npart, "particles lost")
@@ -1126,6 +1220,20 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
           f"bins: {growth.tolist()} against D1^2 ratio {want:.6f}, largest "
           f"deviation {growth_err:.6f} (rtol 0.18)", flush=True)
     check(growth_err <= 0.18, f"P(k) growth off D1^2 by {growth_err:.3f}")
+    pig_groups = {}
+    for name in pigs:
+        ng, bins, last = pig_check(os.path.join(out, name),
+                                      sim.cfg.fof_min_group_length)
+        pig_groups[name] = ng
+        print(f"{name}: read back and consistent; {ng} groups; halos per "
+              f"log10(M/Msun) bin {bins}; largest {last:.6e} Msun",
+              flush=True)
+    check(ng > 0, f"{pigs[-1]} holds no halo (check_hmf asks for one)")
+    print(f"check_hmf (examples/dm-small/check_results.py:104-115): "
+          f"largest halo of {pigs[-1]} {last:.6e} Msun against "
+          f"{HMF_MSUN:g}: {'met' if last > HMF_MSUN else 'NOT met'} (not "
+          f"enforced: the spectrum is the Eisenstein-Hu stand-in and the "
+          f"realisation the port's own)", flush=True)
     return dict(nsteps=nsteps, atime=sim.atime, launches=launches,
                 tree_force_calls=calls, force_evals=sim.force_evals,
                 step_seconds=step_seconds, run_seconds=run_seconds,
@@ -1135,7 +1243,9 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
                 leaf_list_max=sim._tree_grav.walk_cfg.leaf_list_max,
                 group=sim._tree_grav.tree_cfg.group_max,
                 growth_err=growth_err, npart=npart,
-                snapshot=os.path.basename(snap), powerspectra=len(files))
+                snapshot=os.path.basename(snap), powerspectra=len(files),
+                pig_groups=pig_groups, largest_msun=last, sim=sim,
+                snapnum=int(os.path.basename(snap).split("_")[-1]))
 
 
 def hier_bounds(res):
@@ -1153,6 +1263,233 @@ def hier_bounds(res):
                                         ser["walk_visits_sum"],
                                         ser["walk_monopoles"], npot))
     return k1, k2
+
+
+def refines(a, b):
+    """Every class of labeling a lies inside one class of labeling b."""
+    import numpy as np
+    a = np.unique(a, return_inverse=True)[1].astype(np.int64)
+    b = np.unique(b, return_inverse=True)[1].astype(np.int64)
+    return len(np.unique(a * (b.max() + 1) + b)) == a.max() + 1
+
+
+def fof_phase(sim, label, device="cuda"):
+    """FOF of the final dm-small state through Simulation.run_fof (PIG
+    `label`), from a cold leaf-list cache, with per-stage seconds; the
+    labels held to scipy's connected components of the same positions
+    (f64 from the fixed point) bracketing the linking length.  K3's
+    LAUNCHES are reset just before and read just after.  Returns the
+    measurements and K3's inputs."""
+    import numpy as np
+    import torch
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
+    from mpgadget_tpu_torch.gravity.treepm import StageTimer
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.physics import fof
+
+    captured = {}
+    real = fof.fof_label
+
+    def spy(*a, **k):
+        res = real(*a, **k)
+        captured.update(args=a, labels=res[0])
+        return res
+
+    timer = StageTimer()
+    pairs._LL_CACHE.clear()
+    fof.fof_label = spy
+    try:
+        pairs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        timer.start(torch.device(device))
+        cat = sim.run_fof(save=True, label=label, timer=timer)
+        seconds = time.perf_counter() - t0
+        launches = pairs.LAUNCHES
+    finally:
+        fof.fof_label = real
+    if device == "cuda":
+        check(launches >= 1, "FOF did not launch the neighbour kernel")
+    path = os.path.join(sim.cfg.output_dir,
+                        f"{sim.cfg.fof_file_base}_{label:03d}")
+    ng, bins, _ = pig_check(path, sim.cfg.fof_min_group_length)
+    check(ng == cat["ngroups"], "PIG group count against the catalogue")
+
+    ipos, primary, box, ll = captured["args"][:4]
+    primary = primary.cpu().numpy()
+    lab = captured["labels"].cpu().numpy()[primary]
+    pos = ipos.cpu().numpy()[primary].astype(np.float64) * 2.0 ** -32
+    t0 = time.perf_counter()
+    kd = cKDTree(pos, boxsize=1.0)
+    m = len(pos)
+    comps = {}
+    for side, f in (("inner", 1 - 1e-5), ("outer", 1 + 1e-5)):
+        prs = kd.query_pairs(ll / box * f, output_type="ndarray")
+        comps[side] = connected_components(csr_matrix(
+            (np.ones(len(prs)), (prs[:, 0], prs[:, 1])), shape=(m, m)),
+            directed=False)[1]
+    scipy_s = time.perf_counter() - t0
+    inside = refines(comps["inner"], lab)
+    within = refines(lab, comps["outer"])
+    st, ser = timer.seconds, timer.series
+    print(f"FOF of the final dm-small state ({m} primaries, linking length "
+          f"{ll:.6f} kpc/h = {ll / box:.9f} box) on {device}: "
+          f"{seconds:.6f} s through Simulation.run_fof; stages "
+          + ", ".join(f"{k} {v:.6f}" for k, v in st.items())
+          + f" s; leaf lists from 64 (cache cleared) to LL "
+          f"{ser['leaf_list_max'][-1]}; {ser['rounds'][-1]} min-label rounds"
+          f" of " + " ".join(f"{v:.6f}" for v in ser["round_seconds"])
+          + f" s; K3 launches {launches}", flush=True)
+    print(f"FOF labels against scipy (cKDTree + connected_components, "
+          f"{scipy_s:.3f} s on the host): {len(np.unique(comps['inner']))} "
+          f"components at ll(1-1e-5), {len(np.unique(lab))} port groups, "
+          f"{len(np.unique(comps['outer']))} at ll(1+1e-5); every inner "
+          f"component inside one port group: {inside}; every port group "
+          f"inside one outer component: {within}; {ng} halos of >= "
+          f"{sim.cfg.fof_min_group_length}, per log10(M/Msun) bin {bins}",
+          flush=True)
+    check(inside and within, "FOF labels outside the scipy bracket")
+    return dict(seconds=seconds, stages=dict(st), series=dict(ser),
+                launches=launches, groups=ng, ll=ll, box=box,
+                ipos=ipos, primary=captured["args"][1],
+                leaf_list_max=ser["leaf_list_max"][-1])
+
+
+def neighbor_case(name, tree, groups, radius, hmax, LL, symmetric, l2_ns):
+    """K3 against its plain version on one set: the same lists, counts,
+    flags and visits, two launches the same bits; device time by graph
+    replays."""
+    import torch
+    from mpgadget_tpu_torch.ops import pairs
+    nodes, gc, gh = groups[:3]
+    args = (tree, nodes, gc, gh, radius, hmax, LL)
+    res = pairs.find_neighbors(*args, symmetric=symmetric)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = pairs.find_neighbors_reference(*args, symmetric=symmetric)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fields = ("leaf_idx", "n_leaves", "overflow", "visits")
+    for f in fields:
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"neighbour kernel {f} differs from the plain version ({name})")
+    abs_err = max(int((getattr(res, f).long() - getattr(ref, f).long())
+                      .abs().max()) for f in fields)
+    packed = pairs.pack_neighbor_nodes(tree)
+    again = pairs.neighbor_kernel(*args, symmetric=symmetric, packed=packed)
+    check(all(torch.equal(getattr(res, f), getattr(again, f))
+              for f in fields), f"two launches of K3 differ ({name})")
+    ms = graph_ms(lambda: pairs.find_neighbors(*args, symmetric=symmetric),
+                  20)
+    alone_ms = graph_ms(lambda: pairs.neighbor_kernel(
+        *args, symmetric=symmetric, packed=packed), 20)
+    ng = int(nodes.shape[0])
+    real = int((nodes < tree.n_nodes).sum())
+    visits = int(res.visits.sum())
+    vmax = int(res.visits.max())
+    n_nodes = int(tree.n_nodes)
+    listed = int(res.n_leaves.sum())
+    bound_ms, bound_by = neighbor_bound(ng, LL, n_nodes, visits, symmetric)
+    walk_ms, walk_by = neighbor_bound(ng, LL, n_nodes, visits, symmetric,
+                                      listed)
+    path_ms = vmax * l2_ns * 1e-6
+    print(f"kernel find_neighbors {name} groups {real} of {ng} slots "
+          f"LL={LL} symmetric={symmetric}: identical leaf lists, counts, "
+          f"flags and visits, max_abs_err={abs_err} ({listed} leaves, "
+          f"{int(res.overflow.sum())} groups overflowed); two launches "
+          f"bit-identical; tree nodes {n_nodes}, visits {visits} (longest "
+          f"group {vmax}); kernel_ms={ms:.6f} (graph replays, with "
+          f"pack_neighbor_nodes; the kernel alone {alone_ms:.6f}) "
+          f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}, "
+          f"the whole {ng} x {LL} lists written); the walk's own bound "
+          f"{walk_ms:.6f} ms ({walk_by}, the {listed} listed leaves "
+          f"written); a serial walk's critical path {path_ms:.6f} ms "
+          f"(longest group's visits x one L2 round trip)", flush=True)
+    return dict(case=name, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, walk_bound_ms=walk_ms,
+                visits=visits, visits_max=vmax, groups=real, LL=LL,
+                path_ms=path_ms, overflowed=int(res.overflow.sum()),
+                max_abs_err=abs_err)
+
+
+def neighbor_phase(fres, l2_ns, seed=43, device="cuda"):
+    """K3 against its plain version on the card: the final dm-small
+    state's FOF inputs (asymmetric, radius the linking length, at the LL
+    the FOF phase reached), and the 64^3 clustered particles, symmetric,
+    with a seeded hmax on a fifth of the nodes, at an LL that some groups
+    overflow."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.physics import fof
+
+    cfg = fof.FOFParams()
+    out = []
+    _, _, _, tree, groups = fof._sorted_tree(fres["ipos"], fres["primary"],
+                                             cfg)
+    ll_box = float(np.float32(fres["ll"] / fres["box"]))
+    radius = torch.full((groups[0].shape[0],), ll_box, device=device)
+    out.append(neighbor_case("dm-small final state", tree, groups, radius,
+                             None, fres["leaf_list_max"], False, l2_ns))
+    n = int(fres["ipos"].shape[0])
+    ipos = torch.as_tensor(clustered_ipos(n), device=device)
+    _, _, _, tree, groups = fof._sorted_tree(
+        ipos, torch.ones(n, dtype=torch.bool, device=device), cfg)
+    rng = np.random.RandomState(seed)
+    C = tree.capacity
+    hmax = torch.as_tensor((rng.uniform(0, 3 * ll_box, C)
+                            * (rng.rand(C) < 0.2)).astype(np.float32),
+                           device=device)
+    radius = torch.full((groups[0].shape[0],), ll_box, device=device)
+    res = neighbor_case("clusters", tree, groups, radius, hmax, 16, True,
+                        l2_ns)
+    check(res["overflowed"] > 0, "no clustered group overflowed LL = 16")
+    out.append(res)
+    return out
+
+
+def restart_phase(workdir, snapnum, in_process, device="cuda"):
+    """RestartFlag 3 through the port's CLI, python -m
+    mpgadget_tpu_torch.main paramfile.gadget 3 <snapnum>, in workdir (the
+    paramfile's paths are relative): its PIG must read back and pass the
+    PIG checks.  On the CPU, where the CLI refuses to run, the calls it
+    makes run in-process."""
+    paramfile = os.path.join(HERE, "examples", "dm-small", "paramfile.gadget")
+    t0 = time.perf_counter()
+    if device == "cuda":
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        out = subprocess.run(
+            [sys.executable, "-m", "mpgadget_tpu_torch.main", paramfile,
+             "3", str(snapnum)], cwd=workdir, env=env, capture_output=True,
+            text=True, timeout=600)
+        check(out.returncode == 0, "RestartFlag 3 CLI failed: "
+              + (out.stdout + out.stderr)[-2000:])
+    else:
+        from mpgadget_tpu_torch.main import build_simulation
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            sim, ps = build_simulation(paramfile, snapshot=os.path.join(
+                "output", f"PART_{snapnum:03d}"), device=device)
+            sim.run_fof(save=True, label=snapnum)
+        finally:
+            os.chdir(cwd)
+    seconds = time.perf_counter() - t0
+    from mpgadget_tpu_torch.params import create_gadget_parameter_set
+    ps = create_gadget_parameter_set()
+    ps.parse_file(paramfile)
+    ng, bins, largest = pig_check(
+        os.path.join(workdir, ps["OutputDir"], f"PIG_{snapnum:03d}"),
+        ps["FOFHaloMinLength"])
+    how = ("the CLI process, its start included" if device == "cuda"
+           else "the in-process calls")
+    print(f"RestartFlag 3 on PART_{snapnum:03d}: {seconds:.6f} s for {how}"
+          f"; PIG_{snapnum:03d} read back and consistent: {ng} groups "
+          f"(the in-process FOF of the same state: {in_process}); halos per "
+          f"log10(M/Msun) bin {bins}; largest {largest:.6e} Msun",
+          flush=True)
+    return dict(seconds=seconds, groups=ng)
 
 
 def main():
@@ -1268,6 +1605,9 @@ def run():
     with tempfile.TemporaryDirectory() as work:
         gres = genic_phase(work)
         hres = hier_phase(work)
+        fres = fof_phase(hres["sim"], hres["snapnum"])
+        nres = neighbor_phase(fres, l2_ns)
+        rres = restart_phase(work, hres["snapnum"], fres["groups"])
     hsteps = hres["step_seconds"]
     print(f"hierarchical dm-small 64^3 Nmesh {NMESH} from the genic IC on "
           f"{card}: {hres['nsteps']} PM steps to a={hres['atime']:.6f} in "
@@ -1293,12 +1633,19 @@ def run():
     print(f"hierarchical bounds, all evaluations at their compacted nb: "
           f"K1 {hk1:.6f} ms (real sources at the full pair cost), K2 "
           f"{hk2:.6f} ms; overflow retries {hres['retries']}", flush=True)
+    print(f"FOF in the hierarchical run: {len(hres['pig_groups'])} PIGs "
+          f"{hres['pig_groups']}, {hres['walltime'].get('FOF', 0.0):.6f} s "
+          f"(walltime 'FOF'); the final state's FOF {fres['seconds']:.6f} s "
+          f"in-process, RestartFlag 3 {rres['seconds']:.6f} s as a process; "
+          f"K3 launches {hres['launches']['neighbors']} (run), "
+          f"{fres['launches']} (final state) on {card}", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096
     k2 = wres[0]                    # the lattice's first tree, LL = 512
     launches = {k: res["launches"][k] + hres["launches"][k]
                 for k in ("pair", "walk")}
+    k3 = nres[0]                    # the final dm-small state's FOF inputs
     print(json.dumps({"kernels": [{
         "name": "block_pair_accumulate", "route": "cuda",
         "source": "mpgadget_tpu_torch/csrc/pairkernel.cu",
@@ -1339,6 +1686,24 @@ def run():
         "kernel_alone_ms": k2["alone_ms"], "eager_ms": k2["eager_ms"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None}, {
+        "name": "find_neighbors", "route": "cuda",
+        "source": "mpgadget_tpu_torch/csrc/neighbors.cu",
+        "replaces": "mpgadget_tpu/ops/pairs.py:108",
+        "launches": hres["launches"]["neighbors"] + fres["launches"],
+        "launches_by_path": {"hierarchical": hres["launches"]["neighbors"],
+                             "fof_final_state": fres["launches"]},
+        # leaf lists, counts, flags and visits: identical on both sets
+        "max_abs_err": max(r["max_abs_err"] for r in nres),
+        "groups": k3["groups"], "leaf_list_max": k3["LL"],
+        "visits": k3["visits"], "kernel_alone_ms": k3["alone_ms"],
+        "serial_critical_path_ms": k3["path_ms"],
+        "walk_bound_ms": k3["walk_bound_ms"],
+        "clusters": {k: nres[1][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "walk_bound_ms", "LL",
+            "overflowed")},
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

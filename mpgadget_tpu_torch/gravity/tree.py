@@ -1,17 +1,20 @@
-"""Morton-prefix octree node layout (PyTorch port of the parts of
-mpgadget_tpu/gravity/tree.py that the gravity tree uses).
+"""Morton-prefix octree (PyTorch port of mpgadget_tpu/gravity/tree.py).
 
 Particles are kept Morton-sorted, so every octree node is a contiguous
 particle range.  Nodes are stored in depth-first preorder, so traversal
 is stackless: "descend" is i+1 and "skip subtree" is the skip pointer
-(skip[i] = first node after the subtree of i).  See gravity/tree32.py
-for the closed-form build.
+(skip[i] = first node after the subtree of i).  Two builds fill the same
+:class:`Tree`: the closed-form one of gravity/tree32.py (48-bit keys, the
+gravity tree) and :func:`build_tree` here, the per-level build over
+63-bit keys that the neighbour walk (ops/pairs.py, physics/fof.py) uses.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops.morton import KEY_PAD, MORTON_BITS
 
 
 @dataclass(frozen=True)
@@ -26,7 +29,9 @@ class TreeConfig:
 @dataclass
 class Tree:
     """Fixed-capacity node arrays in DFS preorder."""
-    key_start: torch.Tensor  # int64[C] 48-bit Morton prefix of the node
+    key_start: torch.Tensor  # int64[C] first Morton key of the node: the
+    #                          48-bit key of tree32.py, or the 63-bit key
+    #                          of build_tree (padding rows KEY_PAD)
     level: torch.Tensor      # int64[C]
     pstart: torch.Tensor     # int64[C] first particle (sorted order)
     pcount: torch.Tensor     # int64[C]
@@ -47,13 +52,17 @@ class Tree:
     @classmethod
     def from_jax_numpy(cls, arrays: dict, device="cuda"):
         """Carry a JAX ``Tree`` (fields as numpy arrays) over into the
-        port's tensors.  Integer fields become int64; the JAX uint32
-        ``key_start`` is kept as its value."""
+        port's tensors.  Integer fields become int64; a uint32
+        ``key_start`` (tree32) is kept as its value, and the uint64
+        padding key ~0 of the per-level build becomes KEY_PAD."""
         ints = ("key_start", "level", "pstart", "pcount", "skip", "n_nodes")
         fields = {}
         for name in cls.__dataclass_fields__:
-            a = np.array(arrays[name], dtype=np.int64 if name in ints
-                         else None)
+            a = np.asarray(arrays[name])
+            if name == "key_start" and a.dtype == np.uint64:
+                a = np.where(a == np.iinfo(np.uint64).max, KEY_PAD,
+                             a.astype(np.int64))
+            a = np.array(a, dtype=np.int64 if name in ints else None)
             fields[name] = torch.as_tensor(a).to(device)
         return cls(**fields)
 
@@ -118,3 +127,135 @@ def _range_sum_maker(x, chunk=4096):
         return (off_e - off_s).to(torch.float32) + (in_e - in_s)
 
     return range_sum
+
+
+def _run_bounds(flags):
+    """For boolean run-start flags over a sorted array, return for every
+    element the (start, end) indices of its run (scans, no scatter)."""
+    n = flags.shape[0]
+    iota = torch.arange(n, device=flags.device)
+    starts = torch.cummax(torch.where(flags, iota, 0), 0).values
+    # run end = next run's start: a reverse cummin of next-start markers
+    nxt = torch.where(flags, iota, n)
+    nxt = torch.cat([nxt[1:], nxt.new_full((1,), n)])
+    ends = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+    return starts, ends
+
+
+def _broadcast_from_start(value_at_start, flags):
+    """Propagate a value set at run-start positions to the whole run
+    (forward fill along the sorted axis)."""
+    iota = torch.arange(flags.shape[0], device=flags.device)
+    return value_at_start[torch.cummax(torch.where(flags, iota, 0), 0).values]
+
+
+def build_tree(keys, ipos, mass, valid, leaf_max, max_level, capacity,
+               group_max=64):
+    """Build the octree from SORTED 63-bit Morton keys, one level at a
+    time.
+
+    keys: int64[N] in :func:`~mpgadget_tpu_torch.ops.morton.sort_order`
+    (valid particles by key, then the invalid ones, which hold KEY_PAD);
+    ipos: int64[N,3] fixed-point positions in the same order; mass zeroed
+    for invalid particles.  All geometry is in box units [0,1).  Level L
+    holds a node wherever the 3L-bit key prefix changes under an internal
+    parent; nodes are ordered by (key_start, level), which is DFS
+    preorder, padding rows (key KEY_PAD) last.
+    """
+    dev = keys.device
+    n = keys.shape[0]
+    pos_box = ipos.to(torch.float32) * 2.0 ** -32
+    mass = torch.where(valid, mass, 0.0)
+    mass_sum = _range_sum_maker(mass)
+    mpos_sum = _range_sum_maker(mass[:, None] * pos_box)
+    nvalid = valid.sum()
+
+    C = capacity
+    # row C takes the writes the JAX package drops (rank past capacity)
+    key_start_g = torch.full((C + 1,), KEY_PAD, dtype=torch.int64,
+                             device=dev)
+    fdata = torch.zeros((C + 1, 8), dtype=torch.float32, device=dev)
+    idata = torch.zeros((C + 1, 4), dtype=torch.int64, device=dev)
+    offset = torch.zeros((), dtype=torch.int64, device=dev)
+    parent_internal = torch.ones(n, dtype=torch.bool, device=dev)
+    parent_small = torch.zeros(n, dtype=torch.bool, device=dev)
+    iota = torch.arange(n, device=dev)
+
+    for lev in range(0, max_level + 1):
+        shift = 3 * (MORTON_BITS - lev)
+        prefix = keys >> shift
+        if lev == 0:
+            flags = iota == 0
+        else:
+            flags = torch.cat([flags.new_ones(1), prefix[1:] != prefix[:-1]])
+        starts, ends = _run_bounds(flags)
+        count = ends - starts
+        # candidate nodes: run starts, within the valid-particle range,
+        # whose parent was internal
+        cand = flags & (iota < nvalid) & parent_internal
+        node_is_leaf = (count <= leaf_max) | (lev == max_level)
+        # target group: first node on the root path with count<=group_max
+        node_is_group = (((count <= group_max) | (lev == max_level))
+                         & ~parent_small[starts])
+        rank = torch.cumsum(cand.to(torch.int64), 0) - 1
+        dest = torch.where(cand, torch.clamp(offset + rank, max=C), C)
+        nm = mass_sum(starts, ends)
+        com = mpos_sum(starts, ends) / torch.clamp(nm, min=1e-30)[:, None]
+        # geometric cell center: exact from the run-start particle's
+        # integer position (it lies inside the cell by construction)
+        side = float(np.float32(1.0 / (1 << lev)))
+        if lev > 0:
+            cell = (ipos[starts] >> (32 - lev)).to(torch.float32)
+        else:
+            cell = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        center = (cell + 0.5) * side
+        com = torch.where(nm[:, None] > 0, com, center)
+
+        frow = torch.cat([nm[:, None], com, center,
+                          torch.full((n, 1), side, dtype=torch.float32,
+                                     device=dev)], dim=1)
+        irow = torch.stack(
+            [torch.full((n,), lev, dtype=torch.int64, device=dev), starts,
+             count, node_is_leaf.to(torch.int64)
+             + 2 * (node_is_group & cand).to(torch.int64)], dim=1)
+        key_start_g[dest] = prefix << shift
+        fdata[dest] = frow
+        idata[dest] = irow
+        offset = offset + cand.sum()
+        # children exist only under internal nodes
+        parent_internal = _broadcast_from_start(cand & ~node_is_leaf, flags)
+        parent_small = _broadcast_from_start(
+            flags & (parent_small[starts] | (count <= group_max)), flags)
+
+    n_nodes = offset
+    overflow = n_nodes > C
+    key_start_g, fdata, idata = key_start_g[:C], fdata[:C], idata[:C]
+
+    # DFS preorder: sort by (key_start, level), padding rows last (three
+    # stable sorts: no lexicographic sort in torch, and no int64 above a
+    # node of the last cell for the padding key)
+    pad = torch.arange(C, device=dev) >= n_nodes
+    o = torch.argsort(idata[:, 0], stable=True)
+    o = o[torch.argsort(key_start_g[o], stable=True)]
+    o = o[torch.argsort(pad[o].to(torch.int8), stable=True)]
+    ks = key_start_g[o]
+    fdata = fdata[o]
+    idata = idata[o]
+    level = idata[:, 0]
+
+    # skip pointer: first node with key_start >= my key_end, searched as
+    # key_start > my last key, so that no key_end overflows int64 (the
+    # last cell of a level ends at 2^63); the root's is n_nodes
+    ks_search = torch.where(ks >= 0, ks, torch.iinfo(torch.int64).max)
+    span = torch.ones_like(level) << (3 * (MORTON_BITS
+                                           - torch.clamp(level, min=1)))
+    last = torch.clamp(ks, min=0) + (span - 1)
+    skip = torch.searchsorted(ks_search, last, right=True)
+    skip = torch.where((level == 0) | (ks < 0), n_nodes,
+                       torch.minimum(skip, n_nodes))
+
+    return Tree(key_start=ks, level=level, pstart=idata[:, 1],
+                pcount=idata[:, 2], mass=fdata[:, 0], com=fdata[:, 1:4],
+                center=fdata[:, 4:7], length=fdata[:, 7],
+                is_leaf=(idata[:, 3] & 1) > 0, is_group=(idata[:, 3] & 2) > 0,
+                skip=skip, n_nodes=n_nodes, overflow=overflow)

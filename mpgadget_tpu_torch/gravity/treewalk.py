@@ -98,18 +98,65 @@ def make_block_groups(pos_box, valid_s, amag_s, group_size):
     return p, center, half, amin, active
 
 
+def make_target_groups(tree, pos_box, amag_sorted, group_cap, group_max):
+    """Compact target-group node list + per-group bbox and min |aold|
+    (the node-group variant the neighbour engine, ops/pairs.py, uses).
+
+    Group nodes are the highest tree nodes with count <= group_max
+    (tree.is_group): true octree cells, so their bounding boxes are
+    tight.  Returns (group_nodes int64[group_cap]: node index, 2^30 for
+    padding; center f32[group_cap,3]; half f32[group_cap,3]; amin
+    f32[group_cap]; n_groups; overflow).
+    """
+    dev = pos_box.device
+    C = tree.capacity
+    iota = torch.arange(C, device=dev)
+    is_group = tree.is_group & (iota < tree.n_nodes)
+    # stable compaction of group indices (DFS order preserved)
+    order = torch.argsort((~is_group).to(torch.int8), stable=True)
+    n_groups = is_group.sum()
+    slot = torch.arange(group_cap, device=dev)
+    nodes = torch.where(slot < n_groups, order[:group_cap], C - 1)
+    overflow = n_groups > group_cap
+
+    n = pos_box.shape[0]
+    off = torch.arange(group_max, device=dev)
+    ps = tree.pstart[nodes]
+    pc = tree.pcount[nodes]
+    idx = torch.clamp(ps[:, None] + off[None, :], 0, n - 1)
+    mask = off[None, :] < pc[:, None]
+    p = pos_box[idx]
+    # min-image-safe bbox: anchor on the first particle
+    anchor = p[:, :1, :]
+    rel = torch.where(mask[:, :, None], _wrap(p - anchor), 0.0)
+    lo = rel.min(dim=1).values
+    hi = rel.max(dim=1).values
+    center = anchor[:, 0, :] + 0.5 * (lo + hi)
+    half = 0.5 * (hi - lo)
+    am = torch.where(mask, amag_sorted[idx], float("inf"))
+    amin = am.min(dim=1).values
+    amin = torch.where(torch.isfinite(amin), amin, 0.0)
+    # padding groups: a sentinel node so that their walk starts done
+    nodes = torch.where(slot >= n_groups, 2 ** 30, nodes)
+    return nodes, center, half, amin, n_groups, overflow
+
+
+def pack_meta(tree):
+    """int32[C]: each node's skip pointer with the leaf flag in bit 31, as
+    the walk kernels (treewalk.cu, neighbors.cu) read it."""
+    return tree.skip.to(torch.int32) | torch.where(
+        tree.is_leaf, LEAF_BIT, 0).to(torch.int32)
+
+
 def pack_nodes(tree):
     """The walk kernel's node table, packed once per tree.
 
     Returns (nodes f32[C, 8], meta int32[C]): each node is two 16-byte
-    rows, (center, length) and (com, mass), and one int32, the skip
-    pointer with the leaf flag in bit 31.
+    rows, (center, length) and (com, mass), and :func:`pack_meta`.
     """
     nodes = torch.cat([tree.center, tree.length[:, None], tree.com,
                        tree.mass[:, None]], dim=1).contiguous()
-    meta = tree.skip.to(torch.int32) | torch.where(
-        tree.is_leaf, LEAF_BIT, 0).to(torch.int32)
-    return nodes, meta
+    return nodes, pack_meta(tree)
 
 
 def _count(timer, tree, visits, monopoles):
@@ -188,20 +235,24 @@ def traverse_fused_reference(tree, tpos, center, half, aold, active,
         rec_leaf = keep & must_open & leaf
         descend = keep & must_open & ~leaf
         monopoles += use_node.to(torch.int64)
-
-        dx = _wrap(com[:, 0:1] - tx)
-        dy = _wrap(com[:, 1:2] - ty)
-        dz = _wrap(com[:, 2:3] - tz)
-        r = torch.sqrt(dx * dx + dy * dy + dz * dz)
-        on = use_node[:, None] & (r < rcut)
-        w = torch.where(on, m[:, None] * softened_force_factor(r, h_inv)
-                        * shortrange_force_window(r, rs_inv), 0.0)
-        ax += w * dx
-        ay += w * dy
-        az += w * dz
-        if with_potential:
-            pot += torch.where(on, m[:, None] * softened_pot_factor(r, h_inv)
-                               * shortrange_pot_window(r, rs_inv), 0.0)
+        # an iteration in which no block applies a monopole would add only
+        # zeros: skip its terms (one host read; most iterations of a walk
+        # open or discard)
+        if bool(use_node.any()):
+            dx = _wrap(com[:, 0:1] - tx)
+            dy = _wrap(com[:, 1:2] - ty)
+            dz = _wrap(com[:, 2:3] - tz)
+            r = torch.sqrt(dx * dx + dy * dy + dz * dz)
+            on = use_node[:, None] & (r < rcut)
+            w = torch.where(on, m[:, None] * softened_force_factor(r, h_inv)
+                            * shortrange_force_window(r, rs_inv), 0.0)
+            ax += w * dx
+            ay += w * dy
+            az += w * dz
+            if with_potential:
+                pot += torch.where(
+                    on, m[:, None] * softened_pot_factor(r, h_inv)
+                    * shortrange_pot_window(r, rs_inv), 0.0)
         room = nl < LL
         leaves[rows, torch.where(rec_leaf & room, nl, LL)] = i
         ovf |= rec_leaf & ~room

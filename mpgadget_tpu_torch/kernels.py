@@ -31,6 +31,8 @@ SOURCES = {
     # the walk's open/discard decisions must round as the plain version's
     # separate PyTorch operations do: no multiply-add contraction
     "treewalk": ("treewalk.cu", ("-fmad=false",)),
+    # the neighbour walk (K3): the same rule for its near/far decisions
+    "neighbors": ("neighbors.cu", ("-fmad=false",)),
     # measurement aids that only chip_smoke.py loads: the serial walk the
     # port began with, as a yardstick, and an L2 pointer chase
     "treewalk_serial": ("treewalk_serial.cu", ("-fmad=false",)),

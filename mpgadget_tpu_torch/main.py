@@ -4,8 +4,9 @@ mpgadget_tpu/main.py).
 Usage: python -m mpgadget_tpu_torch.main <paramfile> [RestartFlag [SnapNum]]
 (gadget/main.c:56-68).  RestartFlag: omitted = start from IC; 1 = resume
 from the last snapshot in Snapshots.txt; 2 <num> = restart from snapshot
-num; 4 <num> = measure power spectrum.  RestartFlag 3 (FOF) and 99
-(gravity self-test) are not ported yet.
+num; 3 <num> = FOF halo catalogue (PIG_<num>) of snapshot num; 4 <num> =
+measure power spectrum.  RestartFlag 99 (gravity self-test) is not
+ported yet.
 """
 
 import os
@@ -210,17 +211,16 @@ def main():
     paramfile = sys.argv[1]
     restart = int(sys.argv[2]) if len(sys.argv) > 2 else 0
     snapnum = int(sys.argv[3]) if len(sys.argv) > 3 else None
-    if restart in (3, 99):
+    if restart == 99:
         raise NotImplementedError(
-            f"RestartFlag {restart} is not supported by mpgadget_tpu_torch "
-            "yet")
-    if restart in (2, 4) and snapnum is None:
+            "RestartFlag 99 is not supported by mpgadget_tpu_torch yet")
+    if restart in (2, 3, 4) and snapnum is None:
         raise SystemExit("RestartFlag %d needs a snapshot number" % restart)
     if not torch.cuda.is_available():
         raise SystemExit("mpgadget_tpu_torch.main needs a CUDA device")
 
     snapshot = None
-    if restart == 1 or (restart in (2, 4) and snapnum is not None):
+    if restart == 1 or (restart in (2, 3, 4) and snapnum is not None):
         ps = create_gadget_parameter_set()
         ps.parse_file(paramfile)
         outdir = ps["OutputDir"]
@@ -231,6 +231,9 @@ def main():
         snapshot = os.path.join(outdir, f"{base}_{snapnum:03d}")
 
     sim, ps = build_simulation(paramfile, snapshot=snapshot, device="cuda")
+    if restart == 3:
+        sim.run_fof(save=True, label=snapnum)
+        return
     if restart == 4:
         sim.compute_forces()
         D1 = sim.CP.GrowthFactor(sim.atime, 1.0)

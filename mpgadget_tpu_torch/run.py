@@ -2,10 +2,12 @@
 the dark-matter-only part of mpgadget_tpu/run.py.
 
 One device, a power-of-two quantized PM timestep, KDK integration with
-exact FLRW factors, TreePM forces, in-line power spectra and snapshot
-output at sync points.  The PM step is either one global KDK step or,
-with SplitGravityTimestepsOn, sub-cycled over per-particle power-of-two
-timebins whose short-range force is computed for the active set only
+exact FLRW factors, TreePM forces, in-line power spectra, snapshot output
+at sync points and, with SnapshotWithFOF, a friends-of-friends halo
+catalogue (PIG) beside each snapshot (:meth:`Simulation.run_fof`).  The
+PM step is either one global KDK step or, with SplitGravityTimestepsOn,
+sub-cycled over per-particle power-of-two timebins whose short-range
+force is computed for the active set only
 (:meth:`Simulation.step_hierarchical`).  Switches this port does not
 carry yet raise NotImplementedError naming the parameter (see
 :func:`check_supported`); none is silently ignored.
@@ -204,7 +206,6 @@ def check_supported(cfg: SimConfig, has_gas: bool):
     Gas-only switches matter only when gas is present, as in the JAX
     package (with HydroOn = 0 gas particles are collisionless)."""
     always = (
-        ("SnapshotWithFOF", cfg.snapshot_with_fof),
         ("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
         ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
         ("BlackHoleOn", cfg.black_hole_on),
@@ -651,6 +652,11 @@ class Simulation:
             sp = self.timeline.find_current_sync_point(self.ti_current)
             if sp is not None and sp.write_snapshot:
                 self.write_snapshot()
+                # BH seeding from the catalogue waits for BlackHoleOn,
+                # which check_supported refuses
+                if sp.write_fof or (self.cfg.snapshot_with_fof
+                                    and sp.write_snapshot):
+                    self.run_fof()
             if self.last_power is not None:
                 D1 = self.CP.GrowthFactor(self.atime, 1.0)
                 self.last_power.save(self.cfg.output_dir, self.atime, D1)
@@ -674,6 +680,102 @@ class Simulation:
             if max_steps and nsteps >= max_steps:
                 break
         return nsteps
+
+    # -- FOF -----------------------------------------------------------
+
+    def run_fof(self, save=True, label=None, timer=None):
+        """FOF halo finding + PIG catalogue output (runfof, run.c:813-852
+        and fof_save_groups).  timer: optional treepm.StageTimer, started
+        by the caller (see physics.fof.fof_label); adds the lap "PIG"."""
+        from .physics.fof import fof_catalog, FOFParams
+        npart = float(((self.pdata.valid) & (self.pdata.ptype == 1)).sum())
+        mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(npart))
+        cfg = FOFParams(
+            linking_length=self.cfg.fof_linking_length,
+            min_group_length=self.cfg.fof_min_group_length,
+            primary_link_types=self.cfg.fof_primary_link_types,
+            secondary_link_types=self.cfg.fof_secondary_link_types)
+        self.walltime.start("FOF")
+        cat = fof_catalog(self.pdata.ipos, self.pdata.vel, self.pdata.mass,
+                          self.pdata.ptype, self.pdata.valid,
+                          self.cfg.boxsize, mean_sep, cfg, timer=timer)
+        self.walltime.stop("FOF")
+        if save:
+            self.write_fof_catalog(cat, label)
+            if timer is not None:
+                timer.lap("PIG")
+        return cat
+
+    def write_fof_catalog(self, cat, label=None):
+        """PIG bigfile in the reference's FOFGroups schema
+        (fofpetaio.c:540-570) plus the grouped particles' blocks."""
+        if label is None:
+            label = max(self.snapshot_count - 1, 0)
+        path = os.path.join(self.cfg.output_dir,
+                            f"{self.cfg.fof_file_base}_{label:03d}")
+        bf = BigFile(path, create=True)
+        ng = cat["ngroups"]
+        atime = self.atime
+        # GrNr counts from 1 (fof.c:1127-1133)
+        bf.create_from_array("FOFGroups/GroupID",
+                             np.arange(1, ng + 1, dtype="<u4"))
+        bf.create_from_array("FOFGroups/Mass", cat["masses"].astype("<f4"))
+        off = self._ipos_offset.astype(np.float64) / 2.0 ** 32 \
+            * self.cfg.boxsize
+        bf.create_from_array(
+            "FOFGroups/MassCenterPosition",
+            np.mod(cat["cm"] - off, self.cfg.boxsize).astype("<f8"))
+        bf.create_from_array("FOFGroups/MassCenterVelocity",
+                             (cat["vel"] / atime).astype("<f4"))
+        bf.create_from_array("FOFGroups/LengthByType",
+                             cat["len_by_type"].astype("<u4"))
+        bf.create_from_array("FOFGroups/MassByType",
+                             cat["mass_by_type"].astype("<f4"))
+        bf.create_from_array("FOFGroups/StarFormationRate",
+                             cat["sfr"].astype("<f4"))
+        ntot = np.zeros(6, np.uint64)
+        if self.cfg.fof_save_particles and ng > 0:
+            # particles grouped by halo (fofpetaio.c fof_save_particles:
+            # select GrNr > 0, sort by GrNr, write the usual blocks +
+            # per-particle GroupID)
+            gi = np.asarray(cat["group_index"])
+            valid = self.pdata.valid.cpu().numpy()
+            insel = valid & (gi >= 0)
+            order = np.nonzero(insel)[0][np.argsort(gi[insel],
+                                                    kind="stable")]
+            ptype = self.pdata.ptype.cpu().numpy()[order]
+            pos = self._output_pos()[order]
+            vel = self.pdata.vel.cpu().numpy()[order]
+            mass = self.pdata.mass.cpu().numpy()[order]
+            pid = self.pdata.pid.cpu().numpy()[order]
+            gid = (gi[order] + 1).astype("<u4")
+            for t in range(6):
+                tsel = ptype == t
+                ntot[t] = tsel.sum()
+                if ntot[t] == 0:
+                    continue
+                full = np.zeros(len(valid), bool)
+                full[order[tsel]] = True
+                extra = self._species_extra_blocks(t, full, atime)
+                # _species_extra_blocks selects in array order; remap to
+                # group order within the type (the rank of each row among
+                # the selected rows)
+                rord = np.searchsorted(np.nonzero(full)[0], order[tsel])
+                extra = {k: v[rord] for k, v in extra.items()}
+                extra["GroupID"] = gid[tsel]
+                snap_io.write_species(
+                    bf, t, pos=pos[tsel], vel=vel[tsel], pid=pid[tsel],
+                    mass=mass[tsel], atime=atime, use_peculiar=True,
+                    extra=extra)
+        hdr = bf.create("Header")
+        hdr.attrs["NumFOFGroupsTotal"] = np.asarray([ng], "<u8")
+        hdr.attrs["NumPartInGroupTotal"] = ntot.astype("<u8")
+        hdr.attrs["Time"] = float(atime)
+        hdr.attrs["BoxSize"] = float(self.cfg.boxsize)
+        hdr.attrs["Omega0"] = float(self.CP.Omega0)
+        hdr.attrs["OmegaLambda"] = float(self.CP.OmegaLambda)
+        hdr.attrs["HubbleParam"] = float(self.CP.HubbleParam)
+        return path
 
     # -- output --------------------------------------------------------
 

@@ -12,6 +12,9 @@ import torch
 
 from mpgadget_tpu_torch.gravity import pairkernel as pk
 from mpgadget_tpu_torch.gravity import treepm, treewalk
+from mpgadget_tpu_torch.gravity.tree import build_tree
+from mpgadget_tpu_torch.ops import morton, pairs
+from mpgadget_tpu_torch.physics import fof
 from mpgadget_tpu_torch.pm import gravity as pm
 from test_torch_walkkernel import _stack_walk, walk_inputs
 
@@ -357,3 +360,90 @@ def test_genic_displacement_cuda_matches_cpu(cuda):
     # the generator on the card is seeded as well
     assert torch.equal(zel.gaussian_modes(7, 16, device=cuda),
                        zel.gaussian_modes(7, 16, device=cuda))
+
+
+def _fof_inputs(kind, device, n=8192, seed=17):
+    """A per-level tree over n particles (uniform, or eight clusters) and
+    its FOF target groups, as physics.fof builds them."""
+    rng = np.random.RandomState(seed)
+    if kind == "uniform":
+        pos = rng.uniform(0, 1, (n, 3))
+    else:
+        c = rng.uniform(0.2, 0.8, (8, 3))
+        pos = np.mod(c[rng.randint(8, size=n)] + 0.02 * rng.randn(n, 3), 1)
+    ipos = torch.as_tensor(np.minimum((pos * 2.0 ** 32).astype(np.int64),
+                                      2 ** 32 - 1), device=device)
+    valid = torch.as_tensor(rng.rand(n) > 0.05, device=device)
+    keys = morton.morton_key(ipos)
+    perm = morton.sort_order(keys, valid)
+    vs = valid[perm]
+    tree = build_tree(torch.where(vs, keys[perm], morton.KEY_PAD),
+                      ipos[perm], torch.ones(n, device=device), vs, 16, 18,
+                      2 * n + 64, group_max=32)
+    pos_box = ipos[perm].float() * 2.0 ** -32
+    groups = treewalk.make_target_groups(
+        tree, pos_box, torch.full((n,), float("inf"), device=device),
+        min(n // 4 + 64, n + 64), 32)
+    hmax = torch.as_tensor(
+        (rng.uniform(0, 0.02, tree.capacity)
+         * (rng.rand(tree.capacity) < 0.2)).astype(np.float32),
+        device=device)
+    return tree, groups, hmax
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clusters"])
+@pytest.mark.parametrize("symmetric,LL", [(False, 64), (False, 8),
+                                          (True, 256)])
+def test_neighbor_kernel_matches_plain(cuda, kind, symmetric, LL):
+    """K3 against find_neighbors_reference on the card: the same leaf
+    lists, counts, overflow flags and visits (LL = 8 overflows)."""
+    tree, (nodes, gc, gh, _, _, _), hmax = _fof_inputs(kind, cuda)
+    radius = torch.full((nodes.shape[0],), 0.2 / 20.0, device=cuda)
+    before = pairs.LAUNCHES
+    got = pairs.find_neighbors(tree, nodes, gc, gh, radius, hmax, LL,
+                               symmetric=symmetric)
+    assert pairs.LAUNCHES == before + 1
+    ref = pairs.find_neighbors_reference(tree, nodes, gc, gh, radius, hmax,
+                                         LL, symmetric=symmetric)
+    for name in ("leaf_idx", "n_leaves", "overflow", "visits"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert int(got.n_leaves.sum()) > 0
+    if LL == 8:
+        assert bool(got.overflow.any())
+
+
+def test_neighbor_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    tree, (nodes, gc, gh, _, _, _), hmax = _fof_inputs("uniform", cuda,
+                                                       n=2048)
+    radius = torch.full((nodes.shape[0],), 0.01, device=cuda)
+    for k, bad in ((0, nodes.to(torch.int32)), (1, gc.double()),
+                   (1, gc.t().contiguous().t()), (2, gh.cpu()),
+                   (3, radius[:-1]), (4, hmax[:-1])):
+        a = [nodes, gc, gh, radius, hmax]
+        a[k] = bad
+        with pytest.raises(ValueError):
+            pairs.find_neighbors(tree, *a, 64, symmetric=True)
+    for LL in (0, 2 ** 31 // nodes.shape[0]):
+        with pytest.raises(ValueError):
+            pairs.find_neighbors(tree, nodes, gc, gh, radius, hmax, LL)
+
+
+def test_fof_label_cuda_matches_cpu(cuda):
+    """fof_label on the card (K3 and the min-label sweeps) equals the
+    same call on the CPU, label for label."""
+    rng = np.random.RandomState(9)
+    n = 8192
+    c = rng.uniform(0, 1, (16, 3))
+    pos = np.concatenate([rng.uniform(0, 1, (n // 2, 3)), np.mod(
+        c[rng.randint(16, size=n // 2)] + 0.01 * rng.randn(n // 2, 3), 1)])
+    ipos = np.minimum((pos * 2.0 ** 32).astype(np.int64), 2 ** 32 - 1)
+    valid = rng.rand(n) > 0.05
+    ll = 0.2 / n ** (1 / 3)
+    before = pairs.LAUNCHES
+    got, _, _ = fof.fof_label(torch.as_tensor(ipos, device=cuda),
+                              torch.as_tensor(valid, device=cuda), 1.0, ll)
+    assert pairs.LAUNCHES > before
+    want, _, _ = fof.fof_label(torch.as_tensor(ipos), torch.as_tensor(valid),
+                               1.0, ll)
+    assert torch.equal(got.cpu(), want)
+    assert len(torch.unique(want[want >= 0])) < int(valid.sum())

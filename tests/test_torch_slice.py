@@ -154,7 +154,6 @@ def test_snapshot_written_by_port_reads_back(ic_path, tmp_path):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("SnapshotWithFOF", 1),
     ("MassiveNuLinRespOn", 1), ("BlackHoleOn", 1), ("StarformationOn", 1),
     ("LightconeOn", 1), ("PlaneOutputList", "0.11"),
     ("OutputEnergyDebug", 1), ("HybridNeutrinosOn", 1)])
@@ -177,16 +176,17 @@ def test_gas_switches_raise_only_with_gas(name, field):
         check_supported(cfg, has_gas=True)
 
 
-def test_restart_flag_3_raises(monkeypatch):
+def test_restart_flag_99_raises(monkeypatch):
     from mpgadget_tpu_torch import main as tmain
-    monkeypatch.setattr(sys, "argv", ["main", "param.txt", "3", "0"])
-    with pytest.raises(NotImplementedError, match="RestartFlag 3"):
+    monkeypatch.setattr(sys, "argv", ["main", "param.txt", "99"])
+    with pytest.raises(NotImplementedError, match="RestartFlag 99"):
         tmain.main()
 
 
 def test_port_imports_no_jax():
     code = ("import sys, mpgadget_tpu_torch.main, mpgadget_tpu_torch.run; "
             "import mpgadget_tpu_torch.gravity.treepm; "
+            "import mpgadget_tpu_torch.physics.fof; "
             "import mpgadget_tpu_torch.genic.main, "
             "mpgadget_tpu_torch.genic.glass; "
             "bad = [m for m in sys.modules if m == 'jax' "

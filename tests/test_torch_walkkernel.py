@@ -339,6 +339,33 @@ def test_kernel_stack_walk_matches_plain_walk(kind, use_bh, LL, rcut,
         assert n_nodes > C and max(visits) > C
 
 
+@pytest.mark.parametrize("kind", ["blob", "clusters"])
+def test_plain_walk_skipping_monopole_free_iterations_is_bit_identical(kind):
+    """The plain walk skips the monopole terms of an iteration in which no
+    block applies a monopole.  A copy of the module that applies them in
+    every iteration (and records which iterations the original skips)
+    gives the same accelerations, potentials and leaf lists bit for
+    bit."""
+    src = inspect.getsource(tw)
+    skip = "if bool(use_node.any()):"
+    assert src.count(skip) == 1
+    always = type(tw)("mpgadget_tpu_torch.gravity._treewalk_always")
+    always.__package__ = tw.__package__
+    always._seen = []
+    exec(compile(src.replace(
+        skip, "if _seen.append(bool(use_node.any())) or True:"),
+        tw.__file__, "exec"), always.__dict__)
+    tree, tpos, center, half, aold, active = walk_inputs(kind)
+    args = (tree, tpos, center, half, aold, active,
+            tw.WalkConfig(leaf_list_max=512), RCUT, float(np.float32(0.25)),
+            True, 3.0 / RCUT, H_INV)
+    got = tw.traverse_fused_reference(*args, with_potential=True)
+    want = always.traverse_fused_reference(*args, with_potential=True)
+    assert False in always._seen and True in always._seen
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_pack_nodes_round_trips_every_field():
     tree = walk_inputs("clusters")[0]
     nodes, meta = tw.pack_nodes(tree)
