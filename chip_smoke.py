@@ -11,8 +11,9 @@ fails the run (non-zero exit, no result line) if it fails:
    limit as nvidia-smi reports them;
 2. build: compiles the three kernels, the pair kernel K1
    (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu) and the
-   neighbour walk K3 (csrc/neighbors.cu), and the two measurement aids,
-   one nvcc each, in parallel;
+   neighbour walk K3 (csrc/neighbors.cu), and the three measurement aids
+   (the serial walks K2 and K3 began as, and an L2 pointer chase), one
+   nvcc each, in parallel;
 3. K1: the pair kernel against its plain PyTorch version on the card at
    the main path's shapes (nb=1024 blocks, G=256 targets, S=4096
    sources), with and without potential, on inputs from a seed, once
@@ -82,7 +83,11 @@ fails the run (non-zero exit, no result line) if it fails:
    final state's FOF inputs (asymmetric, at the LL the FOF reached) and
    on 64^3 clustered particles (symmetric, a seeded hmax, LL 16, which
    some groups overflow): the same leaf lists, counts, flags and visits,
-   two launches bit-identical, device time by CUDA graph replays;
+   two launches and the serial walk K3 began as (csrc/neighbors_serial.cu,
+   loaded only here) bit-identical, device times of both by CUDA graph
+   replays, each with its critical path; then the clustered set with a
+   stack of one entry, so that K3's serial mode walks every group, held
+   to the plain version too;
 13. RestartFlag 3: python -m mpgadget_tpu_torch.main paramfile.gadget 3
    <the last snapshot>, whose PIG must read back and pass the checks of
    phase 10.
@@ -94,11 +99,12 @@ pair beyond rcut needs only its distance, and the walk reads each node
 of the tree once (revisits hit L2).  Beside the walk's bound stands its
 critical path, the longest chain of loads of which each needs the one
 before, times one L2 round trip: the kernel's (the longest block's sum
-of each round's longest sibling chain) and a serial walk's (the longest
-block's visits).  K3's bound is the node rows read once, the groups
-read and the leaf lists written, against NEIGHBOR_OPS per visit; beside
-it stands the walk's own bound, which counts only the listed leaves
-written and not the fill of the lists' unused slots.
+of each round's longest sibling chain; for K3 the longest group's
+rounds) and a serial walk's (the longest block's or group's visits).
+K3's bound is the node rows read once, the groups read and the leaf
+lists written, against NEIGHBOR_OPS per visit; beside it stands the
+walk's own bound, which counts only the listed leaves written and not
+the fill of the lists' unused slots.
 
 The last two lines of standard output are the kernel table and the
 result, each one JSON object.
@@ -1356,10 +1362,72 @@ def fof_phase(sim, label, device="cuda"):
                 leaf_list_max=ser["leaf_list_max"][-1])
 
 
-def neighbor_case(name, tree, groups, radius, hmax, LL, symmetric, l2_ns):
+def kernel_split(fn, calls):
+    """Mean device milliseconds per call of each CUDA kernel that fn
+    launches, by torch.profiler ({} where the profiler records no device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[ev.key.split("(")[0].split("<")[0].replace("void ", "")] = \
+                us * 1e-3 / calls
+    return out
+
+
+def serial_neighbors_fn():
+    """The serial neighbour walk's entry point (csrc/neighbors_serial.cu),
+    a yardstick that only this script loads."""
+    import ctypes
+    from mpgadget_tpu_torch import kernels
+    fn = kernels.load("neighbors_serial").find_neighbors_serial_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def serial_neighbors(fn, packed, tree, group_nodes, center, half, radius,
+                     hmax, LL, symmetric):
+    """One call of the serial neighbour walk as the port first launched
+    it: the lists filled with C, then one thread per group; returns
+    (leaf_idx, n_leaves, overflow, visits)."""
+    import torch
+    nodes, meta = packed
+    ng = group_nodes.shape[0]
+    dev = center.device
+    out = (torch.full((ng, LL), tree.capacity, dtype=torch.int32,
+                      device=dev),
+           torch.empty(ng, dtype=torch.int32, device=dev),
+           torch.empty(ng, dtype=torch.bool, device=dev),
+           torch.empty(ng, dtype=torch.int32, device=dev))
+    rc = fn(nodes.data_ptr(), (hmax if symmetric else nodes).data_ptr(),
+            meta.data_ptr(), tree.n_nodes.data_ptr(), group_nodes.data_ptr(),
+            center.data_ptr(), half.data_ptr(), radius.data_ptr(),
+            *(t.data_ptr() for t in out), ng, tree.capacity, LL,
+            int(bool(symmetric)), torch.cuda.current_stream(dev).cuda_stream)
+    check(rc == 0, f"serial neighbour walk launch failed: CUDA error {rc}")
+    return out
+
+
+NEIGHBOR_FIELDS = ("leaf_idx", "n_leaves", "overflow", "visits")
+
+
+def neighbor_case(name, tree, groups, radius, hmax, LL, symmetric, l2_ns,
+                  serial_fn):
     """K3 against its plain version on one set: the same lists, counts,
-    flags and visits, two launches the same bits; device time by graph
-    replays."""
+    flags and visits, two launches and the serial yardstick the same
+    bits; device times by graph replays, the kernel's beside the serial
+    walk's, and each one's critical path."""
     import torch
     from mpgadget_tpu_torch.ops import pairs
     nodes, gc, gh = groups[:3]
@@ -1370,46 +1438,97 @@ def neighbor_case(name, tree, groups, radius, hmax, LL, symmetric, l2_ns):
     ref = pairs.find_neighbors_reference(*args, symmetric=symmetric)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    fields = ("leaf_idx", "n_leaves", "overflow", "visits")
-    for f in fields:
+    for f in NEIGHBOR_FIELDS:
         check(torch.equal(getattr(res, f), getattr(ref, f)),
               f"neighbour kernel {f} differs from the plain version ({name})")
     abs_err = max(int((getattr(res, f).long() - getattr(ref, f).long())
-                      .abs().max()) for f in fields)
+                      .abs().max()) for f in NEIGHBOR_FIELDS)
     packed = pairs.pack_neighbor_nodes(tree)
-    again = pairs.neighbor_kernel(*args, symmetric=symmetric, packed=packed)
+    again, stats = pairs.neighbor_kernel(*args, symmetric=symmetric,
+                                         packed=packed)
     check(all(torch.equal(getattr(res, f), getattr(again, f))
-              for f in fields), f"two launches of K3 differ ({name})")
+              for f in NEIGHBOR_FIELDS), f"two launches of K3 differ ({name})")
+    check(int(stats["serial"].sum()) == 0,
+          f"K3's stack ran out of room ({name})")
+    ser = serial_neighbors(serial_fn, packed, *args, symmetric)
+    check(all(torch.equal(a, getattr(res, f))
+              for a, f in zip(ser, NEIGHBOR_FIELDS)),
+          f"K3 and the serial neighbour walk differ in some bit ({name})")
     ms = graph_ms(lambda: pairs.find_neighbors(*args, symmetric=symmetric),
                   20)
     alone_ms = graph_ms(lambda: pairs.neighbor_kernel(
         *args, symmetric=symmetric, packed=packed), 20)
+    serial_ms = graph_ms(lambda: serial_neighbors(
+        serial_fn, packed, *args, symmetric), 20)
+    split = kernel_split(lambda: pairs.neighbor_kernel(
+        *args, symmetric=symmetric, packed=packed), 10)
     ng = int(nodes.shape[0])
     real = int((nodes < tree.n_nodes).sum())
     visits = int(res.visits.sum())
     vmax = int(res.visits.max())
     n_nodes = int(tree.n_nodes)
     listed = int(res.n_leaves.sum())
+    rounds = int(stats["rounds"].max())
+    loads = int(stats["loads"].max())
     bound_ms, bound_by = neighbor_bound(ng, LL, n_nodes, visits, symmetric)
     walk_ms, walk_by = neighbor_bound(ng, LL, n_nodes, visits, symmetric,
                                       listed)
-    path_ms = vmax * l2_ns * 1e-6
+    path_ms = loads * l2_ns * 1e-6
+    serial_path_ms = vmax * l2_ns * 1e-6
     print(f"kernel find_neighbors {name} groups {real} of {ng} slots "
           f"LL={LL} symmetric={symmetric}: identical leaf lists, counts, "
           f"flags and visits, max_abs_err={abs_err} ({listed} leaves, "
           f"{int(res.overflow.sum())} groups overflowed); two launches "
-          f"bit-identical; tree nodes {n_nodes}, visits {visits} (longest "
-          f"group {vmax}); kernel_ms={ms:.6f} (graph replays, with "
-          f"pack_neighbor_nodes; the kernel alone {alone_ms:.6f}) "
+          f"and the serial walk bit-identical; tree nodes {n_nodes}, "
+          f"visits {visits} (longest group {vmax}); kernel_ms={ms:.6f} "
+          f"(graph replays, with pack_neighbor_nodes; the kernel alone "
+          f"{alone_ms:.6f}) serial_walk_ms={serial_ms:.6f} "
           f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}, "
           f"the whole {ng} x {LL} lists written); the walk's own bound "
           f"{walk_ms:.6f} ms ({walk_by}, the {listed} listed leaves "
-          f"written); a serial walk's critical path {path_ms:.6f} ms "
-          f"(longest group's visits x one L2 round trip)", flush=True)
-    return dict(case=name, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, walk_bound_ms=walk_ms,
-                visits=visits, visits_max=vmax, groups=real, LL=LL,
-                path_ms=path_ms, overflowed=int(res.overflow.sum()),
+          f"written); critical path {path_ms:.6f} ms (longest group "
+          f"{loads} dependent loads in {rounds} rounds x one L2 round "
+          f"trip; mean group {float(stats['loads'].float().mean()):.1f} "
+          f"loads in {float(stats['rounds'].float().mean()):.1f} rounds), "
+          f"the serial walk's {serial_path_ms:.6f} ms (longest group "
+          f"{vmax} visits); per kernel of K3 (torch.profiler, mean of 10 "
+          f"calls): " + (", ".join(f"{k} {v:.6f} ms" for k, v in
+                                     split.items()) or "not measured"),
+          flush=True)
+    return dict(case=name, ms=ms, alone_ms=alone_ms, serial_ms=serial_ms,
+                split_ms=split,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                walk_bound_ms=walk_ms, visits=visits, visits_max=vmax,
+                groups=real, LL=LL, rounds_max=rounds, loads_max=loads,
+                path_ms=path_ms, serial_path_ms=serial_path_ms,
+                overflowed=int(res.overflow.sum()), max_abs_err=abs_err)
+
+
+def neighbor_serial_mode_case(name, tree, groups, radius, hmax, LL,
+                              symmetric, stack_cap=1):
+    """K3 with a stack too small for its rounds, so that its serial mode
+    walks the groups: held to the plain version bit for bit."""
+    import torch
+    from mpgadget_tpu_torch.ops import pairs
+    args = (tree, *groups[:3], radius, hmax, LL)
+    res, stats = pairs.neighbor_kernel(*args, symmetric=symmetric,
+                                       stack_cap=stack_cap)
+    ref = pairs.find_neighbors_reference(*args, symmetric=symmetric)
+    for f in NEIGHBOR_FIELDS:
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"K3's serial mode: {f} differs from the plain version")
+    serial = int(stats["serial"].sum())
+    check(serial > 0, "K3's serial mode was not taken")
+    ms = graph_ms(lambda: pairs.neighbor_kernel(
+        *args, symmetric=symmetric, stack_cap=stack_cap), 5)
+    abs_err = max(int((getattr(res, f).long() - getattr(ref, f).long())
+                      .abs().max()) for f in NEIGHBOR_FIELDS)
+    print(f"kernel find_neighbors {name}, stack_cap={stack_cap} (serial "
+          f"mode): identical leaf lists, counts, flags and visits; "
+          f"{serial} of {int(res.visits.sum())} visits serial; "
+          f"kernel_ms={ms:.6f} (the kernel alone, graph replays)",
+          flush=True)
+    return dict(case=f"{name} serial mode", ms=ms, serial=serial,
                 max_abs_err=abs_err)
 
 
@@ -1418,11 +1537,13 @@ def neighbor_phase(fres, l2_ns, seed=43, device="cuda"):
     state's FOF inputs (asymmetric, radius the linking length, at the LL
     the FOF phase reached), and the 64^3 clustered particles, symmetric,
     with a seeded hmax on a fifth of the nodes, at an LL that some groups
-    overflow."""
+    overflow; each beside the serial walk K3 began as; then the clustered
+    set again with a stack too small for the rounds (the serial mode)."""
     import numpy as np
     import torch
     from mpgadget_tpu_torch.physics import fof
 
+    serial_fn = serial_neighbors_fn() if device == "cuda" else None
     cfg = fof.FOFParams()
     out = []
     _, _, _, tree, groups = fof._sorted_tree(fres["ipos"], fres["primary"],
@@ -1430,7 +1551,8 @@ def neighbor_phase(fres, l2_ns, seed=43, device="cuda"):
     ll_box = float(np.float32(fres["ll"] / fres["box"]))
     radius = torch.full((groups[0].shape[0],), ll_box, device=device)
     out.append(neighbor_case("dm-small final state", tree, groups, radius,
-                             None, fres["leaf_list_max"], False, l2_ns))
+                             None, fres["leaf_list_max"], False, l2_ns,
+                             serial_fn))
     n = int(fres["ipos"].shape[0])
     ipos = torch.as_tensor(clustered_ipos(n), device=device)
     _, _, _, tree, groups = fof._sorted_tree(
@@ -1442,9 +1564,11 @@ def neighbor_phase(fres, l2_ns, seed=43, device="cuda"):
                            device=device)
     radius = torch.full((groups[0].shape[0],), ll_box, device=device)
     res = neighbor_case("clusters", tree, groups, radius, hmax, 16, True,
-                        l2_ns)
+                        l2_ns, serial_fn)
     check(res["overflowed"] > 0, "no clustered group overflowed LL = 16")
     out.append(res)
+    out.append(neighbor_serial_mode_case("clusters", tree, groups, radius,
+                                         hmax, 16, True))
     return out
 
 
@@ -1694,14 +1818,20 @@ def run():
         "launches_by_path": {"hierarchical": hres["launches"]["neighbors"],
                              "fof_final_state": fres["launches"]},
         # leaf lists, counts, flags and visits: identical on both sets
+        # and in the serial mode
         "max_abs_err": max(r["max_abs_err"] for r in nres),
         "groups": k3["groups"], "leaf_list_max": k3["LL"],
         "visits": k3["visits"], "kernel_alone_ms": k3["alone_ms"],
-        "serial_critical_path_ms": k3["path_ms"],
+        "critical_path_ms": k3["path_ms"],
+        "serial_critical_path_ms": k3["serial_path_ms"],
+        "serial_walk_ms": k3["serial_ms"],
         "walk_bound_ms": k3["walk_bound_ms"],
         "clusters": {k: nres[1][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "walk_bound_ms", "LL",
+            "ms", "alone_ms", "serial_ms", "plain_ms", "bound_ms",
+            "bound_by", "walk_bound_ms", "path_ms", "serial_path_ms", "LL",
             "overflowed")},
+        "serial_mode_ms": nres[2]["ms"],
+        "kernel_split_ms": k3["split_ms"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": None}]}))

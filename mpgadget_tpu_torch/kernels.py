@@ -33,9 +33,11 @@ SOURCES = {
     "treewalk": ("treewalk.cu", ("-fmad=false",)),
     # the neighbour walk (K3): the same rule for its near/far decisions
     "neighbors": ("neighbors.cu", ("-fmad=false",)),
-    # measurement aids that only chip_smoke.py loads: the serial walk the
-    # port began with, as a yardstick, and an L2 pointer chase
+    # measurement aids that only chip_smoke.py loads: the serial walks the
+    # port began with (K2's and K3's), as yardsticks, and an L2 pointer
+    # chase
     "treewalk_serial": ("treewalk_serial.cu", ("-fmad=false",)),
+    "neighbors_serial": ("neighbors_serial.cu", ("-fmad=false",)),
     "l2chase": ("l2chase.cu", ()),
 }
 

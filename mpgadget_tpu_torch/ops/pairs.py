@@ -40,6 +40,7 @@ INT_FILL = torch.iinfo(torch.int64).max   # the 'min' reducer's identity
 PAIR_SLOTS_PER_BATCH = 1 << 23
 
 LAUNCHES = 0                    # K3 launches (not plain calls)
+STACK_CAP = 64                  # K3's stack entries per target group
 _fn = None
 
 
@@ -118,7 +119,7 @@ def _kernel():
     if _fn is None:
         fn = kernels.load("neighbors").find_neighbors_f32
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -126,15 +127,26 @@ def _kernel():
 
 def neighbor_kernel(tree, group_nodes, group_center, group_half,
                     group_radius, hmax, leaf_list_max, symmetric=True,
-                    packed=None):
-    """One launch of K3 (``csrc/neighbors.cu``) on CUDA tensors, no
-    synchronisation.  packed: the tree's :func:`pack_neighbor_nodes`, if
-    the caller has it already.  Returns :class:`NeighborLists`."""
+                    stack_cap=STACK_CAP, packed=None):
+    """One launch of K3 (``csrc/neighbors.cu``: its table of rows and
+    child lists, then the walk) on CUDA tensors, no synchronisation.
+
+    Returns :class:`NeighborLists` and a dict of int32[ngroups] device
+    tensors: "rounds" (rounds of the group's stack), "loads" (the
+    dependent loads on the group's critical path: one for each round
+    that visits, one for each node visited serially) and "serial" (nodes
+    visited in the serial mode that takes over when the stack has no
+    room).  stack_cap below STACK_CAP only serves to test that mode;
+    packed: the tree's :func:`pack_neighbor_nodes`, if the caller has it
+    already.
+    """
     global LAUNCHES
     ng = group_nodes.shape[0]
     LL = leaf_list_max
     C = tree.capacity
     dev = group_center.device
+    if not 1 <= stack_cap <= STACK_CAP:
+        raise ValueError(f"stack_cap {stack_cap} outside [1, {STACK_CAP}]")
     if not 1 <= C < 2 ** 30:
         raise ValueError(f"tree capacity {C} outside [1, 2^30)")
     if not 1 <= LL < 2 ** 31 // max(ng, 1):
@@ -157,23 +169,28 @@ def neighbor_kernel(tree, group_nodes, group_center, group_half,
             raise ValueError("neighbour walk inputs must be on one device")
     fn = _kernel()
     i32 = torch.int32
-    leaves = torch.full((ng, LL), C, dtype=i32, device=dev)
+    leaves = torch.empty((ng, LL), dtype=i32, device=dev)   # all written
     nl = torch.empty(ng, dtype=i32, device=dev)
     ovf = torch.empty(ng, dtype=torch.bool, device=dev)
     visits = torch.empty(ng, dtype=i32, device=dev)
+    stats = {name: torch.empty(ng, dtype=i32, device=dev)
+             for name in ("rounds", "loads", "serial")}
+    table = torch.empty((C, 16), dtype=i32, device=dev)     # K3's scratch
     with torch.cuda.device(dev):
         rc = fn(nodes.data_ptr(), (hmax if symmetric else nodes).data_ptr(),
-                meta.data_ptr(), tree.n_nodes.data_ptr(),
+                meta.data_ptr(), table.data_ptr(), tree.n_nodes.data_ptr(),
                 group_nodes.data_ptr(), group_center.data_ptr(),
                 group_half.data_ptr(), group_radius.data_ptr(),
                 leaves.data_ptr(), nl.data_ptr(), ovf.data_ptr(),
-                visits.data_ptr(), ng, C, LL, int(bool(symmetric)),
+                visits.data_ptr(), stats["rounds"].data_ptr(),
+                stats["loads"].data_ptr(), stats["serial"].data_ptr(), ng,
+                C, LL, int(stack_cap), int(bool(symmetric)),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"neighbour kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return NeighborLists(leaf_idx=leaves, n_leaves=nl, overflow=ovf,
-                         group_nodes=group_nodes, visits=visits)
+                         group_nodes=group_nodes, visits=visits), stats
 
 
 def find_neighbors(tree, group_nodes, group_center, group_half, group_radius,
@@ -192,7 +209,7 @@ def find_neighbors(tree, group_nodes, group_center, group_half, group_radius,
             leaf_list_max, symmetric=symmetric)
     return neighbor_kernel(tree, group_nodes, group_center, group_half,
                            group_radius, hmax, leaf_list_max,
-                           symmetric=symmetric)
+                           symmetric=symmetric)[0]
 
 
 # converged leaf-list capacities per (shape) key: remember what worked and

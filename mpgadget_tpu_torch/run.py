@@ -638,8 +638,12 @@ class Simulation:
             dti = self.find_pm_timestep()
             if dti <= 0:
                 # dump state for post-mortem before dying
-                # (emergency snapshot, run.c:776-780)
-                self.write_snapshot(label=999)
+                # (emergency snapshot, run.c:776-780); a failed write
+                # must not hide the error
+                try:
+                    self.write_snapshot(label=999)
+                except Exception:
+                    pass
                 raise RuntimeError(
                     f"Bad timestep {dti}; emergency snapshot "
                     f"{self.cfg.snapshot_base}_999 written")

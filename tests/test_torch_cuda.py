@@ -1,7 +1,8 @@
 """The port's CUDA path on a card (marked ``cuda``; each test skips when
-no card is present).  Imports torch, the port and the walk inputs of
-tests/test_torch_walkkernel.py only, no JAX, so that it runs on a machine
-with a card and no JAX:
+no card is present).  Imports torch, the port, and the walks' inputs and
+numpy mirrors of tests/test_torch_walkkernel.py and
+tests/test_torch_neighborkernel.py only, no JAX, so that it runs on a
+machine with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -12,10 +13,10 @@ import torch
 
 from mpgadget_tpu_torch.gravity import pairkernel as pk
 from mpgadget_tpu_torch.gravity import treepm, treewalk
-from mpgadget_tpu_torch.gravity.tree import build_tree
-from mpgadget_tpu_torch.ops import morton, pairs
+from mpgadget_tpu_torch.ops import pairs
 from mpgadget_tpu_torch.physics import fof
 from mpgadget_tpu_torch.pm import gravity as pm
+from test_torch_neighborkernel import mirror_walks, neighbor_inputs
 from test_torch_walkkernel import _stack_walk, walk_inputs
 
 pytestmark = pytest.mark.cuda
@@ -362,59 +363,54 @@ def test_genic_displacement_cuda_matches_cpu(cuda):
                        zel.gaussian_modes(7, 16, device=cuda))
 
 
-def _fof_inputs(kind, device, n=8192, seed=17):
-    """A per-level tree over n particles (uniform, or eight clusters) and
-    its FOF target groups, as physics.fof builds them."""
-    rng = np.random.RandomState(seed)
-    if kind == "uniform":
-        pos = rng.uniform(0, 1, (n, 3))
-    else:
-        c = rng.uniform(0.2, 0.8, (8, 3))
-        pos = np.mod(c[rng.randint(8, size=n)] + 0.02 * rng.randn(n, 3), 1)
-    ipos = torch.as_tensor(np.minimum((pos * 2.0 ** 32).astype(np.int64),
-                                      2 ** 32 - 1), device=device)
-    valid = torch.as_tensor(rng.rand(n) > 0.05, device=device)
-    keys = morton.morton_key(ipos)
-    perm = morton.sort_order(keys, valid)
-    vs = valid[perm]
-    tree = build_tree(torch.where(vs, keys[perm], morton.KEY_PAD),
-                      ipos[perm], torch.ones(n, device=device), vs, 16, 18,
-                      2 * n + 64, group_max=32)
-    pos_box = ipos[perm].float() * 2.0 ** -32
-    groups = treewalk.make_target_groups(
-        tree, pos_box, torch.full((n,), float("inf"), device=device),
-        min(n // 4 + 64, n + 64), 32)
-    hmax = torch.as_tensor(
-        (rng.uniform(0, 0.02, tree.capacity)
-         * (rng.rand(tree.capacity) < 0.2)).astype(np.float32),
-        device=device)
-    return tree, groups, hmax
-
-
 @pytest.mark.parametrize("kind", ["uniform", "clusters"])
-@pytest.mark.parametrize("symmetric,LL", [(False, 64), (False, 8),
-                                          (True, 256)])
-def test_neighbor_kernel_matches_plain(cuda, kind, symmetric, LL):
+@pytest.mark.parametrize("symmetric,LL,stack_cap", [
+    (False, 64, pairs.STACK_CAP), (False, 8, pairs.STACK_CAP),
+    (True, 256, pairs.STACK_CAP),
+    # a stack too small for the rounds: they are taken again with fewer
+    # entries, and serial walks take over
+    (True, 256, 10), (False, 64, 1)])
+def test_neighbor_kernel_matches_plain(cuda, kind, symmetric, LL, stack_cap):
     """K3 against find_neighbors_reference on the card: the same leaf
-    lists, counts, overflow flags and visits (LL = 8 overflows)."""
-    tree, (nodes, gc, gh, _, _, _), hmax = _fof_inputs(kind, cuda)
+    lists, counts, overflow flags and visits (LL = 8 overflows); per
+    group the numpy mirror's rounds, dependent loads and serial visits;
+    and the same bits from a second launch."""
+    tree, (nodes, gc, gh, _, _, _), hmax = neighbor_inputs(kind, cuda)
     radius = torch.full((nodes.shape[0],), 0.2 / 20.0, device=cuda)
     before = pairs.LAUNCHES
-    got = pairs.find_neighbors(tree, nodes, gc, gh, radius, hmax, LL,
-                               symmetric=symmetric)
-    assert pairs.LAUNCHES == before + 1
+    if stack_cap == pairs.STACK_CAP:
+        got = pairs.find_neighbors(tree, nodes, gc, gh, radius, hmax, LL,
+                                   symmetric=symmetric)
+        assert pairs.LAUNCHES == before + 1
+    else:
+        got = pairs.neighbor_kernel(tree, nodes, gc, gh, radius, hmax, LL,
+                                    symmetric=symmetric,
+                                    stack_cap=stack_cap)[0]
+    again, stats = pairs.neighbor_kernel(tree, nodes, gc, gh, radius, hmax,
+                                         LL, symmetric=symmetric,
+                                         stack_cap=stack_cap)
+    assert pairs.LAUNCHES == before + 2
     ref = pairs.find_neighbors_reference(tree, nodes, gc, gh, radius, hmax,
                                          LL, symmetric=symmetric)
     for name in ("leaf_idx", "n_leaves", "overflow", "visits"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert torch.equal(getattr(again, name), getattr(got, name)), name
     assert int(got.n_leaves.sum()) > 0
     if LL == 8:
         assert bool(got.overflow.any())
+    st = {k: v.cpu().numpy() for k, v in stats.items()}
+    assert (st["serial"].sum() > 0) == (stack_cap < pairs.STACK_CAP)
+    mirror = mirror_walks(tree, (nodes, gc, gh), radius, hmax, LL,
+                          symmetric, stack_cap)
+    for g, (_, _, v, rounds, loads, serial) in enumerate(mirror):
+        assert (v, rounds, loads, serial) == (
+            int(ref.visits[g]), st["rounds"][g], st["loads"][g],
+            st["serial"][g]), g
 
 
 def test_neighbor_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    tree, (nodes, gc, gh, _, _, _), hmax = _fof_inputs("uniform", cuda,
-                                                       n=2048)
+    tree, (nodes, gc, gh, _, _, _), hmax = neighbor_inputs("uniform", cuda,
+                                                           n=2048)
     radius = torch.full((nodes.shape[0],), 0.01, device=cuda)
     for k, bad in ((0, nodes.to(torch.int32)), (1, gc.double()),
                    (1, gc.t().contiguous().t()), (2, gh.cpu()),
@@ -426,6 +422,10 @@ def test_neighbor_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     for LL in (0, 2 ** 31 // nodes.shape[0]):
         with pytest.raises(ValueError):
             pairs.find_neighbors(tree, nodes, gc, gh, radius, hmax, LL)
+    for cap in (0, pairs.STACK_CAP + 1):
+        with pytest.raises(ValueError):
+            pairs.neighbor_kernel(tree, nodes, gc, gh, radius, hmax, 64,
+                                  stack_cap=cap)
 
 
 def test_fof_label_cuda_matches_cpu(cuda):

@@ -153,6 +153,26 @@ def test_snapshot_written_by_port_reads_back(ic_path, tmp_path):
                                   tsim.pdata.pid.numpy()[:16 ** 3])
 
 
+def test_bad_timestep_error_survives_a_failed_emergency_snapshot(
+        ic_path, tmp_path, monkeypatch):
+    """A zero PM timestep writes the emergency snapshot and raises "Bad
+    timestep"; a failing write must not hide that error (run.c:776-780,
+    mpgadget_tpu/run.py:3085-3095).  No force is computed."""
+    from mpgadget_tpu_torch.run import Simulation
+    tsim, _ = build_simulation(
+        _params(create_gadget_parameter_set, ic_path, tmp_path),
+        device="cpu")
+
+    def refuse(*a, **k):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(Simulation, "compute_forces", lambda *a, **k: None)
+    monkeypatch.setattr(Simulation, "find_pm_timestep", lambda self: 0)
+    monkeypatch.setattr(Simulation, "write_snapshot", refuse)
+    with pytest.raises(RuntimeError, match="Bad timestep"):
+        tsim.run(verbose=False)
+
+
 @pytest.mark.parametrize("name,value", [
     ("MassiveNuLinRespOn", 1), ("BlackHoleOn", 1), ("StarformationOn", 1),
     ("LightconeOn", 1), ("PlaneOutputList", "0.11"),
