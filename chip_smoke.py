@@ -9,11 +9,12 @@ fails the run (non-zero exit, no result line) if it fails:
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the three kernels, the pair kernel K1
-   (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu) and the
-   neighbour walk K3 (csrc/neighbors.cu), and the three measurement aids
-   (the serial walks K2 and K3 began as, and an L2 pointer chase), one
-   nvcc each, in parallel;
+2. build: compiles the five kernels, the pair kernel K1
+   (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu), the
+   neighbour walk K3 (csrc/neighbors.cu) and the SPH pair sums K4
+   (csrc/sph_density.cu) and K5 (csrc/sph_hydro.cu), and the three
+   measurement aids (the serial walks K2 and K3 began as, and an L2
+   pointer chase), one nvcc each, in parallel;
 3. K1: the pair kernel against its plain PyTorch version on the card at
    the main path's shapes (nb=1024 blocks, G=256 targets, S=4096
    sources), with and without potential, on inputs from a seed, once
@@ -90,7 +91,30 @@ fails the run (non-zero exit, no result line) if it fails:
    to the plain version too;
 13. RestartFlag 3: python -m mpgadget_tpu_torch.main paramfile.gadget 3
    <the last snapshot>, whose PIG must read back and pass the checks of
-   phase 10.
+   phase 10;
+14. star-small without its subgrid physics: examples/star-small/
+   paramfile.genic through the genic CLI with the Eisenstein-Hu cut of
+   phase 9 (Ngrid 32: 32^3 gas + 32^3 DM, BoxSize 5000 kpc/h, z=9), then
+   its paramfile.gadget as it ships (hierarchical, SnapshotWithFOF,
+   DensityIndependentSphOn, Nmesh 64) but for CoolingOn, StarformationOn,
+   BlackHoleOn, WindOn and MetalReturnOn, all 0 (GAS_SWITCHES_OFF) ->
+   Simulation.run() to a = 0.2 -> write_snapshot, the five kernels'
+   launch counts reset just before and read just after: every density
+   solve's targets within DesNumNgb +- MaxNumNgbDeviation (or the count
+   that hit max_iter, and a failure), every hydro call's momentum
+   (|sum m a| / sum m |a| < 1e-4), the IC's volume-weighted SPH density
+   against Omega_b rho_crit (IC_RHO_TOL), the entropy floor, the growth
+   of P(k) against D1^2 at k <= GAS_PK_KMAX (rtol 0.18), each
+   snapshot's Density,
+   SmoothingLength, InternalEnergy and EgyWtDensity and each PIG read
+   back, and RestartFlag 3 through the CLI on the last gas snapshot;
+15. K4 and K5 against their plain versions on the card, on the inputs
+   of the run's own calls (K4: the first pass of the last density solve
+   that targets every gas particle; K5: the last hydro call), and on a
+   bigger IC, examples/dm-small/paramfile.genic with ProduceGas 1 (2 x
+   64^3): every output within 1e-5 by norm (maxsig within 1e-6, -inf at
+   the same rows), two launches bit-identical, device times of both,
+   the pairs each evaluates and counts, and the bound.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -104,7 +128,10 @@ rounds) and a serial walk's (the longest block's or group's visits).
 K3's bound is the node rows read once, the groups read and the leaf
 lists written, against NEIGHBOR_OPS per visit; beside it stands the
 walk's own bound, which counts only the listed leaves written and not
-the fill of the lists' unused slots.
+the fill of the lists' unused slots.  K4's and K5's are the particle
+tables read once and each target's row written once, against
+DENSITY_PAIR_OPS / HYDRO_PAIR_OPS for each pair that counts and the
+distance's operations for each other pair the lists hold.
 
 The last two lines of standard output are the kernel table and the
 result, each one JSON object.
@@ -1572,13 +1599,15 @@ def neighbor_phase(fres, l2_ns, seed=43, device="cuda"):
     return out
 
 
-def restart_phase(workdir, snapnum, in_process, device="cuda"):
+def restart_phase(workdir, snapnum, in_process, device="cuda",
+                  paramfile=None):
     """RestartFlag 3 through the port's CLI, python -m
     mpgadget_tpu_torch.main paramfile.gadget 3 <snapnum>, in workdir (the
     paramfile's paths are relative): its PIG must read back and pass the
     PIG checks.  On the CPU, where the CLI refuses to run, the calls it
-    makes run in-process."""
-    paramfile = os.path.join(HERE, "examples", "dm-small", "paramfile.gadget")
+    makes run in-process.  paramfile: dm-small's by default."""
+    paramfile = paramfile or os.path.join(HERE, "examples", "dm-small",
+                                          "paramfile.gadget")
     t0 = time.perf_counter()
     if device == "cuda":
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -1614,6 +1643,588 @@ def restart_phase(workdir, snapnum, in_process, device="cuda"):
           f"log10(M/Msun) bin {bins}; largest {largest:.6e} Msun",
           flush=True)
     return dict(seconds=seconds, groups=ng)
+
+
+# -- the gas phase: examples/star-small without its subgrid physics ------
+
+GAS_SWITCHES_OFF = {"CoolingOn": 0, "StarformationOn": 0, "BlackHoleOn": 0,
+                    "WindOn": 0, "MetalReturnOn": 0}
+GAS_STEPS = None      # PM steps of the star-small run (None: to TimeMax)
+MOMENTUM_TOL = 1e-4   # |sum m a_hydro| / sum m |a_hydro|
+# the IC's SPH density, volume-weighted (sum m / sum m/rho), against the
+# mean baryon density Omega_b rho_crit.  star-small's IC (z = 9, a 5
+# Mpc/h box, 156 kpc/h between particles) is already nonlinear at the
+# kernel's scale: its particle mean lies ~40% above, by the density's
+# variance, and SPH volumes m/rho do not tile the box exactly there; a
+# wrong unit (a^3, h, the box) would miss by far more than 10%.  The
+# bigger IC (dm-small's box with gas, 1 Mpc/h between particles) is near
+# linear and is held to 3%.
+IC_RHO_TOL = {"star-small": 0.10, "dm-small": 0.03}
+# P(k) growth against D1^2 on the linear scales only: dm-small's six
+# lowest-k bins end at 0.6 h/Mpc, star-small's (a 5 Mpc/h box) reach 7.5
+# h/Mpc, where the growth from z = 9 to 4 is nonlinear (4.4-6.0 against
+# D1^2's 3.55 in this PR's first full run on the card); its bins up to 3
+# h/Mpc are held to the same rtol 0.18
+GAS_PK_KMAX = 3.0
+SPH_TOL = 1e-5        # K4, K5 against their plain versions, by norm
+MAXSIG_TOL = 1e-6     # K5's maxsig: a max of the same pair terms
+# FP32 operations per (target, source) pair, counted from the kernels (a
+# division or square root counted as one): a pair that counts (u < 1 for
+# K4; r < H_i or r < H_j for K5) and one that does not (its distance
+# and the decision)
+DENSITY_PAIR_OPS = 116
+DENSITY_DISTANCE_OPS = 17
+HYDRO_PAIR_OPS = 165
+HYDRO_DISTANCE_OPS = 19
+# bytes per particle read (src, tgt, valid) and per target written
+DENSITY_PARTICLE_BYTES = (32 + 16 + 1, 36)
+HYDRO_PARTICLE_BYTES = (64 + 32 + 1, 20)
+
+
+def paramfile_copy(src, dst, over):
+    """Copy a paramfile with the parameters in `over` replaced."""
+    with open(src) as fh:
+        lines = [ln for ln in fh.read().splitlines()
+                 if ln.split("=")[0].strip() not in over]
+    with open(dst, "w") as fh:
+        fh.write("\n".join(lines + [f"{k} = {v}" for k, v in over.items()])
+                 + "\n")
+    return dst
+
+
+def run_cli(module, args, workdir, what):
+    """python -m <module> <args> in workdir with the checkout on the path;
+    fails the smoke if it fails.  Returns its seconds."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=workdir,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"{what} failed: "
+          + (out.stdout + out.stderr)[-2000:])
+    return time.perf_counter() - t0
+
+
+def gas_genic(workdir, example, over, device="cuda"):
+    """examples/<example>/paramfile.genic with `over` written into a copy
+    in workdir, through the port's genic CLI (on the CPU the function it
+    calls); checks the gas + DM IC's header, IDs and masses.  Returns
+    (IC path, particles per species, seconds)."""
+    import numpy as np
+    from mpgadget_tpu_torch.cosmology import Cosmology
+    from mpgadget_tpu_torch.genic.main import run_genic
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.params import create_genic_parameter_set
+    from mpgadget_tpu_torch.utils import get_unitsystem
+
+    paramfile = paramfile_copy(
+        os.path.join(HERE, "examples", example, "paramfile.genic"),
+        os.path.join(workdir, "paramfile.genic"), over)
+    ps = create_genic_parameter_set()
+    ps.parse_file(paramfile)
+    t0 = time.perf_counter()
+    if device == "cuda":
+        run_cli("mpgadget_tpu_torch.genic.main", [paramfile], workdir,
+                f"{example} genic CLI")
+    else:
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            run_genic(ps, device=device)
+        finally:
+            os.chdir(cwd)
+    seconds = time.perf_counter() - t0
+    path = os.path.join(workdir, ps["OutputDir"], ps["FileBase"])
+    bf = BigFile(path)
+    hdr = snap_io.read_header(bf)
+    n = ps["Ngrid"] ** 3
+    check(list(np.asarray(hdr.TotNumPart, np.int64)) == [n, n, 0, 0, 0, 0],
+          f"{example} IC TotNumPart {hdr.TotNumPart}")
+    units = get_unitsystem(hdr.UnitLength_in_cm, hdr.UnitMass_in_g,
+                           hdr.UnitVelocity_in_cm_per_s)
+    cp = Cosmology(Omega0=ps["Omega0"], OmegaBaryon=ps["OmegaBaryon"],
+                   OmegaLambda=ps["OmegaLambda"],
+                   HubbleParam=ps["HubbleParam"],
+                   TimeBegin=hdr.Time).init_units(units)
+    vol = ps["BoxSize"] ** 3
+    pids = []
+    for t, omega in ((0, cp.OmegaBaryon), (1, cp.Omega0 - cp.OmegaBaryon)):
+        sp = snap_io.read_species(bf, t, hdr)
+        want = omega * cp.RhoCrit * vol / n
+        check(len(sp["pid"]) == n and np.allclose(sp["mass"], want,
+                                                  rtol=1e-5, atol=0),
+              f"{example} IC type {t} masses {sp['mass'][:1]} vs {want}")
+        check(np.isfinite(sp["pos"]).all() and np.isfinite(sp["vel"]).all(),
+              f"{example} IC type {t} positions/velocities")
+        pids.append(sp["pid"])
+    check(len(np.unique(np.concatenate(pids))) == 2 * n,
+          f"{example} IC IDs are not unique")
+    print(f"genic {example} (Ngrid {ps['Ngrid']}, ProduceGas 1, BoxSize "
+          f"{ps['BoxSize']:g} kpc/h, z={ps['Redshift']:g}; cuts {over}): "
+          f"{seconds:.6f} s on {device}; {n} gas + {n} DM particles",
+          flush=True)
+    return path, n, seconds
+
+
+class SphSpy:
+    """Wraps sph.density.sph_density and the two pair-sum entry points
+    (density_sums, hydro_sums) and sph.hydra.hydro_force: checks every
+    density solve's neighbour numbers and every hydro call's momentum,
+    counts bisection passes and keeps pair-sum inputs: K5's last call
+    (the run's final gas state) and K4's first pass of the last solve
+    that targets every gas particle (its later passes list only the
+    unconverged groups)."""
+
+    def __init__(self, device):
+        from mpgadget_tpu_torch.sph import density, hydra
+        self.mods = (density, hydra)
+        self.device = device
+        self.solves = []       # (passes, unconverged, targets, worst dev)
+        self.momentum = []     # |sum m a| / sum m |a| per hydro call
+        self.last = {}
+        self.real = {}
+        self._targets = None     # targets of the solve in progress
+
+    def __enter__(self):
+        import torch
+        density, hydra = self.mods
+        self.real = dict(sph_density=density.sph_density,
+                         density_sums=density.density_sums,
+                         hydro_force=hydra.hydro_force,
+                         hydro_sums=hydra.hydro_sums)
+
+        def sph_density(ipos, mass, valid_gas, hsml, vel, velpred, entvar,
+                        par, boxsize, update_hsml=True, **kw):
+            tm = kw.get("target_mask")
+            tgt = valid_gas if tm is None else valid_gas & tm
+            self._targets = (int(tgt.sum()), int(valid_gas.sum()))
+            res = self.real["sph_density"](
+                ipos, mass, valid_gas, hsml, vel, velpred, entvar, par,
+                boxsize, update_hsml=update_hsml, **kw)
+            if update_hsml:
+                dev = (res["numngb"] - par.desnumngb).abs()
+                worst = float(torch.where(tgt, dev, 0.0).max())
+                self.solves.append((res["iterations"], res["unconverged"],
+                                    int(tgt.sum()), worst,
+                                    par.max_ngb_deviation))
+            return res
+
+        def hydro_force(ipos, mass, valid_gas, *a, **kw):
+            res = self.real["hydro_force"](ipos, mass, valid_gas, *a, **kw)
+            m = torch.where(valid_gas, mass, 0.0)[:, None].double()
+            ma = m * res["hydro_accel"].double()
+            self.momentum.append(float(
+                ma.sum(dim=0).norm() / ma.norm(dim=1).sum().clamp(
+                    min=1e-300)))
+            return res
+
+        def keep(name):
+            def fn(*a, **kw):
+                if name == "hydro_sums":
+                    self.last[name] = (a, kw)
+                elif self._targets is not None:
+                    if self._targets[0] == self._targets[1]:
+                        self.last[name] = (a, kw)
+                    self._targets = None        # later passes: not kept
+                return self.real[name](*a, **kw)
+            return fn
+
+        density.sph_density = sph_density
+        hydra.hydro_force = hydro_force
+        density.density_sums = keep("density_sums")
+        hydra.hydro_sums = keep("hydro_sums")
+        return self
+
+    def __exit__(self, *exc):
+        density, hydra = self.mods
+        density.sph_density = self.real["sph_density"]
+        density.density_sums = self.real["density_sums"]
+        hydra.hydro_force = self.real["hydro_force"]
+        hydra.hydro_sums = self.real["hydro_sums"]
+        return False
+
+    def check(self, what):
+        bad = [s for s in self.solves if s[1] or s[3] > s[4]]
+        passes = [s[0] for s in self.solves]
+        print(f"{what}: {len(self.solves)} density solves, bisection passes "
+              f"per solve {passes} (targets {[s[2] for s in self.solves]}), "
+              f"largest |numngb - DesNumNgb| {max(s[3] for s in self.solves):.6f}"
+              f" (MaxNumNgbDeviation {self.solves[0][4]:g}); "
+              f"{len(self.momentum)} hydro calls, largest |sum m a_hydro| / "
+              f"sum m |a_hydro| {max(self.momentum):.6e} (tol "
+              f"{MOMENTUM_TOL:g})", flush=True)
+        check(not bad, f"{what}: density solves with targets outside "
+              f"DesNumNgb +- dev (passes, unconverged at max_iter, targets, "
+              f"worst deviation, dev): {bad}")
+        check(max(self.momentum) < MOMENTUM_TOL, f"{what}: hydro force "
+              f"does not conserve momentum: {max(self.momentum):.3e}")
+
+
+def gas_run_phase(workdir, device="cuda", max_steps=GAS_STEPS, ngrid=None,
+                  nmesh=None):
+    """examples/star-small from its own two paramfiles, without its
+    subgrid physics: genic (GENIC_OVERRIDE) through the CLI, then
+    paramfile.gadget with GAS_SWITCHES_OFF written into a copy ->
+    build_simulation -> Simulation.run() (hierarchical, a snapshot and a
+    PIG at each output) -> write_snapshot, K1-K5's launch counts reset
+    just before and read just after.  Checks: every density solve's
+    targets within DesNumNgb +- MaxNumNgbDeviation; every hydro call's
+    momentum; the IC's mean SPH density against Omega_b rho_crit; the
+    entropy floor; the growth of P(k) against D1^2; each snapshot's gas
+    blocks and each PIG read back.  Returns the measurements and the
+    simulation."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.gravity.treepm import StageTimer
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.sph import density, hydra
+    from mpgadget_tpu_torch.utils.constants import GAMMA_MINUS1
+
+    over = dict(GENIC_OVERRIDE)
+    if ngrid is not None:           # a smaller rehearsal on the CPU
+        over["Ngrid"] = ngrid
+    _, ngas, genic_s = gas_genic(workdir, "star-small", over, device)
+    gover = dict(GAS_SWITCHES_OFF)
+    if nmesh is not None:
+        gover["Nmesh"] = nmesh
+    paramfile = paramfile_copy(
+        os.path.join(HERE, "examples", "star-small", "paramfile.gadget"),
+        os.path.join(workdir, "paramfile.gadget"), gover)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    first = {}
+    try:
+        sim, _ = build_simulation(paramfile, device=device)
+        c = sim.cfg
+        check(c.hydro_on and c.density_independent_sph
+              and c.split_gravity_timesteps and c.snapshot_with_fof,
+              "star-small's paramfile.gadget no longer sets HydroOn, "
+              "DensityIndependentSphOn, SplitGravityTimestepsOn and "
+              "SnapshotWithFOF")
+        out = os.path.abspath(c.output_dir)
+        real_hydro = sim.compute_hydro
+
+        def first_hydro(*a, **k):
+            real_hydro(*a, **k)
+            if not first:
+                gas = sim.gas_mask
+                rho = sim.sph.density[gas].double()
+                m = sim.pdata.mass[gas].double()
+                first["rho"] = float(rho.mean())
+                # the mass over the particles' SPH volumes m / rho: the
+                # volume-weighted mean (the particle mean is weighted by
+                # mass, so above it by the variance of the density)
+                first["rho_vol"] = float(m.sum() / (m / rho).sum())
+        sim.compute_hydro = first_hydro
+        sim.tree_timer = StageTimer()
+        step_seconds = []
+        run_step = sim.step_hierarchical
+
+        def timed_step(dti):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_sub = run_step(dti)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - t0)
+            return n_sub
+
+        sim.step_hierarchical = timed_step
+        for mod in (pk, tw, pairs, density, hydra):
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with SphSpy(device) as spy:
+            nsteps = sim.run(max_steps=max_steps, verbose=True)
+            snap = os.path.abspath(sim.write_snapshot())
+            if device == "cuda":
+                torch.cuda.synchronize()
+        run_seconds = time.perf_counter() - t0
+        launches = {"pair": pk.LAUNCHES, "walk": tw.LAUNCHES,
+                    "neighbors": pairs.LAUNCHES, "density": density.LAUNCHES,
+                    "hydro": hydra.LAUNCHES}
+    finally:
+        os.chdir(cwd)
+
+    check(nsteps == max_steps or sim.ti_current == sim.timeline.ti_end,
+          f"star-small ran {nsteps} PM steps to a={sim.atime}")
+    spy.check("star-small")
+    n_solves = len(spy.solves)
+    if device == "cuda":
+        check(launches["density"] >= n_solves and launches["hydro"]
+              >= len(spy.momentum) and min(launches.values()) > 0,
+              f"a kernel of the gas path was not launched: {launches}")
+    for i, (log, sec) in enumerate(zip(sim.step_log, step_seconds)):
+        hist = {b: cnt for b, cnt in enumerate(log["bins"]) if cnt}
+        print(f"star-small PM step {i + 1}: {sec:.6f} s, {log['n_sub']} "
+              f"substeps, bins {hist}, closing targets {log['actives']}",
+              flush=True)
+    pd = sim.pdata
+    gas = sim.gas_mask
+    check(int(pd.valid.sum()) == 2 * ngas and int(gas.sum()) == ngas,
+          "particles lost")
+    sph = sim.sph
+    check(bool(torch.isfinite(pd.vel[pd.valid]).all()
+               & torch.isfinite(sph.entropy[gas]).all()
+               & torch.isfinite(sph.hydro_accel[gas]).all()
+               & (sph.entropy[gas] > 0).all()),
+          "gas state not finite or entropy not positive")
+    # IC: mean comoving SPH density against the mean baryon density
+    want = sim.CP.OmegaBaryon * sim.CP.RhoCrit
+    rho_err = first["rho_vol"] / want - 1
+    # the entropy floor (MinGasTemp), as the kicks apply it
+    a3 = sim.atime ** 3
+    minent = GAMMA_MINUS1 * sim._min_egy_spec / torch.clamp(
+        sph.density / a3, min=1e-30) ** GAMMA_MINUS1
+    floor_ratio = float((sph.entropy[gas] / minent[gas]).min())
+    print(f"star-small IC: SPH density, volume-weighted mean (sum m / sum "
+          f"m/rho) {first['rho_vol']:.9g} against Omega_b rho_crit "
+          f"{want:.9g}: {rho_err:+.6f} (particle mean {first['rho']:.9g}); "
+          f"final state: least entropy / floor {floor_ratio:.6f}",
+          flush=True)
+    check(abs(rho_err) < IC_RHO_TOL["star-small"], f"IC mean SPH density off "
+          f"Omega_b rho_crit by {rho_err:+.4f}")
+    check(floor_ratio >= 1.0, f"entropy below the MinGasTemp floor "
+          f"({floor_ratio:.6f})")
+    # every snapshot's gas blocks read back
+    snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+    for name in snaps:
+        bf = BigFile(os.path.join(out, name))
+        hdr = snap_io.read_header(bf)
+        check(int(hdr.TotNumPart[0]) == ngas, f"{name}: gas count")
+        for block in ("Density", "SmoothingLength", "InternalEnergy",
+                      "EgyWtDensity"):
+            v = bf.open(f"0/{block}").read()
+            check(len(v) == ngas and np.isfinite(v).all() and (v > 0).all(),
+                  f"{name}: 0/{block} does not read back")
+    pigs = sorted(f for f in os.listdir(out) if f.startswith("PIG_"))
+    check(len(pigs) == sim.snapshot_count - 1 >= 1,
+          f"star-small PIGs written: {pigs}")
+    pig_groups = {}
+    for name in pigs:
+        ng, bins, last = pig_check(os.path.join(out, name),
+                                   sim.cfg.fof_min_group_length)
+        pig_groups[name] = ng
+        print(f"{name}: read back and consistent; {ng} groups; halos per "
+              f"log10(M/Msun) bin {bins}; largest {last:.6e} Msun",
+              flush=True)
+    files = sorted(f for f in os.listdir(out)
+                   if f.startswith("powerspectrum-"))
+    check(len(files) >= 2, f"power spectra written: {files}")
+    kk, pk0, d0 = read_power(os.path.join(out, files[0]))
+    kk1, pk1, d1 = read_power(os.path.join(out, files[-1]))
+    nbins = min(6, len(kk))
+    growth = np.interp(kk[:nbins], kk1, pk1) / pk0[:nbins]
+    want_g = (d1 / d0) ** 2
+    lin = kk[:nbins] <= GAS_PK_KMAX
+    check(lin.sum() >= 2, f"star-small: fewer than two P(k) bins below "
+          f"k = {GAS_PK_KMAX}")
+    growth_err = float(np.max(np.abs(growth[lin] / want_g - 1)))
+    print(f"star-small matter P(k) growth {files[0]} -> {files[-1]} over "
+          f"{nbins} lowest-k bins k={kk[:nbins].tolist()}: {growth.tolist()}"
+          f" against D1^2 ratio {want_g:.6f}; largest deviation at k <= "
+          f"{GAS_PK_KMAX} h/Mpc ({int(lin.sum())} bins) {growth_err:.6f} "
+          f"(rtol 0.18)", flush=True)
+    check(growth_err <= 0.18, f"star-small P(k) growth off D1^2 by "
+          f"{growth_err:.3f}")
+    wt = dict(sim.walltime.totals)
+    return dict(nsteps=nsteps, atime=sim.atime, launches=launches,
+                step_seconds=step_seconds, run_seconds=run_seconds,
+                genic_seconds=genic_s, walltime=wt, spy=spy,
+                n_solves=n_solves, passes=[s[0] for s in spy.solves],
+                rho_err=rho_err, floor_ratio=floor_ratio,
+                momentum=max(spy.momentum), growth_err=growth_err,
+                snapshots=snaps, pig_groups=pig_groups, sim=sim,
+                stages=dict(sim.tree_timer.seconds), ngas=ngas,
+                paramfile=paramfile,
+                snapnum=int(os.path.basename(snap).split("_")[-1]))
+
+
+def sph_kernel_case(name, which, args, G, reps=20):
+    """K4 (which "density") or K5 ("hydro") on the inputs of one of its
+    calls (tree, nbr, src, tgt, valid, ...) against its plain version on
+    the card: outputs by norm within SPH_TOL (K5's maxsig within
+    MAXSIG_TOL and -inf at the same rows), two launches bit-identical;
+    device times of both, the pair counts and the bound."""
+    import torch
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.sph import density, hydra
+
+    mod = density if which == "density" else hydra
+    kern = mod.density_kernel if which == "density" else mod.hydro_kernel
+    plain = (mod.density_sums_reference if which == "density"
+             else mod.hydro_sums_reference)
+    tree, nbr, src, tgt, valid = args[:5]
+    rest = args[5:]
+    a = kern(*args)
+    b = kern(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    same_bits = bool(torch.equal(a, b))
+    check(same_bits, f"{name}: two launches of {which} kernel differ")
+    names = mod.OUTPUTS
+    rels = {}
+    abs_err = 0.0
+    for i, k in enumerate(names):
+        x, y = a[:, i], ref[:, i]
+        if k == "maxsig":
+            fx, fy = torch.isfinite(x), torch.isfinite(y)
+            check(bool(torch.equal(fx, fy)), f"{name}: maxsig -inf rows "
+                  "differ from the plain version's")
+            x, y = x[fx], y[fy]
+        rels[k] = rel_norm(x.double(), y.double())
+        abs_err = max(abs_err, float((x - y).abs().max()) if x.numel()
+                      else 0.0)
+    tol = {k: (MAXSIG_TOL if k == "maxsig" else SPH_TOL) for k in names}
+    bad = {k: v for k, v in rels.items() if not v <= tol[k]}
+    # the pair counts this run's data needs
+    n = src.shape[0]
+    gn = torch.clamp(nbr.group_nodes, max=tree.capacity - 1)
+    tpc = torch.clamp(tree.pcount[gn], max=G)
+    LL = nbr.leaf_idx.shape[1]
+    listed = torch.arange(LL, device=gn.device)[None, :] \
+        < nbr.n_leaves[:, None].long()
+    leaf = torch.clamp(nbr.leaf_idx.long(), max=tree.capacity - 1)
+    lsrc = torch.where(listed, tree.pcount[leaf], 0).sum(dim=1)
+    total = int((tpc * lsrc).sum())
+    n_listed = int(nbr.n_leaves.long().sum())
+    le = max(1, int(tree.pcount[tree.is_leaf].max()))
+    if which == "density":
+        # pairs inside H: the plain engine counts them
+        def fn(dx, r, tm, sm, tf, sf):
+            return {"c": ((r * tf["hinv"] < 1.0) & sf["ok"]).float()}
+        hinv = 1.0 / torch.clamp(tgt[:, 0], min=1e-30)
+        within = int(pairs.pair_reduce(
+            fn, nbr, tree, src[:, :3].contiguous(), {"hinv": hinv},
+            {"ok": valid.bool()}, {"c": "sum"}, G, le)["c"].sum())
+        ops = within * DENSITY_PAIR_OPS \
+            + (total - within) * DENSITY_DISTANCE_OPS
+        pb = DENSITY_PARTICLE_BYTES
+    else:
+        L = rest[1][0]
+        def fn(dx, r, tm, sm, tf, sf):
+            ri = r * L
+            return {"c": (((ri < tf["h"]) | (ri < sf["h"])) & (ri > 0)
+                          & sf["ok"]).float()}
+        within = int(pairs.pair_reduce(
+            fn, nbr, tree, src[:, :3].contiguous(), {"h": src[:, 7]},
+            {"h": src[:, 7], "ok": valid.bool()}, {"c": "sum"}, G,
+            le)["c"].sum())
+        ops = within * HYDRO_PAIR_OPS + (total - within) * HYDRO_DISTANCE_OPS
+        pb = HYDRO_PARTICLE_BYTES
+    nbytes = (n * (pb[0] + pb[1]) + n_listed * 4 + nbr.n_leaves.shape[0] * 12
+              + tree.capacity * 16)
+    bound_ms, bound_by = bound(ops, nbytes)
+    ms = time_ms(lambda: kern(*args), reps)
+    plain_ms = time_ms(lambda: plain(*args), 2)
+    print(f"kernel {which} ({name}): {nbr.n_leaves.shape[0]} groups, "
+          f"{n_listed} listed leaves, {total} pairs evaluated, {within} "
+          f"count; rel err by norm " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {SPH_TOL:g}, maxsig {MAXSIG_TOL:g}); max_abs_err "
+          f"{abs_err:.6e}; two launches bit-identical {same_bits}; "
+          f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms="
+          f"{bound_ms:.6f} ({bound_by})", flush=True)
+    check(not bad, f"{name}: {which} kernel disagrees with its plain "
+          f"version: {bad}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=abs_err, rel=rels,
+                pairs=total, within=within, groups=nbr.n_leaves.shape[0],
+                listed=n_listed)
+
+
+def big_gas_case(workdir):
+    """A bigger IC for K4 and K5: dm-small's paramfile.genic with
+    ProduceGas 1 (2 x 64^3), one density solve from the initial hsml
+    guess (setup_gas's) and one hydro call with unit entropy; the last
+    pair-sum inputs of each, held to the plain versions."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.particles import pos_to_fixed
+    from mpgadget_tpu_torch.sph import density, hydra
+
+    over = dict(GENIC_OVERRIDE, ProduceGas=1)
+    path, n, _ = gas_genic(workdir, "dm-small", over)
+    bf = BigFile(path)
+    hdr = snap_io.read_header(bf)
+    sp = snap_io.read_species(bf, 0, hdr)
+    box = hdr.BoxSize
+    dev = torch.device("cuda")
+    ipos = torch.as_tensor(pos_to_fixed(sp["pos"], box).astype(np.int64),
+                           device=dev)
+    mass = torch.as_tensor(sp["mass"], dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(sp["vel"], dtype=torch.float32, device=dev)
+    gas = torch.ones(n, dtype=torch.bool, device=dev)
+    hsml = torch.full((n,), float(np.float32(2.0 * box / np.cbrt(n))),
+                      device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    with SphSpy("cuda") as spy:
+        t0 = time.perf_counter()
+        d = density.sph_density(ipos, mass, gas, hsml, vel, vel, ones,
+                                density.DensityParams(), box)
+        torch.cuda.synchronize()
+        dens_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hydra.hydro_force(ipos, mass, gas, d["hsml"], vel, ones,
+                          d["density"], d["egy_wt_density"], d["div_vel"],
+                          d["curl_vel"], d["dhsml_egy_factor"],
+                          hydra.HydroParams(), box, hdr.Time, 10.0, 0.01)
+        torch.cuda.synchronize()
+        hydro_s = time.perf_counter() - t0
+    spy.check("dm-small with gas (2 x 64^3)")
+    rho = d["density"].double()
+    m = mass.double()
+    rho_err = float(m.sum() / (m / rho).sum()) / float(m.sum() / box ** 3) - 1
+    print(f"dm-small with gas: density solve {dens_s:.6f} s "
+          f"({spy.solves[0][0]} bisection passes), hydro call "
+          f"{hydro_s:.6f} s; IC SPH density, volume-weighted, against the "
+          f"mean gas density (Omega_b rho_crit): {rho_err:+.6f} (particle "
+          f"mean {float(rho.mean() / (m.sum() / box ** 3)) - 1:+.6f})",
+          flush=True)
+    check(abs(rho_err) < IC_RHO_TOL["dm-small"], f"dm-small gas IC mean SPH "
+          f"density off by {rho_err:+.4f}")
+    a, kw = spy.last["density_sums"]
+    k4 = sph_kernel_case("dm-small 2 x 64^3 gas", "density", a, a[6])
+    a, kw = spy.last["hydro_sums"]
+    k5 = sph_kernel_case("dm-small 2 x 64^3 gas", "hydro", a,
+                         a[5].group_max)
+    return dict(k4=k4, k5=k5, density_s=dens_s, hydro_s=hydro_s,
+                passes=spy.solves[0][0], n=n)
+
+
+def sph_entry(name, which, gas, case, big):
+    """The kernels line's entry of K4 or K5: times at the star-small run's
+    final state, the bigger IC beside them."""
+    src = {"density": ("sph_density.cu", "mpgadget_tpu/sph/density.py:52"),
+           "hydro": ("sph_hydro.cu", "mpgadget_tpu/sph/hydra.py:45")}[which]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "within",
+            "groups", "listed")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"mpgadget_tpu_torch/csrc/{src[0]}",
+        "replaces": "mpgadget_tpu/ops/pairs.py:355", "pair_function": src[1],
+        "launches": gas["launches"][which],
+        "launches_by_path": {"star_small": gas["launches"][which]},
+        "density_solves": gas["n_solves"],
+        "bisection_passes": sum(gas["passes"]),
+        "max_abs_err": max(case["max_abs_err"], big["max_abs_err"]),
+        "max_rel_err": max(list(case["rel"].values())
+                           + list(big["rel"].values())),
+        "pairs": case["pairs"], "pairs_counted": case["within"],
+        "dm_small_2x64": {k: big[k] for k in keys},
+        "ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+        "library_ms": None}
 
 
 def main():
@@ -1764,11 +2375,37 @@ def run():
           f"K3 launches {hres['launches']['neighbors']} (run), "
           f"{fres['launches']} (final state) on {card}", flush=True)
 
+    with tempfile.TemporaryDirectory() as work:
+        gas = gas_run_phase(work)
+        spy = gas["spy"]
+        a = spy.last["density_sums"][0]
+        gk4 = sph_kernel_case("star-small final state", "density", a, a[6])
+        a = spy.last["hydro_sums"][0]
+        gk5 = sph_kernel_case("star-small final state", "hydro", a,
+                              a[5].group_max)
+        grres = restart_phase(work, gas["snapnum"], "not run",
+                              paramfile=gas["paramfile"])
+    with tempfile.TemporaryDirectory() as work:
+        big = big_gas_case(work)
+    gst = gas["step_seconds"]
+    gwt = gas["walltime"]
+    print(f"star-small (2 x {gas['ngas']} particles, cuts "
+          f"{GENIC_OVERRIDE} in genic and {GAS_SWITCHES_OFF} in the run) on "
+          f"{card}: {gas['nsteps']} PM steps to a={gas['atime']:.6f} in "
+          f"{sum(gst):.6f} s of steps ({gas['run_seconds']:.6f} s with the "
+          f"gas set-up, the first forces and the last snapshot); walltime "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(gwt.items()))
+          + f" s; {gas['n_solves']} density solves, bisection passes "
+          f"{sum(gas['passes'])} in all; kernel launches {gas['launches']}; "
+          f"RestartFlag 3 {grres['seconds']:.6f} s", flush=True)
+    print("star-small tree stage seconds: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in gas["stages"].items()), flush=True)
+
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096
     k2 = wres[0]                    # the lattice's first tree, LL = 512
     launches = {k: res["launches"][k] + hres["launches"][k]
-                for k in ("pair", "walk")}
+                + gas["launches"][k] for k in ("pair", "walk")}
     k3 = nres[0]                    # the final dm-small state's FOF inputs
     print(json.dumps({"kernels": [{
         "name": "block_pair_accumulate", "route": "cuda",
@@ -1776,7 +2413,8 @@ def run():
         "replaces": "mpgadget_tpu/gravity/pairkernel.py:129",
         "launches": launches["pair"],
         "launches_by_path": {"global": res["launches"]["pair"],
-                             "hierarchical": hres["launches"]["pair"]},
+                             "hierarchical": hres["launches"]["pair"],
+                             "star_small": gas["launches"]["pair"]},
         "max_abs_err": max([r[wp]["max_abs_err"] for r in kres
                             for wp in (False, True)]
                            + [cres["pair"]["max_abs_err"]]),
@@ -1794,7 +2432,8 @@ def run():
         "replaces": "mpgadget_tpu/gravity/treewalk.py:114",
         "launches": launches["walk"],
         "launches_by_path": {"global": res["launches"]["walk"],
-                             "hierarchical": hres["launches"]["walk"]},
+                             "hierarchical": hres["launches"]["walk"],
+                             "star_small": gas["launches"]["walk"]},
         # over all walk cases, the clustered one's monopoles included
         "max_abs_err": max([r["max_abs_err"] for r in wres]
                            + [cres["walk"]["max_abs_err"]]),
@@ -1814,9 +2453,11 @@ def run():
         "name": "find_neighbors", "route": "cuda",
         "source": "mpgadget_tpu_torch/csrc/neighbors.cu",
         "replaces": "mpgadget_tpu/ops/pairs.py:108",
-        "launches": hres["launches"]["neighbors"] + fres["launches"],
+        "launches": (hres["launches"]["neighbors"] + fres["launches"]
+                     + gas["launches"]["neighbors"]),
         "launches_by_path": {"hierarchical": hres["launches"]["neighbors"],
-                             "fof_final_state": fres["launches"]},
+                             "fof_final_state": fres["launches"],
+                             "star_small": gas["launches"]["neighbors"]},
         # leaf lists, counts, flags and visits: identical on both sets
         # and in the serial mode
         "max_abs_err": max(r["max_abs_err"] for r in nres),
@@ -1834,7 +2475,10 @@ def run():
         "kernel_split_ms": k3["split_ms"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}] + [sph_entry(name, which, gas, gk, big[key])
+                                for name, which, gk, key in (
+            ("sph_density_pairs", "density", gk4, "k4"),
+            ("sph_hydro_pairs", "hydro", gk5, "k5"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -33,6 +33,10 @@ SOURCES = {
     "treewalk": ("treewalk.cu", ("-fmad=false",)),
     # the neighbour walk (K3): the same rule for its near/far decisions
     "neighbors": ("neighbors.cu", ("-fmad=false",)),
+    # the SPH pair sums (K4 density, K5 hydro): the same rule for their
+    # r < H and u < 1 decisions
+    "sph_density": ("sph_density.cu", ("-fmad=false",)),
+    "sph_hydro": ("sph_hydro.cu", ("-fmad=false",)),
     # measurement aids that only chip_smoke.py loads: the serial walks the
     # port began with (K2's and K3's), as yardsticks, and an L2 pointer
     # chase

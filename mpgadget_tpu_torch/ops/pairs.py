@@ -19,10 +19,14 @@ pair_fn(dx, r, tmask, smask, tfeat, sfeat) -> dict of tensors shaped
 the JAX package carries as float32, exact only below 2^24 rows).  dx is
 source - target (box units, min-image).
 
-Not ported yet, because only SPH uses them: ``compact_leaves``,
-``node_hmax``, ``pack_sources``, ``pair_reduce_packed`` and
-``flatten_source_feats``.  :func:`find_neighbors` keeps its symmetric /
-hmax search for them all the same.
+SPH uses :func:`compact_leaves` and :func:`node_hmax` (the symmetric
+search's per-node hmax) besides the walk; its pair sums are kernels of
+their own (sph/density.py K4, sph/hydra.py K5) whose plain versions run
+:func:`pair_reduce`.  Not carried, by design: ``pack_sources``,
+``pair_reduce_packed`` and ``flatten_source_feats``, which pack each
+leaf's sources into contiguous sub-rows so that a TPU gathers whole
+rows; the SPH kernels read a listed leaf's particles straight from the
+Morton-sorted arrays through ``pstart``/``pcount``.
 """
 
 import ctypes
@@ -46,6 +50,57 @@ _fn = None
 
 def _wrap(d):
     return d - torch.round(d)
+
+
+def compact_leaves(tree, leaf_cap):
+    """DFS-ordered compacted leaf list (int32[leaf_cap], count, overflow);
+    unused slots hold tree.capacity - 1."""
+    C = tree.capacity
+    iota = torch.arange(C, device=tree.skip.device)
+    is_leaf = tree.is_leaf & (iota < tree.n_nodes)
+    order = torch.argsort((~is_leaf).to(torch.int8), stable=True)
+    n_leaves = is_leaf.sum()
+    slot = torch.arange(leaf_cap, device=iota.device)
+    leaves = torch.where(slot < n_leaves, order[:leaf_cap], C - 1)
+    return leaves.to(torch.int32), n_leaves, n_leaves > leaf_cap
+
+
+def node_hmax(tree, leaf_ids, n_leaves, hsml_sorted):
+    """Max Hsml over every node's particles (force_update_hmax analog):
+    float32[C], 0 where a node holds no particle with Hsml.
+
+    Each particle's value goes to its leaf and to every ancestor of the
+    leaf by a scatter max, one tree level at a time (in DFS preorder a
+    node's ancestor at level l is the last node of level l at or before
+    it).  A max is exact, so this gives the JAX package's values, which
+    it takes from a doubling table over the DFS-ordered leaves (a TPU
+    workaround).  The JAX package reads a leaf's first ``leaf_max`` (16)
+    particles only; a leaf holds more only at the deepest level, so the
+    two agree wherever no leaf holds more than 16.
+    """
+    dev = hsml_sorted.device
+    n = hsml_sorted.shape[0]
+    C = tree.capacity
+    nl = int(n_leaves)
+    leaves = leaf_ids[:nl].to(torch.int64)
+    ps = tree.pstart[leaves]
+    pj = torch.arange(n, device=dev)
+    k = torch.clamp(torch.searchsorted(ps, pj, right=True) - 1, min=0)
+    leaf = leaves[k] if nl else torch.zeros_like(pj)
+    inside = (pj < ps[k] + tree.pcount[leaves][k]) if nl \
+        else torch.zeros_like(pj, dtype=torch.bool)
+    iota = torch.arange(C, device=dev)
+    real = iota < tree.n_nodes
+    hm = torch.zeros(C + 1, dtype=torch.float32, device=dev)  # row C: dump
+    leaf_level = tree.level[leaf]
+    for lev in range(int(leaf_level[inside].max()) + 1 if nl else 0):
+        last = torch.cummax(torch.where(real & (tree.level == lev), iota,
+                                        -1), dim=0).values
+        anc = last[leaf]
+        ok = inside & (leaf_level >= lev) & (anc >= 0)
+        hm.scatter_reduce_(0, torch.where(ok, anc, C), hsml_sorted,
+                           reduce="amax")
+    return hm[:C]
 
 
 @dataclass

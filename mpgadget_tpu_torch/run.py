@@ -1,16 +1,18 @@
 """Simulation driver: begrun/run analog (libgadget/run.c), PyTorch port of
-the dark-matter-only part of mpgadget_tpu/run.py.
+the TreePM and non-radiative SPH parts of mpgadget_tpu/run.py.
 
 One device, a power-of-two quantized PM timestep, KDK integration with
-exact FLRW factors, TreePM forces, in-line power spectra, snapshot output
-at sync points and, with SnapshotWithFOF, a friends-of-friends halo
-catalogue (PIG) beside each snapshot (:meth:`Simulation.run_fof`).  The
-PM step is either one global KDK step or, with SplitGravityTimestepsOn,
-sub-cycled over per-particle power-of-two timebins whose short-range
-force is computed for the active set only
-(:meth:`Simulation.step_hierarchical`).  Switches this port does not
-carry yet raise NotImplementedError naming the parameter (see
-:func:`check_supported`); none is silently ignored.
+exact FLRW factors, TreePM forces, with HydroOn the SPH density and hydro
+force loops (sph/density.py, sph/hydra.py) for the gas, in-line power
+spectra, snapshot output at sync points and, with SnapshotWithFOF, a
+friends-of-friends halo catalogue (PIG) beside each snapshot
+(:meth:`Simulation.run_fof`).  The PM step is either one global KDK step
+or, with SplitGravityTimestepsOn, sub-cycled over per-particle
+power-of-two timebins whose short-range and hydro forces are computed for
+the active set only (:meth:`Simulation.step_hierarchical`).  Switches
+this port does not carry yet (cooling, star formation, winds, black
+holes, metal return, ...) raise NotImplementedError naming the parameter
+(see :func:`check_supported`); none is silently ignored.
 """
 
 import os
@@ -215,7 +217,6 @@ def check_supported(cfg: SimConfig, has_gas: bool):
         ("OutputEnergyDebug", cfg.output_energy_debug),
     )
     with_gas = (
-        ("HydroOn", cfg.hydro_on),
         ("CoolingOn", cfg.cooling_on),
         ("WindOn", cfg.wind_on),
         ("MetalReturnOn", cfg.metal_return_on),
@@ -226,7 +227,7 @@ def check_supported(cfg: SimConfig, has_gas: bool):
         if on:
             raise NotImplementedError(
                 f"{name} is not supported by mpgadget_tpu_torch yet "
-                "(dark-matter-only TreePM)")
+                "(TreePM with non-radiative SPH)")
 
 
 class Simulation:
@@ -251,6 +252,12 @@ class Simulation:
         self.last_power = None
         self.has_gas = bool(((pdata.ptype == 0) & pdata.valid).any())
         check_supported(cfg, self.has_gas)
+        # SPH state (sph/state.SphData), set up by setup_gas or
+        # _restore_gas when gas is present and HydroOn
+        self.sph = None
+        self._gas_initialized = False
+        self._gas_restore = None
+        self._min_egy_spec = 0.0
         self._omega_per_type = self._compute_omegas()
         self._tree_grav = None      # set up lazily when enabled
         # optional treepm.StageTimer handed to the tree force (per-stage
@@ -327,6 +334,21 @@ class Simulation:
         cfg = SimConfig(boxsize=header.BoxSize, **cfg_kwargs)
         sim = cls(cp, pdata, cfg, time_ic=header.TimeIC or header.Time)
         sim._header = header
+        # restore gas thermal state when present (restart path): every
+        # registered gas block present is restored
+        if int(header.TotNumPart[0]) > 0 and "0/InternalEnergy" in bf:
+            sim._gas_restore = {
+                "u": bf.open("0/InternalEnergy").read(),
+                "density": bf.open("0/Density").read(),
+                "hsml": bf.open("0/SmoothingLength").read(),
+            }
+            from .io.registry import blocks_for_type
+            for spec in blocks_for_type(0):
+                if spec.holder != "sph" or spec.wronly:
+                    continue
+                if "0/" + spec.name in bf:
+                    sim._gas_restore[spec.field] = \
+                        bf.open("0/" + spec.name).read()
         return sim
 
     def _compute_omegas(self):
@@ -393,31 +415,34 @@ class Simulation:
         self.tree_force_calls += 1
         return self._tree_grav.compute(self.pdata, **kw)
 
-    def _compute_tree_forces(self, active=None):
-        """Short-range forces for every particle, or (active: bool[N])
-        for the blocks holding an active target; inactive rows keep their
-        old grav_accel."""
+    def _tree_compute_retry(self, **kw):
+        """The tree force (TreeGravity.compute with kw) through the
+        restartable walk: capacities double on overflow and the walk runs
+        again (the export-buffer-full retry analog,
+        treewalk.c:801-902)."""
         if self._tree_grav is None:
             self._tree_grav = self._make_tree_gravity()
-        # restartable walk: double capacities on overflow (the export-
-        # buffer-full retry analog, treewalk.c:801-902)
         for attempt in range(8):
             # a failed (overflowed) attempt must not consume the "BH
             # opening on the first call" state (TreeUseBH=2)
             bh_prev = self._tree_grav._use_bh_now
-            accel = self._tree_compute(target_active=active)
+            res = self._tree_compute(**kw)
             if not bool(self._tree_grav.last_overflow):
-                break
+                return res
             self.tree_retries.append(tuple(
                 k for k, v in self._tree_grav.last_overflow_parts.items()
                 if bool(v)))
             self._tree_grav._use_bh_now = bh_prev
             self._tree_grav.grow()
-        else:
-            raise RuntimeError(
-                "tree walk capacity overflow after retries: increase "
-                "WalkConfig.leaf_list_max/src_cap or "
-                "TreeConfig.node_factor")
+        raise RuntimeError(
+            "tree walk capacity overflow after retries: increase "
+            "WalkConfig.leaf_list_max/src_cap or TreeConfig.node_factor")
+
+    def _compute_tree_forces(self, active=None):
+        """Short-range forces for every particle, or (active: bool[N])
+        for the blocks holding an active target; inactive rows keep their
+        old grav_accel."""
+        accel = self._tree_compute_retry(target_active=active)
         if active is not None:
             accel = torch.where(active[:, None], accel,
                                 self.pdata.grav_accel)
@@ -433,6 +458,242 @@ class Simulation:
             nd = max(1.0, float(self.pdata.num_valid))
         return self.cfg.boxsize / np.cbrt(nd)
 
+    # -- SPH -----------------------------------------------------------
+
+    @property
+    def gas_mask(self):
+        return self.pdata.valid & (self.pdata.ptype == 0)
+
+    def _density_params(self):
+        from .sph.density import DensityParams
+        softening = self.cfg.gravity_softening * self._dm_mean_sep()
+        return DensityParams(
+            kernel_type=self.cfg.density_kernel_type,
+            eta=self.cfg.density_resolution_eta,
+            max_ngb_deviation=self.cfg.max_numngb_deviation,
+            min_hsml=self.cfg.min_gas_hsml_fractional * softening)
+
+    def _min_egy(self):
+        """Specific energy floor from MinGasTemp (neutral primordial
+        gas)."""
+        from .utils import constants as C
+        uu = self.cfg.units.UnitInternalEnergy_in_cgs
+        return (C.BOLTZMANN / C.PROTONMASS / C.GAMMA_MINUS1
+                * self.cfg.min_gas_temp / uu
+                / (4.0 / (1 + 3 * C.HYDROGEN_MASSFRAC)))
+
+    def setup_gas(self):
+        """Initial Hsml + entropy from InitGasTemp
+        (setup_smoothinglengths, init.c:461-524)."""
+        from .sph.state import SphData
+        from .sph.density import sph_density
+        from .utils import constants as C
+        n = self.pdata.capacity
+        dev = self.device
+        self.sph = SphData.zeros(n, dev)
+        gas = self.gas_mask
+        atime = self.atime
+        # initial hsml guess from the mean gas separation (types 0 and 5
+        # in the reference; this port has no black holes)
+        ngas = float(gas.sum())
+        mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(ngas))
+        hsml0 = torch.where(gas, float(np.float32(2.0 * mean_sep)), 0.0)
+        self.pdata = self.pdata.replace(hsml=hsml0)
+        # u_init from InitGasTemp (init.c:488-501)
+        init_temp = self.cfg.init_gas_temp
+        if init_temp < 0:
+            init_temp = self.CP.CMBTemperature / atime
+        uu = self.cfg.units.UnitInternalEnergy_in_cgs
+        u_init = (1.0 / C.GAMMA_MINUS1) * (C.BOLTZMANN / C.PROTONMASS) \
+            * init_temp / uu
+        mol_weight = (4 / (8 - 5 * (1 - C.HYDROGEN_MASSFRAC))
+                      if init_temp > 1e4
+                      else 4 / (1 + 3 * C.HYDROGEN_MASSFRAC))
+        u_init /= mol_weight
+        min_egy = self._min_egy()
+        u_init = max(u_init, min_egy)
+        self._min_egy_spec = min_egy
+        a3 = atime ** 3
+        # density + hsml convergence with unit entvar
+        dpar = self._density_params()
+        ones = torch.ones(n, dtype=torch.float32, device=dev)
+        out = sph_density(self.pdata.ipos, self.pdata.mass, gas,
+                          self.pdata.hsml, self.pdata.vel, self.pdata.vel,
+                          ones, dpar, self.cfg.boxsize)
+        self.pdata = self.pdata.replace(hsml=out["hsml"],
+                                        dt_hsml=out["dt_hsml"])
+        rho = out["density"]
+        egy = rho
+        entropy = C.GAMMA_MINUS1 * u_init / torch.clamp(
+            rho / a3, min=1e-30) ** C.GAMMA_MINUS1
+        if self.cfg.density_independent_sph:
+            # iterate entropy <-> EgyWtDensity (init.c:406-452)
+            for _ in range(8):
+                entropy = C.GAMMA_MINUS1 * u_init / torch.clamp(
+                    egy / a3, min=1e-30) ** C.GAMMA_MINUS1
+                entvar = torch.clamp(entropy, min=1e-30) ** (1.0 / C.GAMMA)
+                out = sph_density(
+                    self.pdata.ipos, self.pdata.mass, gas, self.pdata.hsml,
+                    self.pdata.vel, self.pdata.vel, entvar, dpar,
+                    self.cfg.boxsize, update_hsml=False)
+                new_egy = out["egy_wt_density"]
+                diff = float(torch.where(
+                    gas, torch.abs(new_egy - egy)
+                    / torch.clamp(egy, min=1e-30), 0.0).max())
+                egy = new_egy
+                if diff < 1e-3:
+                    break
+        self.sph = self.sph.replace(
+            entropy=torch.where(gas, entropy, 0.0),
+            density=rho, egy_wt_density=egy,
+            dhsml_density_factor=out["dhsml_density_factor"],
+            dhsml_egy_factor=out["dhsml_egy_factor"],
+            div_vel=out["div_vel"], curl_vel=out["curl_vel"])
+        self._gas_initialized = True
+
+    def _restore_gas(self):
+        """Rebuild SPH state from snapshot blocks
+        (check_density_entropy path, init.c:366-400)."""
+        from .sph.state import SphData
+        from .utils import constants as C
+        n = self.pdata.capacity
+        dev = self.device
+        gas = self.gas_mask
+        rows = gas.cpu().numpy()
+        r = self._gas_restore
+        a3 = self.atime ** 3
+
+        def expand(x):
+            full = np.zeros(n, np.float32)
+            full[rows] = np.asarray(x, np.float32)
+            return torch.as_tensor(full, device=dev)
+
+        rho = expand(r["density"])
+        u = expand(r["u"])
+        entropy = C.GAMMA_MINUS1 * u / torch.clamp(
+            rho / a3, min=1e-30) ** C.GAMMA_MINUS1
+        sph = SphData.zeros(n, dev).replace(
+            entropy=entropy, density=rho,
+            egy_wt_density=(expand(r["egy_wt_density"])
+                            if "egy_wt_density" in r else rho))
+        # generic registry-driven field scatter (any dtype/shape)
+        updates = {}
+        for field, arr in r.items():
+            if field in ("u", "density", "hsml", "egy_wt_density") \
+                    or not hasattr(sph, field):
+                continue
+            cur = getattr(sph, field).cpu().numpy().copy()
+            cur[rows] = np.asarray(arr).reshape(
+                (-1,) + cur.shape[1:]).astype(cur.dtype)
+            updates[field] = torch.as_tensor(cur, device=dev)
+        if updates:
+            sph = sph.replace(**updates)
+        self.sph = sph
+        self.pdata = self.pdata.replace(hsml=expand(r["hsml"]))
+        self._min_egy_spec = self._min_egy()
+        self._gas_initialized = True
+
+    def compute_hydro(self, dloga, active=None):
+        """Density + hydro force loops (run.c:466-489 analog).
+
+        active: optional bool[N] — restrict TARGETS to the active set
+        (hierarchical stepping); all gas stays as sources and inactive
+        targets keep their old values."""
+        from .sph.density import sph_density
+        from .sph.hydra import hydro_force, HydroParams
+        from .utils.constants import GAMMA
+        gas = self.gas_mask
+        tgt = gas if active is None else (gas & active)
+        atime = self.atime
+        hubble = self.CP.hubble_function(atime)
+        entvar = torch.clamp(self.sph.entropy, min=1e-30) ** (1.0 / GAMMA)
+        entvar = torch.where(gas, entvar, 0.0)
+        dpar = self._density_params()
+
+        def merge(new, old):
+            if active is None:
+                return new
+            m = tgt[:, None] if new.dim() == 2 else tgt
+            return torch.where(m, new, old)
+
+        self.walltime.start("SPH/Density")
+        out = sph_density(self.pdata.ipos, self.pdata.mass, gas,
+                          self.pdata.hsml, self.pdata.vel, self.pdata.vel,
+                          entvar, dpar, self.cfg.boxsize,
+                          do_egy_density=self.cfg.density_independent_sph,
+                          target_mask=None if active is None else tgt)
+        self.walltime.stop("SPH/Density")
+        self.pdata = self.pdata.replace(
+            hsml=merge(out["hsml"], self.pdata.hsml),
+            dt_hsml=merge(out["dt_hsml"], self.pdata.dt_hsml))
+        sph = self.sph
+        self.sph = sph.replace(
+            density=merge(out["density"], sph.density),
+            egy_wt_density=merge(out["egy_wt_density"], sph.egy_wt_density),
+            dhsml_density_factor=merge(out["dhsml_density_factor"],
+                                       sph.dhsml_density_factor),
+            dhsml_egy_factor=merge(out["dhsml_egy_factor"],
+                                   sph.dhsml_egy_factor),
+            div_vel=merge(out["div_vel"], sph.div_vel),
+            curl_vel=merge(out["curl_vel"], sph.curl_vel))
+        hp = HydroParams(
+            kernel_type=self.cfg.density_kernel_type,
+            art_bulk_visc=self.cfg.art_bulk_visc,
+            density_independent=self.cfg.density_independent_sph,
+            density_contrast_limit=self.cfg.density_contrast_limit)
+        self.walltime.start("SPH/Hydro")
+        sph = self.sph
+        res = hydro_force(
+            self.pdata.ipos, self.pdata.mass, gas, self.pdata.hsml,
+            self.pdata.vel, entvar, sph.density, sph.egy_wt_density,
+            sph.div_vel, sph.curl_vel, sph.dhsml_egy_factor, hp,
+            self.cfg.boxsize, atime, hubble, dloga)
+        self.walltime.stop("SPH/Hydro")
+        # the wind-decoupled branch waits for WindOn, which
+        # check_supported refuses
+        self.sph = sph.replace(
+            hydro_accel=merge(res["hydro_accel"], sph.hydro_accel),
+            dt_entropy=merge(res["dt_entropy"], sph.dt_entropy),
+            max_signal_vel=merge(res["max_signal_vel"],
+                                 sph.max_signal_vel))
+
+    def find_hydro_timestep_dloga(self):
+        """Courant + Hsml-change criteria (timestep.c:1075-1090)."""
+        from .utils.constants import GAMMA
+        atime = self.atime
+        hubble = self.CP.hubble_function(atime)
+        par = self.cfg.timestep
+        fac3 = atime ** (3 * (1 - GAMMA) / 2.0)
+        vsig = torch.clamp(self.sph.max_signal_vel, min=1e-30)
+        dt_c = 2 * par.CourantFac * atime * self.pdata.hsml / (fac3 * vsig)
+        dt_h = par.CourantFac * atime * atime * torch.abs(
+            self.pdata.hsml / (self.pdata.dt_hsml + 1e-20))
+        dt = torch.minimum(dt_c, dt_h)
+        dloga = float(torch.where(self.gas_mask, dt, float("inf")).min()) \
+            * hubble
+        return min(dloga, par.MaxSizeTimestep)
+
+    def _gas_kick(self, mask, hk, dl):
+        """Hydro kick and entropy update of the gas in mask: vel +=
+        hydro_accel * hk, entropy += dt_entropy * dl, floored at
+        MinGasTemp's entropy and at half the old entropy (apply_hydro_
+        half_kick, timestep.c; check_density_entropy).  hk and dl are
+        float32 tensors broadcast over the particles, or scalars."""
+        from .utils.constants import GAMMA_MINUS1
+        gas = self.gas_mask & mask
+        sph = self.sph
+        vel = self.pdata.vel + torch.where(
+            gas[:, None], sph.hydro_accel * hk, 0.0)
+        ent = sph.entropy + sph.dt_entropy * dl
+        a3 = self.atime ** 3
+        minent = GAMMA_MINUS1 * self._min_egy_spec / torch.clamp(
+            sph.density / a3, min=1e-30) ** GAMMA_MINUS1
+        ent = torch.maximum(ent, minent)
+        # entropy may at most halve per step (Gadget convention)
+        ent = torch.maximum(ent, 0.5 * sph.entropy)
+        self.sph = sph.replace(entropy=torch.where(gas, ent, sph.entropy))
+        self.pdata = self.pdata.replace(vel=vel)
+
     # -- stepping ------------------------------------------------------
 
     def find_pm_timestep(self):
@@ -445,10 +706,17 @@ class Simulation:
                                   self.ti_current)
 
     def _apply_half_kick(self, t0, t1):
-        """Gravity kick over [t0, t1] (apply_half_kick, timestep.c)."""
+        """Gravity (+hydro, +entropy) kick over [t0, t1]
+        (apply_half_kick / apply_hydro_half_kick, timestep.c)."""
         accel = self.pdata.grav_pm + self.pdata.grav_accel
         vel = kick(self.pdata.vel, accel, self.tf.gravkick(t0, t1))
         self.pdata = self.pdata.replace(vel=vel)
+        if self.has_gas and self._gas_initialized:
+            dloga = (self.timeline.loga_from_ti(t1)
+                     - self.timeline.loga_from_ti(t0))
+            self._gas_kick(self.pdata.valid,
+                           float(np.float32(self.tf.hydrokick(t0, t1))),
+                           float(np.float32(dloga)))
 
     def _apply_pm_half_kick(self, t0, t1):
         """Long-range-only kick (apply_PM_half_kick, timestep.c)."""
@@ -463,17 +731,28 @@ class Simulation:
         on the host for the bins the masked particles occupy (each is a
         quadrature)."""
         bins = torch.clamp(bins, 0, maxbin).long()
+        gas = self.has_gas and self._gas_initialized
         gfac = np.zeros(maxbin + 1, np.float32)
+        hfac = np.zeros(maxbin + 1, np.float32)
+        dlg = np.zeros(maxbin + 1, np.float32)
         for b in torch.unique(bins[mask]).tolist():
             if b < 1:
                 continue
             db = 1 << b
             ta, tb = (ti, ti + db // 2) if opening else (ti - db // 2, ti)
             gfac[b] = self.tf.gravkick(ta, tb)
+            if gas:
+                hfac[b] = self.tf.hydrokick(ta, tb)
+                dlg[b] = (self.timeline.loga_from_ti(tb)
+                          - self.timeline.loga_from_ti(ta))
         gk = torch.as_tensor(gfac, device=self.device)[bins]
         vel = self.pdata.vel + torch.where(
             mask[:, None], self.pdata.grav_accel * gk[:, None], 0.0)
         self.pdata = self.pdata.replace(vel=vel)
+        if gas:
+            self._gas_kick(
+                mask, torch.as_tensor(hfac, device=self.device)[bins][:, None],
+                torch.as_tensor(dlg, device=self.device)[bins])
 
     def _drift_all(self, ti, dti):
         """Drift every particle (positions and predicted Hsml) over
@@ -526,7 +805,9 @@ class Simulation:
         # D: full drift (positions and predicted Hsml)
         self._drift_all(t0, dti)
         self.ti_current = t1
-        # Forces at t1
+        # Forces at t1: hydro first (run.c:466-489), then gravity
+        if self.has_gas and self.cfg.hydro_on:
+            self.compute_hydro(self.timeline.dloga_from_dti(dti, t0))
         self.compute_forces()
         self.force_evals += self.pdata.num_valid
         # K: half kick with forces at t1
@@ -553,8 +834,9 @@ class Simulation:
 
         soft = 2.8 * self.cfg.gravity_softening * self._dm_mean_sep()
         bins = assign_particle_bins(
-            self.pdata, None, None, self.CP, self.atime, soft, self.timeline,
-            t0, self.cfg.timestep, dti_pm)
+            self.pdata, self.sph if self._gas_initialized else None,
+            self.gas_mask, self.CP, self.atime, soft, self.timeline, t0,
+            self.cfg.timestep, dti_pm)
         # a bin's interval must divide both t0 and dti_pm, or its
         # boundaries never meet the clock (is_timebin_active analog)
         maxbin = get_timestep_bin(dti_pm)
@@ -584,6 +866,11 @@ class Simulation:
             self.ti_current = ti
             closing = valid & ((ti & (dtib - 1)) == 0)
             n_closing = int(closing.sum())
+            if self.has_gas and self.cfg.hydro_on \
+                    and self._gas_initialized:
+                self.compute_hydro(
+                    self.timeline.dloga_from_dti(dti_s, ti - dti_s),
+                    active=closing)
             self._compute_tree_forces(active=closing)
             self._bin_half_kick(closing, bins, ti, maxbin, opening=False)
             self.force_evals += n_closing
@@ -594,8 +881,9 @@ class Simulation:
             # with the clock (is_timebin_active rule)
             if ti < t_end and not self.cfg.timestep.ForceEqualTimesteps:
                 new_bins = assign_particle_bins(
-                    self.pdata, None, None, self.CP, self.atime, soft,
-                    self.timeline, ti, self.cfg.timestep, dti_pm)
+                    self.pdata, self.sph if self._gas_initialized else None,
+                    self.gas_mask, self.CP, self.atime, soft, self.timeline,
+                    ti, self.cfg.timestep, dti_pm)
                 new_bins = torch.clamp(new_bins, 1, maxbin)
                 dtin = torch.ones_like(dtib) << new_bins.long()
                 aligned_new = (ti & (dtin - 1)) == 0
@@ -623,6 +911,14 @@ class Simulation:
         hci = HCIManager(self.cfg.output_dir,
                          time_limit_cpu=self.cfg.time_limit_cpu,
                          auto_checkpoint_time=self.cfg.auto_snapshot_time)
+        hydro = self.has_gas and self.cfg.hydro_on
+        if hydro and not self._gas_initialized:
+            if self._gas_restore:
+                self._restore_gas()
+            else:
+                self.setup_gas()
+        if hydro:
+            self.compute_hydro(dloga=0.0)
         self.compute_forces()
         nsteps = 0
         while self.ti_current < self.timeline.ti_end:
@@ -636,6 +932,11 @@ class Simulation:
                 self.write_snapshot()
             step_t0 = _time.monotonic()
             dti = self.find_pm_timestep()
+            if hydro:
+                from .timeline import round_down_power_of_two
+                dti_h = round_down_power_of_two(self.timeline.dti_from_dloga(
+                    self.find_hydro_timestep_dloga(), self.ti_current))
+                dti = min(dti, max(dti_h, 1))
             if dti <= 0:
                 # dump state for post-mortem before dying
                 # (emergency snapshot, run.c:776-780); a failed write
@@ -785,17 +1086,25 @@ class Simulation:
 
     def _species_extra_blocks(self, t, sel, atime):
         """Type-specific blocks for a boolean selection sel, driven by the
-        declarative registry (petaio.c:992-1078 analog).  Only the base
-        particle holder exists on this path."""
+        declarative registry (petaio.c:992-1078 analog), plus the derived
+        InternalEnergy block of the gas.  The holders on this path are
+        the base particles and, with gas, the SPH state."""
         from .io.registry import blocks_for_type
+        from .utils.constants import GAMMA_MINUS1
         extra = {}
-        holders = {"pdata": self.pdata}
+        holders = {"pdata": self.pdata, "sph": self.sph}
         for spec in blocks_for_type(t):
             holder = holders.get(spec.holder)
             if holder is None:
                 continue
             arr = getattr(holder, spec.field).cpu().numpy()
             extra[spec.name] = arr[sel].astype(spec.dtype)
+        if t == 0 and self.sph is not None:
+            ent = self.sph.entropy.cpu().numpy()[sel]
+            rho = self.sph.density.cpu().numpy()[sel]
+            u = ent / GAMMA_MINUS1 * np.maximum(
+                rho * (1.0 / atime ** 3), 1e-30) ** GAMMA_MINUS1
+            extra["InternalEnergy"] = u.astype("<f4")
         return extra
 
     def write_snapshot(self, label: Optional[int] = None):
@@ -816,8 +1125,11 @@ class Simulation:
         pot = self.pdata.potential.cpu().numpy()
         if self.cfg.tree_grav_on and self._tree_grav is not None:
             # stored Potential = PM + short-range tree (the reference
-            # adds the tree part on output, gravshort-tree.c:137)
-            _, tree_pot = self._tree_compute(return_potential=True)
+            # adds the tree part on output, gravshort-tree.c:137),
+            # through the same retry as the forces: an overflowed walk
+            # would write a truncated potential (the JAX package calls
+            # the walk once and ignores its flag)
+            _, tree_pot = self._tree_compute_retry(return_potential=True)
             pot = pot + tree_pot.cpu().numpy()
         ntot = np.zeros(6, np.uint64)
         hubble = self.CP.hubble_function(atime)

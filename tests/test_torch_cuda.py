@@ -16,6 +16,8 @@ from mpgadget_tpu_torch.gravity import treepm, treewalk
 from mpgadget_tpu_torch.ops import pairs
 from mpgadget_tpu_torch.physics import fof
 from mpgadget_tpu_torch.pm import gravity as pm
+from mpgadget_tpu_torch.sph import density, hydra
+from mpgadget_tpu_torch.sph import kernels as sphK
 from test_torch_neighborkernel import mirror_walks, neighbor_inputs
 from test_torch_walkkernel import _stack_walk, walk_inputs
 
@@ -447,3 +449,206 @@ def test_fof_label_cuda_matches_cpu(cuda):
                                1.0, ll)
     assert torch.equal(got.cpu(), want)
     assert len(torch.unique(want[want >= 0])) < int(valid.sum())
+
+
+def _sph_pair_inputs(device, which, ktype=sphK.QUINTIC, formulation=(True, 100.0),
+                     ng=16, seed=7):
+    """K4 or K5 inputs on `device`: a perturbed ng^3 gas lattice with a
+    dense clump and 200 non-gas particles among it, smoothing lengths
+    spread by a factor 2.5, neighbour lists of the plain walk; a fifth of
+    the groups get radius 0 (density) and list nothing.  Returns the
+    pair-sum arguments (tree, nbr, src, tgt, valid, ...)."""
+    rng = np.random.RandomState(seed)
+    g = np.indices((ng, ng, ng)).reshape(3, -1).T / ng
+    pos = np.mod(g + rng.uniform(-0.3, 0.3, g.shape) / ng, 1.0)
+    pos[:ng ** 3 // 8] = np.mod(0.5 + 0.03 * rng.randn(ng ** 3 // 8, 3), 1)
+    pos = np.concatenate([pos, rng.rand(200, 3)])
+    n = len(pos)
+    box = 1000.0
+    gas = torch.as_tensor(np.arange(n) < ng ** 3)
+    ipos = torch.as_tensor(np.minimum((pos * 2.0 ** 32).astype(np.int64),
+                                      2 ** 32 - 1))
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    mass = f(np.where(np.arange(n) < ng ** 3, 1.5, 7.0))
+    perm, inv, pos_box, valid_s, tree, (nodes, gc, gh) = density.sorted_tree(
+        ipos, mass, gas, 32)
+    hsml = f(rng.uniform(1.0, 2.5, n) * 2.0 / ng)[perm]       # box units
+    vel = f(rng.randn(n, 3))[perm]
+    tidx, tm = density.group_targets(tree, nodes, n, 32)
+    gradius = torch.where(tm, hsml[tidx], 0.0).max(dim=1).values
+    if which == "density":
+        gradius[torch.as_tensor(rng.rand(len(gradius)) < 0.2)] = 0.0
+        nbr = pairs.find_neighbors(tree, nodes, gc, gh, gradius, None, 4096,
+                                   symmetric=False)
+        src, tgt, valid = density.pack_density_inputs(
+            pos_box, valid_s, mass[perm], vel, f(rng.uniform(0.5, 1.5, n)),
+            hsml, vel + 0.1)
+        rest = (ktype, 32)
+    else:
+        leaf_ids, nl, _ = pairs.compact_leaves(tree, tree.capacity)
+        hmax = pairs.node_hmax(tree, leaf_ids, nl,
+                               torch.where(valid_s, hsml, 0.0))
+        nbr = pairs.find_neighbors(tree, nodes, gc, gh, gradius, hmax, 4096,
+                                   symmetric=True)
+        cols = {k: f(rng.uniform(0.5, 2.0, n))
+                for k in ("density", "eomdensity", "pressure", "curlvel",
+                          "entvarpred", "dhsml", "soundspeed", "f1",
+                          "p_over_rho2", "egyrho")}
+        cols.update(mass=mass[perm], hsml=hsml * box,
+                    divvel=f(rng.uniform(-1, 1, n)))
+        src, tgt, valid = hydra.pack_hydro_inputs(pos_box, valid_s, vel, cols)
+        par = hydra.HydroParams(kernel_type=ktype,
+                                density_independent=formulation[0],
+                                density_contrast_limit=formulation[1])
+        rest = (par, hydra.hydro_scalars(par, box, 0.2, 3.0, 0.01))
+    assert not bool(nbr.overflow.any())
+    to = lambda t: t.to(device).contiguous()  # noqa: E731
+    tree = ttree_to(tree, device)
+    nbr = pairs.NeighborLists(
+        leaf_idx=to(nbr.leaf_idx), n_leaves=to(nbr.n_leaves),
+        overflow=to(nbr.overflow), group_nodes=to(nbr.group_nodes),
+        visits=to(nbr.visits))
+    return (tree, nbr, to(src), to(tgt), to(valid)) + rest
+
+
+def ttree_to(tree, device):
+    from dataclasses import fields, replace
+    return replace(tree, **{f.name: getattr(tree, f.name).to(device)
+                            for f in fields(tree)})
+
+
+def _sph_case(which, args):
+    kern = density.density_kernel if which == "density" \
+        else hydra.hydro_kernel
+    plain = density.density_sums_reference if which == "density" \
+        else hydra.hydro_sums_reference
+    names = density.OUTPUTS if which == "density" else hydra.OUTPUTS
+    mod = density if which == "density" else hydra
+    before = mod.LAUNCHES
+    a = kern(*args)
+    b = kern(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 2
+    assert torch.equal(a, b)                  # no atomics: the same bits
+    ref = plain(*args)
+    for i, k in enumerate(names):
+        x, y = a[:, i].double(), ref[:, i].double()
+        if k == "maxsig":
+            fin = torch.isfinite(y)
+            assert torch.equal(torch.isfinite(x), fin)
+            x, y = x[fin], y[fin]
+            tol = 1e-6
+        else:
+            tol = 1e-5
+        err = float((x - y).norm() / y.norm().clamp(min=1e-300))
+        assert err <= tol, (k, err)
+    return a
+
+
+@pytest.mark.parametrize("ktype", [sphK.CUBIC, sphK.QUINTIC, sphK.QUARTIC])
+def test_density_kernel_matches_plain(cuda, ktype):
+    """K4 against its plain version on the same lists: every output within
+    1e-5 by norm, two launches bit-identical, and the rows of groups with
+    no list zero."""
+    args = _sph_pair_inputs(cuda, "density", ktype)
+    out = _sph_case("density", args)
+    nbr, tree = args[1], args[0]
+    empty = nbr.group_nodes[nbr.n_leaves == 0]
+    assert empty.numel() > 0
+    rows = torch.cat([torch.arange(int(tree.pstart[g]),
+                                   int(tree.pstart[g] + tree.pcount[g]),
+                                   device=cuda) for g in empty.tolist()])
+    assert bool((out[rows] == 0).all())
+    assert bool((out[:, 0] > 0).sum() > 1000)
+
+
+@pytest.mark.parametrize("ktype,formulation", [
+    (sphK.QUINTIC, (True, 100.0)), (sphK.QUINTIC, (True, 0.0)),
+    (sphK.QUINTIC, (True, -1.0)), (sphK.QUINTIC, (False, 100.0)),
+    (sphK.CUBIC, (True, 100.0)), (sphK.QUARTIC, (False, 100.0))])
+def test_hydro_kernel_matches_plain(cuda, ktype, formulation):
+    """K5 against its plain version on the same symmetric lists, in every
+    formulation branch: acc and dtent within 1e-5 by norm, maxsig within
+    1e-6 and -inf at the same rows, two launches bit-identical."""
+    args = _sph_pair_inputs(cuda, "hydro", ktype, formulation)
+    out = _sph_case("hydro", args)
+    assert bool(torch.isfinite(out[:, 4]).sum() > 1000)
+
+
+def test_sph_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
+    """On CUDA tensors the SPH pair sums launch K4 / K5 or raise: wrong
+    inputs are refused, and with the kernel library unavailable the call
+    raises rather than running the plain version."""
+    dargs = _sph_pair_inputs(cuda, "density")
+    hargs = _sph_pair_inputs(cuda, "hydro")
+    tree, nbr, src, tgt, valid = dargs[:5]
+    for i, bad in ((2, src.double()), (2, src.cpu()), (3, tgt[:, :3]),
+                   (4, valid.bool()), (2, src.t().contiguous().t())):
+        a = list(dargs)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            density.density_kernel(*a)
+    with pytest.raises(ValueError):
+        density.density_kernel(*dargs[:5], dargs[5], 33)
+    with pytest.raises(ValueError):
+        density.density_kernel(*dargs[:5], 3, 32)
+    a = list(hargs)
+    a[3] = hargs[3][:, :4].contiguous()
+    with pytest.raises(ValueError):
+        hydra.hydro_kernel(*a)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    monkeypatch.setattr(density, "density_sums_reference", refuse)
+    monkeypatch.setattr(hydra, "hydro_sums_reference", refuse)
+    before = (density.LAUNCHES, hydra.LAUNCHES)
+    density.density_sums(*dargs)
+    hydra.hydro_sums(*hargs)
+    assert (density.LAUNCHES, hydra.LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+
+    def no_library(name):
+        raise RuntimeError(f"no {name}")
+
+    monkeypatch.setattr(density, "_fn", None)
+    monkeypatch.setattr(hydra, "_fn", None)
+    monkeypatch.setattr(density.kernels, "load", no_library)
+    with pytest.raises(RuntimeError, match="no sph_density"):
+        density.density_sums(*dargs)
+    with pytest.raises(RuntimeError, match="no sph_hydro"):
+        hydra.hydro_sums(*hargs)
+
+
+def test_sph_density_and_hydro_cuda_match_cpu(cuda):
+    """sph_density and hydro_force on the card (K3, K4, K5) against the
+    same calls on the CPU (the plain versions)."""
+    rng = np.random.RandomState(4)
+    ng = 12
+    g = np.indices((ng, ng, ng)).reshape(3, -1).T / ng
+    pos = np.mod(g + rng.uniform(-0.3, 0.3, g.shape) / ng, 1.0)
+    n = len(pos)
+    ipos = np.minimum((pos * 2.0 ** 32).astype(np.int64), 2 ** 32 - 1)
+    inputs = dict(ipos=ipos, mass=np.full(n, 1.5, np.float32),
+                  gas=np.ones(n, bool),
+                  hsml=np.full(n, 2000.0 / ng, np.float32),
+                  vel=rng.randn(n, 3).astype(np.float32),
+                  ent=rng.uniform(0.5, 1.5, n).astype(np.float32))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+        d = density.sph_density(t["ipos"], t["mass"], t["gas"], t["hsml"],
+                                t["vel"], t["vel"], t["ent"],
+                                density.DensityParams(), 1000.0)
+        h = hydra.hydro_force(t["ipos"], t["mass"], t["gas"], d["hsml"],
+                              t["vel"], t["ent"], d["density"],
+                              d["egy_wt_density"], d["div_vel"],
+                              d["curl_vel"], d["dhsml_egy_factor"],
+                              hydra.HydroParams(), 1000.0, 0.2, 3.0, 0.01)
+        res[dev.type] = {**{k: v for k, v in d.items()
+                            if isinstance(v, torch.Tensor)}, **h}
+    for k, want in res["cpu"].items():
+        got = res["cuda"][k].cpu().double()
+        err = float((got - want.double()).norm()
+                    / want.double().norm().clamp(min=1e-300))
+        assert err <= 1e-5, (k, err)

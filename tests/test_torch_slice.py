@@ -153,6 +153,41 @@ def test_snapshot_written_by_port_reads_back(ic_path, tmp_path):
                                   tsim.pdata.pid.numpy()[:16 ** 3])
 
 
+def test_snapshot_potential_retries_an_overflowed_walk(ic_path, tmp_path,
+                                                       monkeypatch):
+    """write_snapshot takes the tree potential through the forces' grow
+    and retry loop: a first walk that reports overflow (here with a
+    zeroed, truncated potential) is retried at grown capacities, and the
+    Potential written is that of a walk that did not overflow."""
+    from mpgadget_tpu_torch.gravity.treepm import TreeGravity
+    from mpgadget_tpu_torch.io import BigFile
+    tsim, _ = build_simulation(
+        _params(create_gadget_parameter_set, ic_path, tmp_path), device="cpu")
+    tsim.compute_forces()
+    clean = BigFile(tsim.write_snapshot()).open("1/Potential").read()
+    real = TreeGravity.compute
+    calls = []
+
+    def overflow_once(self, pdata, return_potential=False, **kw):
+        res = real(self, pdata, return_potential=return_potential, **kw)
+        calls.append(return_potential)
+        if len(calls) == 1:
+            self.last_overflow = torch.tensor(True)
+            self.last_overflow_parts = {"leaf_list": torch.tensor(True)}
+            res = (res[0], torch.zeros_like(res[1]))
+        return res
+
+    monkeypatch.setattr(TreeGravity, "compute", overflow_once)
+    ll = tsim._tree_grav.walk_cfg.leaf_list_max
+    path = tsim.write_snapshot()
+    assert calls == [True, True]
+    assert tsim.tree_retries[-1] == ("leaf_list",)
+    assert tsim._tree_grav.walk_cfg.leaf_list_max == 2 * ll
+    pot = BigFile(path).open("1/Potential").read()
+    np.testing.assert_allclose(pot, clean, rtol=1e-6,
+                               atol=1e-6 * np.abs(clean).max())
+
+
 def test_bad_timestep_error_survives_a_failed_emergency_snapshot(
         ic_path, tmp_path, monkeypatch):
     """A zero PM timestep writes the emergency snapshot and raises "Bad
@@ -185,7 +220,7 @@ def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
 
 
 @pytest.mark.parametrize("name,field", [
-    ("HydroOn", "hydro_on"), ("CoolingOn", "cooling_on"),
+    ("ExcursionSetReionOn", "excursion_set_on"), ("CoolingOn", "cooling_on"),
     ("WindOn", "wind_on"), ("MetalReturnOn", "metal_return_on")])
 def test_gas_switches_raise_only_with_gas(name, field):
     cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
@@ -207,6 +242,8 @@ def test_port_imports_no_jax():
     code = ("import sys, mpgadget_tpu_torch.main, mpgadget_tpu_torch.run; "
             "import mpgadget_tpu_torch.gravity.treepm; "
             "import mpgadget_tpu_torch.physics.fof; "
+            "import mpgadget_tpu_torch.sph.density, "
+            "mpgadget_tpu_torch.sph.hydra, mpgadget_tpu_torch.sph.state; "
             "import mpgadget_tpu_torch.genic.main, "
             "mpgadget_tpu_torch.genic.glass; "
             "bad = [m for m in sys.modules if m == 'jax' "
