@@ -12,9 +12,10 @@ fails the run (non-zero exit, no result line) if it fails:
 2. build: compiles the five kernels, the pair kernel K1
    (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu), the
    neighbour walk K3 (csrc/neighbors.cu) and the SPH pair sums K4
-   (csrc/sph_density.cu) and K5 (csrc/sph_hydro.cu), and the three
-   measurement aids (the serial walks K2 and K3 began as, and an L2
-   pointer chase), one nvcc each, in parallel;
+   (csrc/sph_density.cu) and K5 (csrc/sph_hydro.cu), and the five
+   measurement aids (the serial walks K2 and K3 began as, the first
+   designs of K4 and K5, and an L2 pointer chase), one nvcc each, in
+   parallel;
 3. K1: the pair kernel against its plain PyTorch version on the card at
    the main path's shapes (nb=1024 blocks, G=256 targets, S=4096
    sources), with and without potential, on inputs from a seed, once
@@ -112,9 +113,13 @@ fails the run (non-zero exit, no result line) if it fails:
    of the run's own calls (K4: the first pass of the last density solve
    that targets every gas particle; K5: the last hydro call), and on a
    bigger IC, examples/dm-small/paramfile.genic with ProduceGas 1 (2 x
-   64^3): every output within 1e-5 by norm (maxsig within 1e-6, -inf at
+   64^3): every output within 1e-5 by norm (maxsig bit for bit, -inf at
    the same rows), two launches bit-identical, device times of both,
-   the pairs each evaluates and counts, and the bound.
+   the pairs each evaluates and counts, and the bound; beside them the
+   first designs of K4 and K5 (csrc/sph_density_simple.cu,
+   csrc/sph_hydro_simple.cu, loaded only here), held to the same
+   tolerances and timed on the same inputs, and both designs' critical
+   paths.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -124,7 +129,9 @@ of the tree once (revisits hit L2).  Beside the walk's bound stands its
 critical path, the longest chain of loads of which each needs the one
 before, times one L2 round trip: the kernel's (the longest block's sum
 of each round's longest sibling chain; for K3 the longest group's
-rounds) and a serial walk's (the longest block's or group's visits).
+rounds) and a serial walk's (the longest block's or group's visits);
+for K4 and K5 the longest group's chain of dependent loads in each
+design (sph_critical_paths).
 K3's bound is the node rows read once, the groups read and the leaf
 lists written, against NEIGHBOR_OPS per visit; beside it stands the
 walk's own bound, which counts only the listed leaves written and not
@@ -1667,7 +1674,8 @@ IC_RHO_TOL = {"star-small": 0.10, "dm-small": 0.03}
 # h/Mpc are held to the same rtol 0.18
 GAS_PK_KMAX = 3.0
 SPH_TOL = 1e-5        # K4, K5 against their plain versions, by norm
-MAXSIG_TOL = 1e-6     # K5's maxsig: a max of the same pair terms
+MAXSIG_TOL = 1e-6     # K5's maxsig: a max of the same pair terms (and
+                      # bit for bit besides)
 # FP32 operations per (target, source) pair, counted from the kernels (a
 # division or square root counted as one): a pair that counts (u < 1 for
 # K4; r < H_i or r < H_j for K5) and one that does not (its distance
@@ -2047,12 +2055,105 @@ def gas_run_phase(workdir, device="cuda", max_steps=GAS_STEPS, ngrid=None,
                 snapnum=int(os.path.basename(snap).split("_")[-1]))
 
 
-def sph_kernel_case(name, which, args, G, reps=20):
+def sph_stream_shape():
+    """K4's and K5's CTA shape as csrc/sph_stream.cuh fixes it: (warps on
+    a group, list entries a segment, sources a tile)."""
+    import re
+    from mpgadget_tpu_torch import kernels
+    text = (kernels.CSRC / "sph_stream.cuh").read_text()
+    warps = int(re.search(r"constexpr int WARPS = (\d+);", text).group(1))
+    tile = int(re.search(r"constexpr int TILE = (\d+);", text).group(1))
+    return warps, warps * 32, tile
+
+
+def sph_critical_paths(tree, nbr, which):
+    """The longest group's chain of dependent global loads in K4 (which
+    "density") or K5 ("hydro"): (the redesign's, the first design's).
+    Both begin with group_nodes -> the node's pstart/pcount -> the target
+    rows (3 loads).  The first design then takes list[l] -> the leaf's
+    pstart/pcount -> its rows, leaf after leaf, and one load more for
+    every further 32 particles of a leaf.  The redesign takes list ->
+    pstart/pcount once a segment, then the tiles of its busiest warp, one
+    in flight ahead of the one computed: a load a tile (K5: two, the
+    staged rows, then the first counted pair's body rows)."""
+    import torch
+    warps, seg, tile = sph_stream_shape()
+    ng, LL = nbr.leaf_idx.shape
+    nl = nbr.n_leaves.long()
+    listed = torch.arange(LL, device=nl.device)[None, :] < nl[:, None]
+    leaf = torch.clamp(nbr.leaf_idx.long(), 0, tree.capacity - 1)
+    pc = torch.where(listed, tree.pcount[leaf], 0)
+    simple = 3 + 2 * nl + ((pc + 31) // 32).sum(dim=1)
+    nseg = (LL + seg - 1) // seg
+    tot = torch.nn.functional.pad(pc, (0, nseg * seg - LL)).view(
+        ng, nseg, seg).sum(dim=2)
+    present = torch.arange(nseg, device=nl.device)[None, :] * seg \
+        < nl[:, None]
+    per_tile = 1 if which == "density" else 2
+    busiest = ((tot + tile - 1) // tile + warps - 1) // warps
+    new = 3 + torch.where(present, 2 + per_tile * busiest, 0).sum(dim=1)
+    return int(new.max()), int(simple.max())
+
+
+def simple_sums(which, args):
+    """One launch of the first design of K4 (which "density",
+    csrc/sph_density_simple.cu) or K5 ("hydro", csrc/sph_hydro_simple.cu)
+    on a wrapper's arguments: the wrapper's checks and output, its entry
+    point swapped for the yardstick's for this call; its launch count is
+    left as it was."""
+    import ctypes
+    from mpgadget_tpu_torch import kernels
+    from mpgadget_tpu_torch.sph import density, hydra
+
+    mod = density if which == "density" else hydra
+    kern = mod.density_kernel if which == "density" else mod.hydro_kernel
+    name = f"sph_{which}_simple"
+    fn = getattr(kernels.load(name), f"{name}_f32")
+    fn.restype = ctypes.c_int
+    fn.argtypes = mod._kernel().argtypes
+    real, launches = mod._fn, mod.LAUNCHES
+    mod._fn = fn
+    try:
+        return kern(*args)
+    finally:
+        mod._fn, mod.LAUNCHES = real, launches
+
+
+def sph_errors(name, which, got, ref):
+    """K4's or K5's outputs against the plain version's: the relative
+    error by norm of each column and the largest absolute error; fails
+    unless K5's maxsig is -inf at the same rows and equal bit for bit."""
+    import torch
+    from mpgadget_tpu_torch.sph import density, hydra
+
+    names = (density if which == "density" else hydra).OUTPUTS
+    rels = {}
+    abs_err = 0.0
+    for i, k in enumerate(names):
+        x, y = got[:, i], ref[:, i]
+        if k == "maxsig":
+            fx, fy = torch.isfinite(x), torch.isfinite(y)
+            check(bool(torch.equal(fx, fy)), f"{name}: maxsig -inf rows "
+                  "differ from the plain version's")
+            check(bool(torch.equal(x, y)), f"{name}: maxsig differs from "
+                  "the plain version's in some bit")
+            x, y = x[fx], y[fy]
+        rels[k] = rel_norm(x.double(), y.double())
+        abs_err = max(abs_err, float((x - y).abs().max()) if x.numel()
+                      else 0.0)
+    tol = {k: (MAXSIG_TOL if k == "maxsig" else SPH_TOL) for k in names}
+    return rels, abs_err, {k: v for k, v in rels.items() if not v <= tol[k]}
+
+
+def sph_kernel_case(name, which, args, G, l2_ns, reps=20):
     """K4 (which "density") or K5 ("hydro") on the inputs of one of its
     calls (tree, nbr, src, tgt, valid, ...) against its plain version on
     the card: outputs by norm within SPH_TOL (K5's maxsig within
-    MAXSIG_TOL and -inf at the same rows), two launches bit-identical;
-    device times of both, the pair counts and the bound."""
+    MAXSIG_TOL and bit for bit, -inf at the same rows), two launches
+    bit-identical; the first design (simple_sums) held to the same; device
+    times of the three (the two designs by CUDA graph replays, in turns:
+    first, new, new, first), the pair counts, the bound and both designs'
+    critical paths."""
     import torch
     from mpgadget_tpu_torch.ops import pairs
     from mpgadget_tpu_torch.sph import density, hydra
@@ -2065,26 +2166,15 @@ def sph_kernel_case(name, which, args, G, reps=20):
     rest = args[5:]
     a = kern(*args)
     b = kern(*args)
+    first = simple_sums(which, args)
     torch.cuda.synchronize()
     ref = plain(*args)
     torch.cuda.synchronize()
     same_bits = bool(torch.equal(a, b))
     check(same_bits, f"{name}: two launches of {which} kernel differ")
-    names = mod.OUTPUTS
-    rels = {}
-    abs_err = 0.0
-    for i, k in enumerate(names):
-        x, y = a[:, i], ref[:, i]
-        if k == "maxsig":
-            fx, fy = torch.isfinite(x), torch.isfinite(y)
-            check(bool(torch.equal(fx, fy)), f"{name}: maxsig -inf rows "
-                  "differ from the plain version's")
-            x, y = x[fx], y[fy]
-        rels[k] = rel_norm(x.double(), y.double())
-        abs_err = max(abs_err, float((x - y).abs().max()) if x.numel()
-                      else 0.0)
-    tol = {k: (MAXSIG_TOL if k == "maxsig" else SPH_TOL) for k in names}
-    bad = {k: v for k, v in rels.items() if not v <= tol[k]}
+    rels, abs_err, bad = sph_errors(name, which, a, ref)
+    first_rels, _, first_bad = sph_errors(f"{name} (first design)", which,
+                                          first, ref)
     # the pair counts this run's data needs
     n = src.shape[0]
     gn = torch.clamp(nbr.group_nodes, max=tree.capacity - 1)
@@ -2123,25 +2213,45 @@ def sph_kernel_case(name, which, args, G, reps=20):
     nbytes = (n * (pb[0] + pb[1]) + n_listed * 4 + nbr.n_leaves.shape[0] * 12
               + tree.capacity * 16)
     bound_ms, bound_by = bound(ops, nbytes)
-    ms = time_ms(lambda: kern(*args), reps)
+    path, simple_path = sph_critical_paths(tree, nbr, which)
+    # graph replays, so that the host's time to enqueue the wrapper's
+    # call does not count
+    turns = [graph_ms(lambda: simple_sums(which, args), reps),
+             graph_ms(lambda: kern(*args), reps),
+             graph_ms(lambda: kern(*args), reps),
+             graph_ms(lambda: simple_sums(which, args), reps)]
+    ms = 0.5 * (turns[1] + turns[2])
+    simple_ms = 0.5 * (turns[0] + turns[3])
     plain_ms = time_ms(lambda: plain(*args), 2)
+    path_ms = path * l2_ns * 1e-6
+    simple_path_ms = simple_path * l2_ns * 1e-6
     print(f"kernel {which} ({name}): {nbr.n_leaves.shape[0]} groups, "
           f"{n_listed} listed leaves, {total} pairs evaluated, {within} "
           f"count; rel err by norm " + ", ".join(
               f"{k} {v:.3e}" for k, v in rels.items())
-          + f" (tol {SPH_TOL:g}, maxsig {MAXSIG_TOL:g}); max_abs_err "
-          f"{abs_err:.6e}; two launches bit-identical {same_bits}; "
-          f"kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms="
-          f"{bound_ms:.6f} ({bound_by})", flush=True)
+          + f" (tol {SPH_TOL:g}, maxsig {MAXSIG_TOL:g} and bit for bit); "
+          f"max_abs_err {abs_err:.6e}; two launches bit-identical "
+          f"{same_bits}; the first design's rel err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in first_rels.items())
+          + f"; kernel_ms={ms:.6f} simple_ms={simple_ms:.6f} (turns "
+          + " ".join(f"{t:.6f}" for t in turns) + f") plain_ms="
+          f"{plain_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by}); critical "
+          f"path {path_ms:.6f} ms (longest group {path} dependent loads x "
+          f"{l2_ns:.3f} ns), the first design's {simple_path_ms:.6f} ms "
+          f"({simple_path} loads)", flush=True)
     check(not bad, f"{name}: {which} kernel disagrees with its plain "
           f"version: {bad}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=abs_err, rel=rels,
-                pairs=total, within=within, groups=nbr.n_leaves.shape[0],
-                listed=n_listed)
+    check(not first_bad, f"{name}: the first design of the {which} kernel "
+          f"disagrees with its plain version: {first_bad}")
+    return dict(ms=ms, simple_ms=simple_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=abs_err,
+                rel=rels, pairs=total, within=within,
+                groups=nbr.n_leaves.shape[0], listed=n_listed,
+                path_ms=path_ms, simple_path_ms=simple_path_ms,
+                path_loads=path, simple_path_loads=simple_path)
 
 
-def big_gas_case(workdir):
+def big_gas_case(workdir, l2_ns):
     """A bigger IC for K4 and K5: dm-small's paramfile.genic with
     ProduceGas 1 (2 x 64^3), one density solve from the initial hsml
     guess (setup_gas's) and one hydro call with unit entropy; the last
@@ -2194,10 +2304,10 @@ def big_gas_case(workdir):
     check(abs(rho_err) < IC_RHO_TOL["dm-small"], f"dm-small gas IC mean SPH "
           f"density off by {rho_err:+.4f}")
     a, kw = spy.last["density_sums"]
-    k4 = sph_kernel_case("dm-small 2 x 64^3 gas", "density", a, a[6])
+    k4 = sph_kernel_case("dm-small 2 x 64^3 gas", "density", a, a[6], l2_ns)
     a, kw = spy.last["hydro_sums"]
     k5 = sph_kernel_case("dm-small 2 x 64^3 gas", "hydro", a,
-                         a[5].group_max)
+                         a[5].group_max, l2_ns)
     return dict(k4=k4, k5=k5, density_s=dens_s, hydro_s=hydro_s,
                 passes=spy.solves[0][0], n=n)
 
@@ -2207,8 +2317,8 @@ def sph_entry(name, which, gas, case, big):
     final state, the bigger IC beside them."""
     src = {"density": ("sph_density.cu", "mpgadget_tpu/sph/density.py:52"),
            "hydro": ("sph_hydro.cu", "mpgadget_tpu/sph/hydra.py:45")}[which]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "pairs", "within",
-            "groups", "listed")
+    keys = ("ms", "simple_ms", "plain_ms", "bound_ms", "bound_by", "pairs",
+            "within", "groups", "listed", "path_ms", "simple_path_ms")
     return {
         "name": name, "route": "cuda",
         "source": f"mpgadget_tpu_torch/csrc/{src[0]}",
@@ -2222,6 +2332,10 @@ def sph_entry(name, which, gas, case, big):
                            + list(big["rel"].values())),
         "pairs": case["pairs"], "pairs_counted": case["within"],
         "dm_small_2x64": {k: big[k] for k in keys},
+        "simple_source": f"mpgadget_tpu_torch/csrc/{src[0][:-3]}_simple.cu",
+        "simple_ms": case["simple_ms"],
+        "critical_path_ms": case["path_ms"],
+        "simple_critical_path_ms": case["simple_path_ms"],
         "ms": case["ms"], "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
         "library_ms": None}
@@ -2379,14 +2493,15 @@ def run():
         gas = gas_run_phase(work)
         spy = gas["spy"]
         a = spy.last["density_sums"][0]
-        gk4 = sph_kernel_case("star-small final state", "density", a, a[6])
+        gk4 = sph_kernel_case("star-small final state", "density", a, a[6],
+                              l2_ns)
         a = spy.last["hydro_sums"][0]
         gk5 = sph_kernel_case("star-small final state", "hydro", a,
-                              a[5].group_max)
+                              a[5].group_max, l2_ns)
         grres = restart_phase(work, gas["snapnum"], "not run",
                               paramfile=gas["paramfile"])
     with tempfile.TemporaryDirectory() as work:
-        big = big_gas_case(work)
+        big = big_gas_case(work, l2_ns)
     gst = gas["step_seconds"]
     gwt = gas["walltime"]
     print(f"star-small (2 x {gas['ngas']} particles, cuts "

@@ -33,15 +33,19 @@ SOURCES = {
     "treewalk": ("treewalk.cu", ("-fmad=false",)),
     # the neighbour walk (K3): the same rule for its near/far decisions
     "neighbors": ("neighbors.cu", ("-fmad=false",)),
-    # the SPH pair sums (K4 density, K5 hydro): the same rule for their
-    # r < H and u < 1 decisions
-    "sph_density": ("sph_density.cu", ("-fmad=false",)),
-    "sph_hydro": ("sph_hydro.cu", ("-fmad=false",)),
+    # the SPH pair sums (K4 density, K5 hydro): their u < 1 and r < H
+    # decisions (and K5's v_sig) are spelled with never-contracted,
+    # correctly rounded intrinsics, so the sums' products may fuse and
+    # their divisions be approximate (2 ulp)
+    "sph_density": ("sph_density.cu", ("-prec-div=false",)),
+    "sph_hydro": ("sph_hydro.cu", ("-prec-div=false",)),
     # measurement aids that only chip_smoke.py loads: the serial walks the
-    # port began with (K2's and K3's), as yardsticks, and an L2 pointer
-    # chase
+    # port began with (K2's and K3's) and the first designs of K4 and K5,
+    # as yardsticks, and an L2 pointer chase
     "treewalk_serial": ("treewalk_serial.cu", ("-fmad=false",)),
     "neighbors_serial": ("neighbors_serial.cu", ("-fmad=false",)),
+    "sph_density_simple": ("sph_density_simple.cu", ("-fmad=false",)),
+    "sph_hydro_simple": ("sph_hydro_simple.cu", ("-fmad=false",)),
     "l2chase": ("l2chase.cu", ()),
 }
 

@@ -7,6 +7,8 @@ machine with a card and no JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -452,27 +454,48 @@ def test_fof_label_cuda_matches_cpu(cuda):
 
 
 def _sph_pair_inputs(device, which, ktype=sphK.QUINTIC, formulation=(True, 100.0),
-                     ng=16, seed=7):
-    """K4 or K5 inputs on `device`: a perturbed ng^3 gas lattice with a
-    dense clump and 200 non-gas particles among it, smoothing lengths
-    spread by a factor 2.5, neighbour lists of the plain walk; a fifth of
-    the groups get radius 0 (density) and list nothing.  Returns the
-    pair-sum arguments (tree, nbr, src, tgt, valid, ...)."""
+                     ng=16, seed=7, G=32, layout="lattice", holes=0.0,
+                     exact_ll=False):
+    """K4 or K5 inputs on `device`.  layout "lattice": a perturbed ng^3
+    gas lattice with a dense clump and 200 non-gas particles among it,
+    smoothing lengths spread by a factor 2.5 around 2 / ng; "leaves16":
+    16 gas particles in each of the (ng/2)^3 cells of side 2 / ng, so
+    that every leaf holds 16, smoothing lengths of 1-2.5 cells.  Neighbour lists of the plain walk;
+    a fifth of the groups list nothing (density: radius 0; hydro: their
+    lists dropped).  G: the targets per group the sums take (1..32, the
+    groups hold up to 32); holes: the share of the gas made invalid in
+    the valid table only, so that invalid sources lie inside leaves and
+    tiles; exact_ll: lists cut to the longest, which then fills LL.
+    Returns the pair-sum arguments (tree, nbr, src, tgt, valid, ...)."""
     rng = np.random.RandomState(seed)
-    g = np.indices((ng, ng, ng)).reshape(3, -1).T / ng
-    pos = np.mod(g + rng.uniform(-0.3, 0.3, g.shape) / ng, 1.0)
-    pos[:ng ** 3 // 8] = np.mod(0.5 + 0.03 * rng.randn(ng ** 3 // 8, 3), 1)
-    pos = np.concatenate([pos, rng.rand(200, 3)])
+    if layout == "lattice":
+        g = np.indices((ng, ng, ng)).reshape(3, -1).T / ng
+        pos = np.mod(g + rng.uniform(-0.3, 0.3, g.shape) / ng, 1.0)
+        pos[:ng ** 3 // 8] = np.mod(0.5 + 0.03 * rng.randn(ng ** 3 // 8, 3),
+                                    1)
+        ngas = ng ** 3
+        pos = np.concatenate([pos, rng.rand(200, 3)])
+        hscale = 2.0 / ng
+    else:
+        # 16 particles uniform in each cell of side 1 / ns
+        ns = ng // 2
+        cells = np.repeat(np.indices((ns, ns, ns)).reshape(3, -1).T, 16, 0)
+        pos = (cells + rng.rand(*cells.shape)) / ns
+        ngas = len(pos)
+        hscale = 1.0 / ns
     n = len(pos)
     box = 1000.0
-    gas = torch.as_tensor(np.arange(n) < ng ** 3)
+    gas = torch.as_tensor(np.arange(n) < ngas)
     ipos = torch.as_tensor(np.minimum((pos * 2.0 ** 32).astype(np.int64),
                                       2 ** 32 - 1))
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
-    mass = f(np.where(np.arange(n) < ng ** 3, 1.5, 7.0))
+    mass = f(np.where(np.arange(n) < ngas, 1.5, 7.0))
     perm, inv, pos_box, valid_s, tree, (nodes, gc, gh) = density.sorted_tree(
         ipos, mass, gas, 32)
-    hsml = f(rng.uniform(1.0, 2.5, n) * 2.0 / ng)[perm]       # box units
+    if layout == "leaves16":
+        leaves = tree.is_leaf[:int(tree.n_nodes)]
+        assert bool((tree.pcount[:int(tree.n_nodes)][leaves] == 16).all())
+    hsml = f(rng.uniform(1.0, 2.5, n) * hscale)[perm]          # box units
     vel = f(rng.randn(n, 3))[perm]
     tidx, tm = density.group_targets(tree, nodes, n, 32)
     gradius = torch.where(tm, hsml[tidx], 0.0).max(dim=1).values
@@ -483,7 +506,7 @@ def _sph_pair_inputs(device, which, ktype=sphK.QUINTIC, formulation=(True, 100.0
         src, tgt, valid = density.pack_density_inputs(
             pos_box, valid_s, mass[perm], vel, f(rng.uniform(0.5, 1.5, n)),
             hsml, vel + 0.1)
-        rest = (ktype, 32)
+        rest = (ktype, G)
     else:
         leaf_ids, nl, _ = pairs.compact_leaves(tree, tree.capacity)
         hmax = pairs.node_hmax(tree, leaf_ids, nl,
@@ -499,20 +522,28 @@ def _sph_pair_inputs(device, which, ktype=sphK.QUINTIC, formulation=(True, 100.0
         src, tgt, valid = hydra.pack_hydro_inputs(pos_box, valid_s, vel, cols)
         par = hydra.HydroParams(kernel_type=ktype,
                                 density_independent=formulation[0],
-                                density_contrast_limit=formulation[1])
+                                density_contrast_limit=formulation[1],
+                                group_max=G)
         rest = (par, hydra.hydro_scalars(par, box, 0.2, 3.0, 0.01))
+        drop = torch.as_tensor(rng.rand(len(gradius)) < 0.2)
+        nbr = replace(nbr, n_leaves=nbr.n_leaves.masked_fill(drop, 0))
     assert not bool(nbr.overflow.any())
+    if holes:
+        valid = valid & torch.as_tensor(rng.rand(n) >= holes).to(valid.dtype)
+    leaf_idx = nbr.leaf_idx
+    if exact_ll:
+        leaf_idx = leaf_idx[:, :int(nbr.n_leaves.max())]
     to = lambda t: t.to(device).contiguous()  # noqa: E731
     tree = ttree_to(tree, device)
     nbr = pairs.NeighborLists(
-        leaf_idx=to(nbr.leaf_idx), n_leaves=to(nbr.n_leaves),
+        leaf_idx=to(leaf_idx), n_leaves=to(nbr.n_leaves),
         overflow=to(nbr.overflow), group_nodes=to(nbr.group_nodes),
         visits=to(nbr.visits))
     return (tree, nbr, to(src), to(tgt), to(valid)) + rest
 
 
 def ttree_to(tree, device):
-    from dataclasses import fields, replace
+    from dataclasses import fields
     return replace(tree, **{f.name: getattr(tree, f.name).to(device)
                             for f in fields(tree)})
 
@@ -531,48 +562,104 @@ def _sph_case(which, args):
     assert mod.LAUNCHES == before + 2
     assert torch.equal(a, b)                  # no atomics: the same bits
     ref = plain(*args)
+    _sph_close(names, a, ref)
+    return a
+
+
+def _sph_close(names, a, ref):
+    """Every output within 1e-5 by norm; maxsig -inf at the same rows and
+    equal bit for bit (and within 1e-6 by norm)."""
     for i, k in enumerate(names):
         x, y = a[:, i].double(), ref[:, i].double()
         if k == "maxsig":
             fin = torch.isfinite(y)
             assert torch.equal(torch.isfinite(x), fin)
+            assert torch.equal(a[:, i], ref[:, i])
             x, y = x[fin], y[fin]
             tol = 1e-6
         else:
             tol = 1e-5
         err = float((x - y).norm() / y.norm().clamp(min=1e-300))
         assert err <= tol, (k, err)
-    return a
 
 
+def _listed_targets(args, G):
+    """Target rows of the groups that list something: min(G, pcount)."""
+    tree, nbr = args[0], args[1]
+    tpc = torch.clamp(tree.pcount[nbr.group_nodes], max=G)
+    return int(tpc[nbr.n_leaves > 0].sum())
+
+
+# targets per group: powers of two and not; full 16-particle leaves; every
+# case with invalid sources inside tiles and the longest list at exactly LL
+SPH_SHAPES = [(32, "lattice"), (1, "lattice"), (2, "lattice"),
+              (3, "lattice"), (5, "lattice"), (8, "lattice"),
+              (17, "lattice"), (32, "leaves16"), (5, "leaves16")]
+
+
+@pytest.mark.parametrize("G,layout", SPH_SHAPES)
 @pytest.mark.parametrize("ktype", [sphK.CUBIC, sphK.QUINTIC, sphK.QUARTIC])
-def test_density_kernel_matches_plain(cuda, ktype):
+def test_density_kernel_matches_plain(cuda, ktype, G, layout):
     """K4 against its plain version on the same lists: every output within
     1e-5 by norm, two launches bit-identical, and the rows of groups with
-    no list zero."""
-    args = _sph_pair_inputs(cuda, "density", ktype)
+    no list zero; the lattice's lists span several segments of the
+    stream, and their source counts are not multiples of a tile."""
+    args = _sph_pair_inputs(cuda, "density", ktype, G=G, layout=layout,
+                            holes=0.1, exact_ll=True)
+    import chip_smoke
+    tree, nbr = args[0], args[1]
+    _, seg, tile = chip_smoke.sph_stream_shape()
+    if layout == "lattice":
+        assert int(nbr.n_leaves.max()) > seg
+    assert int(nbr.n_leaves.max()) == nbr.leaf_idx.shape[1]
+    listed = torch.arange(nbr.leaf_idx.shape[1], device=cuda)[None, :] \
+        < nbr.n_leaves[:, None]
+    leaf = torch.clamp(nbr.leaf_idx.long(), max=tree.capacity - 1)
+    sources = torch.where(listed, tree.pcount[leaf], 0)
+    assert bool((sources.sum(dim=1) % tile != 0).any())
     out = _sph_case("density", args)
-    nbr, tree = args[1], args[0]
     empty = nbr.group_nodes[nbr.n_leaves == 0]
     assert empty.numel() > 0
     rows = torch.cat([torch.arange(int(tree.pstart[g]),
                                    int(tree.pstart[g] + tree.pcount[g]),
                                    device=cuda) for g in empty.tolist()])
     assert bool((out[rows] == 0).all())
-    assert bool((out[:, 0] > 0).sum() > 1000)
+    assert int((out[:, 0] > 0).sum()) > 0.9 * _listed_targets(args, G)
 
 
+@pytest.mark.parametrize("G,layout", SPH_SHAPES)
 @pytest.mark.parametrize("ktype,formulation", [
     (sphK.QUINTIC, (True, 100.0)), (sphK.QUINTIC, (True, 0.0)),
     (sphK.QUINTIC, (True, -1.0)), (sphK.QUINTIC, (False, 100.0)),
     (sphK.CUBIC, (True, 100.0)), (sphK.QUARTIC, (False, 100.0))])
-def test_hydro_kernel_matches_plain(cuda, ktype, formulation):
+def test_hydro_kernel_matches_plain(cuda, ktype, formulation, G, layout):
     """K5 against its plain version on the same symmetric lists, in every
-    formulation branch: acc and dtent within 1e-5 by norm, maxsig within
-    1e-6 and -inf at the same rows, two launches bit-identical."""
-    args = _sph_pair_inputs(cuda, "hydro", ktype, formulation)
+    formulation branch: acc and dtent within 1e-5 by norm, maxsig bit for
+    bit and -inf at the same rows, two launches bit-identical."""
+    args = _sph_pair_inputs(cuda, "hydro", ktype, formulation, G=G,
+                            layout=layout, holes=0.1, exact_ll=True)
     out = _sph_case("hydro", args)
-    assert bool(torch.isfinite(out[:, 4]).sum() > 1000)
+    assert int(torch.isfinite(out[:, 4]).sum()) \
+        > 0.9 * _listed_targets(args, G)
+    assert bool((args[1].n_leaves == 0).any())
+
+
+@pytest.mark.parametrize("which", ["density", "hydro"])
+def test_sph_kernels_match_first_designs(cuda, which):
+    """K4 and K5 against their first designs (csrc/sph_density_simple.cu,
+    csrc/sph_hydro_simple.cu, the yardsticks chip_smoke.py times beside
+    them) on the same inputs: every output within 1e-5 by norm, maxsig
+    bit for bit; the yardsticks do not count as launches."""
+    import chip_smoke
+    mod = density if which == "density" else hydra
+    args = _sph_pair_inputs(cuda, which, G=17, holes=0.1)
+    new = (mod.density_kernel if which == "density"
+           else mod.hydro_kernel)(*args)
+    before = mod.LAUNCHES
+    first = chip_smoke.simple_sums(which, args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before
+    _sph_close(mod.OUTPUTS, new, first)
 
 
 def test_sph_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
