@@ -9,10 +9,11 @@ fails the run (non-zero exit, no result line) if it fails:
 
 1. the card: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles the five kernels, the pair kernel K1
+2. build: compiles the six kernels, the pair kernel K1
    (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu), the
-   neighbour walk K3 (csrc/neighbors.cu) and the SPH pair sums K4
-   (csrc/sph_density.cu) and K5 (csrc/sph_hydro.cu), and the five
+   neighbour walk K3 (csrc/neighbors.cu), the SPH pair sums K4
+   (csrc/sph_density.cu) and K5 (csrc/sph_hydro.cu) and the cooling
+   network K6 (csrc/cooling.cu), and the five
    measurement aids (the serial walks K2 and K3 began as, the first
    designs of K4 and K5, and an L2 pointer chase), one nvcc each, in
    parallel;
@@ -119,11 +120,33 @@ fails the run (non-zero exit, no result line) if it fails:
    first designs of K4 and K5 (csrc/sph_density_simple.cu,
    csrc/sph_hydro_simple.cu, loaded only here), held to the same
    tolerances and timed on the same inputs, and both designs' critical
-   paths.
+   paths;
+16. lya: examples/lya/paramfile.genic through the genic CLI with the
+   Eisenstein-Hu cut of phase 9 (Ngrid 32: 32^3 gas + 32^3 DM, BoxSize
+   20000 kpc/h, z=99), then its paramfile.gadget as it ships
+   (hierarchical, cooling, star formation with QuickLymanAlphaProbability
+   1, DensityIndependentSphOn 0, cubic, Nmesh 64) but for TreeCoolFile
+   "" (LYA_SWITCHES: the absent TREECOOL_ep_2018p, the reference's
+   no-UV-background case) -> Simulation.run() to TimeMax 0.33333 ->
+   write_snapshot, the six kernels' launch counts reset just before and
+   read just after: stars formed, no particle lost, the gas state finite
+   and above the entropy floor, each snapshot's star count, stellar mass
+   and type-4 blocks read back, sfr.txt's lines of 8 columns, and
+   RestartFlag 3 through the CLI on the last snapshot, whose PIG carries
+   its grouped stars' blocks;
+17. K6 against its plain version on the card, on the inputs of the lya
+   run's last cooling call: every gas particle and the call's own closing
+   subset in float32, every gas particle in float64, the net rate (the
+   cooling time's call) on every gas particle, and init_sfr's float64
+   threshold (one particle): u_new, ne/nh and the rate within COOL_TOL,
+   unlisted rows untouched, two launches bit-identical; the kernel's
+   time (CUDA events), the plain version's (one call), the bound, and
+   the operations and transcendentals a row.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
-counted as 2), for the work these inputs need: padding is not work, a
+counted as 2; K6's float64 cases over the FP64 peak, 34 TFLOP/s, of
+NVIDIA's data sheet), for the work these inputs need: padding is not work, a
 pair beyond rcut needs only its distance, and the walk reads each node
 of the tree once (revisits hit L2).  Beside the walk's bound stands its
 critical path, the longest chain of loads of which each needs the one
@@ -138,7 +161,9 @@ walk's own bound, which counts only the listed leaves written and not
 the fill of the lists' unused slots.  K4's and K5's are the particle
 tables read once and each target's row written once, against
 DENSITY_PAIR_OPS / HYDRO_PAIR_OPS for each pair that counts and the
-distance's operations for each other pair the lists hold.
+distance's operations for each other pair the lists hold.  K6's are
+its operations a row (cooling_work: a transcendental, division or square
+root counted as one) times the rows, against the bytes of its arrays.
 
 The last two lines of standard output are the kernel table and the
 result, each one JSON object.
@@ -162,6 +187,7 @@ KERNEL_TOL = 1e-4     # max |kernel - plain| / max |plain|
 WALK_TOL = 1e-5       # |kernel - plain| / |plain| by norm (acc, pot)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM FP32 peak outside the tensor cores
+FP64_OPS_PER_S = 34e12      # H100 SXM FP64 peak outside the tensor cores
 # FP32 operations per source-target pair (an FMA counted as 2), counted
 # from csrc/shortrange.cuh and the K1 loop: wrap 9, r2 5, rsqrt and r 3,
 # u and -u^2 2, exp 2, erfcx fit 26, windows 3, softening 5, cut 2, sums 6
@@ -221,9 +247,10 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by) for the given FP32 operations and bytes."""
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+def bound(ops, nbytes, ops_per_s=FP32_OPS_PER_S):
+    """(bound_ms, bound_by) for the given operations (FP32 unless the
+    peak ops_per_s says otherwise) and bytes."""
+    t_ops = ops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -2312,9 +2339,416 @@ def big_gas_case(workdir, l2_ns):
                 passes=spy.solves[0][0], n=n)
 
 
-def sph_entry(name, which, gas, case, big):
+# -- lya: cooling, star formation and quick Lyman-alpha (K6) -------------
+
+LYA_SWITCHES = {"TreeCoolFile": ""}   # the absent TREECOOL_ep_2018p: no UVB
+LYA_STEPS = None      # PM steps of the lya run (None: to TimeMax)
+# K6 against its plain version on the card (the CPU parity tolerances of
+# tests/test_torch_cooling.py): do_cooling's u_new relative, its ne/nh
+# relative and absolute; the net rate relative and of the largest |rate|;
+# float64 relative
+COOL_TOL = {"u": 2e-5, "ne_rel": 2e-3, "ne_abs": 2e-6, "rate": 4e-6,
+            "rate_scale": 1e-7, "f64": 1e-9}
+# K6's operations per particle (a transcendental, division or square root
+# counted as one), counted from csrc/cooling.cu for the rate options lya
+# runs (Verner96 recombination, Sherwood cooling, self-shielding on):
+# one network evaluation (ne_internal: temperature 9, self-shielding 15,
+# the ion network 139, the sum 5); a Steffensen iteration beside its two
+# evaluations (two scalings around each, the step 11); the net rate after
+# the fixed point (329); a bisection step beside the rate (8).  alphaHep
+# (one call an evaluation, two in the tail) is counted with one of its two
+# Verner96 fits: the kernel evaluates both and the interpolation between
+# them, 17 operations (4 of them sqrt and pow) more a call, which only gas
+# between 6e5 and 8e5 K needs
+COOL_NE_OPS = 151
+COOL_STEFF_OPS = 15
+COOL_TAIL_OPS = 329
+COOL_BISECT_OPS = 8
+# of which exp, log, pow and sqrt: 27 an evaluation, 62 in the tail
+COOL_NE_TRANSC = 27
+COOL_TAIL_TRANSC = 62
+
+
+def cooling_work(bisect):
+    """(operations, transcendentals) per particle of one K6 call:
+    do_cooling's bisection when bisect, else one net rate."""
+    from mpgadget_tpu_torch.physics.cooling import BISECT_ITERS, NE_ITERS
+    ops = NE_ITERS * (2 * COOL_NE_OPS + COOL_STEFF_OPS) + 4 + COOL_TAIL_OPS
+    trans = NE_ITERS * 2 * COOL_NE_TRANSC + COOL_TAIL_TRANSC
+    if bisect:
+        return (BISECT_ITERS * (ops + COOL_BISECT_OPS) + 10,
+                BISECT_ITERS * trans)
+    return ops, trans
+
+
+class CoolingSpy:
+    """Wraps physics.cooling.do_cooling (run.py imports it at each call):
+    counts the calls and keeps the arguments of the last call and of the
+    call that listed the fewest rows (a substep's closing gas off the
+    effective EOS)."""
+
+    def __init__(self):
+        from mpgadget_tpu_torch.physics import cooling
+        self.mod = cooling
+        self.calls = 0
+        self.last = None
+        self.fewest = None
+
+    def __enter__(self):
+        real = self.real = self.mod.do_cooling
+
+        def do_cooling(*a, rows=None, **kw):
+            out = real(*a, rows=rows, **kw)
+            self.calls += 1
+            if rows is not None:
+                self.last = (a, kw, rows, int(rows.sum()))
+                if self.fewest is None or self.last[3] < self.fewest[3]:
+                    self.fewest = self.last
+            return out
+
+        self.mod.do_cooling = do_cooling
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.do_cooling = self.real
+        return False
+
+
+def lya_phase(workdir, device="cuda", max_steps=LYA_STEPS, ngrid=None,
+              nmesh=None):
+    """examples/lya from its own two paramfiles: genic (GENIC_OVERRIDE)
+    through the CLI, then paramfile.gadget with LYA_SWITCHES written into a
+    copy -> build_simulation -> Simulation.run() (hierarchical, a snapshot
+    at each output, cooling and quick-Lyman-alpha star formation per
+    closing bin, sfr.txt) -> write_snapshot, the six kernels' launch
+    counts reset just before and read just after.  Checks: stars formed;
+    each snapshot reads back with its type-4 blocks; no particle lost; the
+    gas state finite; the entropy floor.  Returns the measurements and the
+    simulation."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.physics import cooling
+    from mpgadget_tpu_torch.sph import density, hydra
+    from mpgadget_tpu_torch.utils.constants import GAMMA_MINUS1
+
+    over = dict(GENIC_OVERRIDE)
+    if ngrid is not None:           # a smaller rehearsal on the CPU
+        over["Ngrid"] = ngrid
+    _, ngas, genic_s = gas_genic(workdir, "lya", over, device)
+    gover = dict(LYA_SWITCHES)
+    if nmesh is not None:
+        gover["Nmesh"] = nmesh
+    paramfile = paramfile_copy(
+        os.path.join(HERE, "examples", "lya", "paramfile.gadget"),
+        os.path.join(workdir, "paramfile.gadget"), gover)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        sim, _ = build_simulation(paramfile, device=device)
+        c = sim.cfg
+        check(c.hydro_on and c.cooling_on and c.starformation_on
+              and c.quick_lya_probability == 1 and not c.treecool_file
+              and not c.density_independent_sph,
+              "lya's paramfile.gadget no longer sets HydroOn, CoolingOn, "
+              "StarformationOn, QuickLymanAlphaProbability 1 and "
+              "DensityIndependentSphOn 0")
+        out = os.path.abspath(c.output_dir)
+        step_seconds = []
+        name = "step_hierarchical" if c.split_gravity_timesteps else "step"
+        run_step = getattr(sim, name)
+
+        def timed_step(dti):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_step(dti)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - t0)
+            return res
+
+        setattr(sim, name, timed_step)
+        mods = {"pair": pk, "walk": tw, "neighbors": pairs,
+                "density": density, "hydro": hydra, "cooling": cooling}
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with CoolingSpy() as spy:
+            nsteps = sim.run(max_steps=max_steps, verbose=False)
+            snap = os.path.abspath(sim.write_snapshot())
+            if device == "cuda":
+                torch.cuda.synchronize()
+        run_seconds = time.perf_counter() - t0
+        launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    finally:
+        os.chdir(cwd)
+
+    check(nsteps == max_steps or sim.ti_current == sim.timeline.ti_end,
+          f"lya ran {nsteps} PM steps to a={sim.atime}")
+    if device == "cuda":
+        check(min(launches.values()) > 0 and launches["cooling"]
+              >= spy.calls, f"a kernel of the lya path was not launched: "
+              f"{launches} ({spy.calls} cooling calls)")
+    pd = sim.pdata
+    gas = sim.gas_mask
+    stars = pd.valid & (pd.ptype == 4)
+    check(int(pd.valid.sum()) == 2 * ngas, "particles lost or spawned "
+          "(quick Lyman-alpha converts whole)")
+    sph = sim.sph
+    check(bool(torch.isfinite(pd.vel[pd.valid]).all()
+               & torch.isfinite(sph.entropy[gas]).all()
+               & torch.isfinite(sph.ne[gas]).all()
+               & (sph.entropy[gas] > 0).all() & (sph.ne[gas] >= 0).all()),
+          "lya gas state not finite, entropy not positive or ne negative")
+    a3 = sim.atime ** 3
+    minent = GAMMA_MINUS1 * sim._min_egy_spec / torch.clamp(
+        sph.density / a3, min=1e-30) ** GAMMA_MINUS1
+    floor_ratio = float((sph.entropy[gas] / minent[gas]).min())
+    check(floor_ratio >= 1.0 - 1e-6, f"lya entropy below the MinGasTemp "
+          f"floor ({floor_ratio:.6f})")
+    # each snapshot with its stars read back
+    snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+    per_snap = {}
+    for sname in snaps:
+        bf = BigFile(os.path.join(out, sname))
+        hdr = snap_io.read_header(bf)
+        n4 = int(hdr.TotNumPart[4])
+        check(int(hdr.TotNumPart[0]) + n4 == ngas, f"{sname}: gas + stars "
+              f"{int(hdr.TotNumPart[0])} + {n4} against {ngas}")
+        mstar = 0.0
+        if n4:
+            m = bf.open("4/Mass").read()
+            for block in ("StarFormationTime", "BirthDensity", "Metallicity",
+                          "Metals", "Position", "ID"):
+                v = bf.open(f"4/{block}").read()
+                check(len(v) == n4 and np.isfinite(
+                    np.asarray(v, np.float64)).all(),
+                    f"{sname}: 4/{block} does not read back")
+            ft = bf.open("4/StarFormationTime").read()
+            check(bool((ft > 0).all() & (ft <= hdr.Time * (1 + 1e-6)).all()),
+                  f"{sname}: star formation times outside (0, a]")
+            mstar = float(np.asarray(m, np.float64).sum()) * 1e10 \
+                / hdr.HubbleParam
+        per_snap[sname] = (round(float(hdr.Time), 6), n4, mstar)
+        print(f"lya {sname} at a={hdr.Time:.6f}: {n4} stars, stellar mass "
+              f"{mstar:.6e} Msun; its gas and star blocks read back",
+              flush=True)
+    check(int(stars.sum()) > 0 and per_snap[snaps[-1]][1] > 0,
+          "lya formed no stars")
+    with open(os.path.join(out, "sfr.txt")) as fh:
+        sfr_lines = fh.read().splitlines()
+    check(len(sfr_lines) > 0 and all(len(ln.split()) == 8
+                                     for ln in sfr_lines),
+          "lya sfr.txt missing or not 8 columns")
+    wt = dict(sim.walltime.totals)
+    return dict(nsteps=nsteps, atime=sim.atime, launches=launches,
+                step_seconds=step_seconds, run_seconds=run_seconds,
+                genic_seconds=genic_s, walltime=wt, sim=sim, spy=spy,
+                snapshots=per_snap, sfr_last=sfr_lines[-1],
+                sfr_lines=len(sfr_lines), floor_ratio=floor_ratio,
+                ngas=ngas, nstars=int(stars.sum()), paramfile=paramfile,
+                snapnum=int(os.path.basename(snap).split("_")[-1]))
+
+
+def lya_pig_stars(workdir, snapnum):
+    """The PIG that RestartFlag 3 wrote for lya's last snapshot: its
+    grouped stars (secondaries, FOFSecondaryLinkTypes 1 + 16 + 32) carry
+    their star blocks.  Returns the grouped star count."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    bf = BigFile(os.path.join(workdir, "output", f"PIG_{snapnum:03d}"))
+    n4 = int(np.asarray(bf.open("Header").attrs["NumPartInGroupTotal"])[4])
+    for block in ("StarFormationTime", "BirthDensity", "Metallicity"):
+        if n4:
+            check(len(bf.open(f"4/{block}").read()) == n4,
+                  f"PIG_{snapnum:03d}: 4/{block} does not read back")
+    return n4
+
+
+def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
+                 reps=5, plain=None):
+    """K6's do_cooling on the given inputs (u, rho, dt, ne) and rows,
+    against its plain version on the card: u_new and ne/nh within COOL_TOL
+    on the listed rows, unlisted rows untouched, two launches
+    bit-identical; the kernel's time (CUDA events), the plain version's
+    (one call) and the bound.  plain: the plain version's (u_new, ne) on
+    these rows from an earlier case on the same inputs (elementwise, so
+    the same values), not timed again."""
+    import torch
+    from mpgadget_tpu_torch.physics import cooling
+    f64 = ins[0].dtype == torch.float64
+
+    def kern():
+        return cooling.do_cooling(cr, redshift, *ins[:3], uvbg, ins[3],
+                                  min_egy, units, rows=rows)
+
+    u1, n1 = kern()
+    u2, n2 = kern()
+    check(torch.equal(u1, u2) and torch.equal(n1, n2),
+          f"K6 {name}: two launches differ")
+    sel = rows if rows is not None else slice(None)
+    if plain is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ur, nr = cooling.do_cooling_reference(
+            cr, redshift, *[x[sel] for x in ins[:3]], uvbg, ins[3][sel],
+            min_egy, units)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    else:
+        (ur, nr), plain_ms = plain, None
+    ms = time_ms(kern, reps)
+    if rows is not None:
+        rest = torch.ones(ins[0].shape[0], dtype=torch.bool,
+                          device=ins[0].device)
+        rest[rows] = False
+        check(torch.equal(u1[rest], ins[0][rest])
+              and torch.equal(n1[rest], ins[3][rest]),
+              f"K6 {name}: unlisted rows changed")
+    u, n = u1[sel].double(), n1[sel].double()
+    urd, nrd = ur.double(), nr.double()
+    rel_u = float(((u - urd).abs() / urd.abs().clamp(min=1e-300)).max())
+    err_n = (n - nrd).abs()
+    rel_n = float((err_n / nrd.abs().clamp(min=1e-300)).max())
+    tol_u = COOL_TOL["f64"] if f64 else COOL_TOL["u"]
+    ok_n = err_n <= (COOL_TOL["f64"] * nrd.abs() if f64 else
+                     COOL_TOL["ne_abs"] + COOL_TOL["ne_rel"] * nrd.abs())
+    check(rel_u <= tol_u and bool(ok_n.all()),
+          f"K6 {name}: u_new rel {rel_u:.3e}, ne rel {rel_n:.3e} (abs "
+          f"{float(err_n.max()):.3e}) against the plain version")
+    nrows = int(u.shape[0])
+    ops, trans = cooling_work(True)
+    esize = 8 if f64 else 4
+    bms, by = bound(nrows * ops, nrows * (6 * esize + 8),
+                    FP64_OPS_PER_S if f64 else FP32_OPS_PER_S)
+    plain_s = "not timed again" if plain_ms is None else \
+        f"{plain_ms:.6f} ms (one call)"
+    print(f"K6 do_cooling {name} ({'float64' if f64 else 'float32'}, "
+          f"{nrows} rows): {ms:.6f} ms (CUDA events, mean of {reps}); plain "
+          f"{plain_s}; bound {bms:.6f} ms ({by}: {ops} "
+          f"operations a row, {trans} of them exp/log/pow/sqrt); u_new rel "
+          f"err {rel_u:.3e}, ne/nh max abs err {float(err_n.max()):.3e} "
+          f"(rel {rel_n:.3e}); two launches bit-identical", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                rows=nrows, ops=ops, transcendentals=trans,
+                max_abs_err=float((u - urd).abs().max()), rel_u=rel_u,
+                ne_abs_err=float(err_n.max()), plain=(ur, nr))
+
+
+def rate_case(name, cr, redshift, uvbg, dens, u, ne, rows, reps=5):
+    """K6's heatingcooling_rate (get_cooling_time's call) against the plain
+    version on the card: ne/nh within COOL_TOL["ne_abs"] and the rate
+    within COOL_TOL["rate"] plus COOL_TOL["rate_scale"] of its largest
+    value (float64: COOL_TOL["f64"])."""
+    import torch
+    from mpgadget_tpu_torch.physics import cooling
+    f64 = dens.dtype == torch.float64
+
+    def kern():
+        return cooling.heatingcooling_rate(cr, dens, u, redshift, uvbg, ne,
+                                           rows=rows)
+
+    l1, n1 = kern()
+    l2, n2 = kern()
+    check(torch.equal(l1, l2) and torch.equal(n1, n2),
+          f"K6 rate {name}: two launches differ")
+    sel = rows if rows is not None else slice(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr, nr = cr.get_heatingcooling_rate(dens[sel], u[sel], redshift, uvbg,
+                                        ne[sel])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = time_ms(kern, reps)
+    lk, nk = l1[sel].double(), n1[sel].double()
+    lr, nr = lr.double(), nr.double()
+    scale = float(lr.abs().max())
+    err_l = (lk - lr).abs()
+    err_n = (nk - nr).abs()
+    if f64:
+        ok = bool((err_l <= COOL_TOL["f64"] * lr.abs() + 1e-12 * scale).all()
+                  & (err_n <= COOL_TOL["f64"] * nr.abs() + 1e-12).all())
+    else:
+        ok = bool((err_l <= COOL_TOL["rate"] * lr.abs()
+                   + COOL_TOL["rate_scale"] * scale).all()
+                  & (err_n <= COOL_TOL["ne_abs"]).all())
+    check(ok, f"K6 rate {name}: rate err {float(err_l.max()):.3e} (scale "
+          f"{scale:.3e}), ne err {float(err_n.max()):.3e}")
+    nrows = int(lk.shape[0])
+    ops, trans = cooling_work(False)
+    esize = 8 if f64 else 4
+    bms, by = bound(nrows * ops, nrows * (5 * esize + 8),
+                    FP64_OPS_PER_S if f64 else FP32_OPS_PER_S)
+    print(f"K6 heatingcooling_rate {name} ({'float64' if f64 else 'float32'},"
+          f" {nrows} rows): {ms:.6f} ms; plain {plain_ms:.6f} ms; bound "
+          f"{bms:.6f} ms ({by}); rate max abs err {float(err_l.max()):.3e} "
+          f"of {scale:.3e}, ne/nh {float(err_n.max()):.3e}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                rows=nrows, max_abs_err=float(err_l.max()))
+
+
+def cooling_phase(lres):
+    """K6 against its plain version on the card on the gas state of the lya
+    run: do_cooling on the inputs of the run's last cooling call over
+    every gas particle, over its first 128 gas rows (one row's chain of
+    dependent instructions sets the time of so small a launch) and in
+    float64, and on the call that listed the fewest rows (a substep's
+    closing gas) over those rows; the net rate (get_cooling_time's call)
+    on every gas particle; and init_sfr's float64 threshold, one
+    particle."""
+    import torch
+    from mpgadget_tpu_torch.physics import cooling
+    from mpgadget_tpu_torch.utils import constants as C
+
+    sim = lres["sim"]
+    spy = lres["spy"]
+    check(spy.last is not None, "lya made no cooling call to keep")
+    cr, redshift, u, rho, dt, uvbg, ne, min_egy, units = spy.last[0]
+    gas = torch.nonzero(sim.gas_mask).flatten()
+    ins = [u, rho, dt, ne]
+    fa = spy.fewest[0]
+    every = cooling_case("lya final state, all gas", cr, redshift, uvbg,
+                         ins, gas, min_egy, units)
+    cases = {
+        "all gas": every,
+        "128 rows": cooling_case(
+            "lya final state, 128 gas rows", cr, redshift, uvbg, ins,
+            gas[:128], min_egy, units, reps=20,
+            plain=tuple(x[:128] for x in every["plain"])),
+        "closing": cooling_case(
+            f"lya's smallest cooling call (closing gas, z={fa[1]:.3f})",
+            fa[0], fa[1], fa[5], [fa[2], fa[3], fa[4], fa[6]],
+            spy.fewest[2], fa[7], fa[8], reps=20),
+        "all gas f64": cooling_case(
+            "lya final state, all gas", cr, redshift, uvbg,
+            [x.double() for x in ins], gas, min_egy, units, reps=2)}
+    rho_cgs = rho * units.density_in_phys_cgs / C.PROTONMASS
+    rate = rate_case("lya final state, all gas", cr, redshift, uvbg,
+                     rho_cgs, u * units.uu_in_cgs, ne, gas)
+    # init_sfr's self-consistent threshold: one particle, float64
+    par = sim._sfr
+    egyhot = par.EgySpecSN / par.FactorEVP
+    dens = 1.0e6 * sim.CP.RhoCrit
+
+    def one(x):
+        return torch.tensor([x], dtype=torch.float64, device=sim.device)
+
+    thresh = rate_case("init_sfr threshold", cr, 0.0, cooling.UVBG(),
+                       one(dens * units.density_in_phys_cgs / C.PROTONMASS),
+                       one(egyhot * units.uu_in_cgs), one(1.0), None)
+    return dict(cases=cases, rate=rate, thresh=thresh)
+
+
+def sph_entry(name, which, gas, lya, case, big):
     """The kernels line's entry of K4 or K5: times at the star-small run's
-    final state, the bigger IC beside them."""
+    final state, the bigger IC beside them; launches in the star-small and
+    lya runs."""
     src = {"density": ("sph_density.cu", "mpgadget_tpu/sph/density.py:52"),
            "hydro": ("sph_hydro.cu", "mpgadget_tpu/sph/hydra.py:45")}[which]
     keys = ("ms", "simple_ms", "plain_ms", "bound_ms", "bound_by", "pairs",
@@ -2323,8 +2757,9 @@ def sph_entry(name, which, gas, case, big):
         "name": name, "route": "cuda",
         "source": f"mpgadget_tpu_torch/csrc/{src[0]}",
         "replaces": "mpgadget_tpu/ops/pairs.py:355", "pair_function": src[1],
-        "launches": gas["launches"][which],
-        "launches_by_path": {"star_small": gas["launches"][which]},
+        "launches": gas["launches"][which] + lya["launches"][which],
+        "launches_by_path": {"star_small": gas["launches"][which],
+                             "lya": lya["launches"][which]},
         "density_solves": gas["n_solves"],
         "bisection_passes": sum(gas["passes"]),
         "max_abs_err": max(case["max_abs_err"], big["max_abs_err"]),
@@ -2336,6 +2771,33 @@ def sph_entry(name, which, gas, case, big):
         "simple_ms": case["simple_ms"],
         "critical_path_ms": case["path_ms"],
         "simple_critical_path_ms": case["simple_path_ms"],
+        "ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+        "library_ms": None}
+
+
+def cooling_entry(lya, k6):
+    """The kernels line's entry of K6: times on lya's final gas state, the
+    closing subset, float64 and the net rate beside them."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rows")
+    case = k6["cases"]["all gas"]
+    return {
+        "name": "cooling_network", "route": "cuda",
+        "source": "mpgadget_tpu_torch/csrc/cooling.cu",
+        "replaces": "mpgadget_tpu/physics/cooling.py:584",
+        "loops": ["mpgadget_tpu/physics/cooling.py:462 (get_equilib_ne)",
+                  "mpgadget_tpu/physics/cooling.py:584 (do_cooling)"],
+        "launches": lya["launches"]["cooling"],
+        "launches_by_path": {"lya": lya["launches"]["cooling"]},
+        "max_abs_err": max(c["max_abs_err"] for c in k6["cases"].values()),
+        "max_rel_err": max(c["rel_u"] for c in k6["cases"].values()),
+        "rows": case["rows"], "operations_per_row": case["ops"],
+        "transcendentals_per_row": case["transcendentals"],
+        "closing_subset": {k: k6["cases"]["closing"][k] for k in keys},
+        "rows_128": {k: k6["cases"]["128 rows"][k] for k in keys},
+        "float64": {k: k6["cases"]["all gas f64"][k] for k in keys},
+        "heatingcooling_rate": {k: k6["rate"][k] for k in keys},
+        "init_sfr_float64": {k: k6["thresh"][k] for k in keys},
         "ms": case["ms"], "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
         "library_ms": None}
@@ -2502,6 +2964,12 @@ def run():
                               paramfile=gas["paramfile"])
     with tempfile.TemporaryDirectory() as work:
         big = big_gas_case(work, l2_ns)
+    with tempfile.TemporaryDirectory() as work:
+        lya = lya_phase(work)
+        k6 = cooling_phase(lya)
+        lrres = restart_phase(work, lya["snapnum"], "not run",
+                              paramfile=lya["paramfile"])
+        lya_pig = lya_pig_stars(work, lya["snapnum"])
     gst = gas["step_seconds"]
     gwt = gas["walltime"]
     print(f"star-small (2 x {gas['ngas']} particles, cuts "
@@ -2515,12 +2983,31 @@ def run():
           f"RestartFlag 3 {grres['seconds']:.6f} s", flush=True)
     print("star-small tree stage seconds: " + ", ".join(
         f"{k} {v:.6f}" for k, v in gas["stages"].items()), flush=True)
+    lst = lya["step_seconds"]
+    lwt = lya["walltime"]
+    print(f"lya (2 x {lya['ngas']} particles, cuts {GENIC_OVERRIDE} in genic "
+          f"and {LYA_SWITCHES} in the run) on {card}: {lya['nsteps']} PM "
+          f"steps to a={lya['atime']:.6f} in {sum(lst):.6f} s of steps "
+          f"({lya['run_seconds']:.6f} s with the gas set-up, the first "
+          f"forces and the last snapshot); walltime Cooling/SFR "
+          f"{lwt.get('Cooling/SFR', 0.0):.6f} s "
+          f"({100 * lwt.get('Cooling/SFR', 0.0) / sum(lst):.1f}% of the "
+          f"steps); walltime by layer "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(lwt.items()))
+          + f" s; K6 launches {lya['launches']['cooling']} "
+          f"({lya['spy'].calls} cooling calls, {lya['sfr_lines']} sfr.txt "
+          f"lines); kernel launches {lya['launches']}; stars "
+          f"{lya['nstars']}; per snapshot (a, stars, Msun) "
+          f"{lya['snapshots']}; RestartFlag 3 {lrres['seconds']:.6f} s, "
+          f"{lrres['groups']} groups holding {lya_pig} stars", flush=True)
+    print(f"lya sfr.txt last line: {lya['sfr_last']}", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096
     k2 = wres[0]                    # the lattice's first tree, LL = 512
     launches = {k: res["launches"][k] + hres["launches"][k]
-                + gas["launches"][k] for k in ("pair", "walk")}
+                + gas["launches"][k] + lya["launches"][k]
+                for k in ("pair", "walk")}
     k3 = nres[0]                    # the final dm-small state's FOF inputs
     print(json.dumps({"kernels": [{
         "name": "block_pair_accumulate", "route": "cuda",
@@ -2529,7 +3016,8 @@ def run():
         "launches": launches["pair"],
         "launches_by_path": {"global": res["launches"]["pair"],
                              "hierarchical": hres["launches"]["pair"],
-                             "star_small": gas["launches"]["pair"]},
+                             "star_small": gas["launches"]["pair"],
+                             "lya": lya["launches"]["pair"]},
         "max_abs_err": max([r[wp]["max_abs_err"] for r in kres
                             for wp in (False, True)]
                            + [cres["pair"]["max_abs_err"]]),
@@ -2548,7 +3036,8 @@ def run():
         "launches": launches["walk"],
         "launches_by_path": {"global": res["launches"]["walk"],
                              "hierarchical": hres["launches"]["walk"],
-                             "star_small": gas["launches"]["walk"]},
+                             "star_small": gas["launches"]["walk"],
+                             "lya": lya["launches"]["walk"]},
         # over all walk cases, the clustered one's monopoles included
         "max_abs_err": max([r["max_abs_err"] for r in wres]
                            + [cres["walk"]["max_abs_err"]]),
@@ -2569,10 +3058,12 @@ def run():
         "source": "mpgadget_tpu_torch/csrc/neighbors.cu",
         "replaces": "mpgadget_tpu/ops/pairs.py:108",
         "launches": (hres["launches"]["neighbors"] + fres["launches"]
-                     + gas["launches"]["neighbors"]),
+                     + gas["launches"]["neighbors"]
+                     + lya["launches"]["neighbors"]),
         "launches_by_path": {"hierarchical": hres["launches"]["neighbors"],
                              "fof_final_state": fres["launches"],
-                             "star_small": gas["launches"]["neighbors"]},
+                             "star_small": gas["launches"]["neighbors"],
+                             "lya": lya["launches"]["neighbors"]},
         # leaf lists, counts, flags and visits: identical on both sets
         # and in the serial mode
         "max_abs_err": max(r["max_abs_err"] for r in nres),
@@ -2590,10 +3081,10 @@ def run():
         "kernel_split_ms": k3["split_ms"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": None}] + [sph_entry(name, which, gas, gk, big[key])
+        "library_ms": None}] + [sph_entry(name, which, gas, lya, gk, big[key])
                                 for name, which, gk, key in (
             ("sph_density_pairs", "density", gk4, "k4"),
-            ("sph_hydro_pairs", "hydro", gk5, "k5"))]}))
+            ("sph_hydro_pairs", "hydro", gk5, "k5"))] + [cooling_entry(lya, k6)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

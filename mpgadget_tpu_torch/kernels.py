@@ -39,6 +39,10 @@ SOURCES = {
     # their divisions be approximate (2 ulp)
     "sph_density": ("sph_density.cu", ("-prec-div=false",)),
     "sph_hydro": ("sph_hydro.cu", ("-prec-div=false",)),
+    # the cooling network (K6): no contraction, and (as everywhere) no fast
+    # math: IEEE division and square root, denormals kept, so that it
+    # rounds as the plain version's separate PyTorch operations do
+    "cooling": ("cooling.cu", ("-fmad=false",)),
     # measurement aids that only chip_smoke.py loads: the serial walks the
     # port began with (K2's and K3's) and the first designs of K4 and K5,
     # as yardsticks, and an L2 pointer chase

@@ -1,18 +1,21 @@
 """Simulation driver: begrun/run analog (libgadget/run.c), PyTorch port of
-the TreePM and non-radiative SPH parts of mpgadget_tpu/run.py.
+the TreePM, SPH, cooling and star formation parts of mpgadget_tpu/run.py.
 
 One device, a power-of-two quantized PM timestep, KDK integration with
 exact FLRW factors, TreePM forces, with HydroOn the SPH density and hydro
-force loops (sph/density.py, sph/hydra.py) for the gas, in-line power
-spectra, snapshot output at sync points and, with SnapshotWithFOF, a
-friends-of-friends halo catalogue (PIG) beside each snapshot
-(:meth:`Simulation.run_fof`).  The PM step is either one global KDK step
-or, with SplitGravityTimestepsOn, sub-cycled over per-particle
-power-of-two timebins whose short-range and hydro forces are computed for
-the active set only (:meth:`Simulation.step_hierarchical`).  Switches
-this port does not carry yet (cooling, star formation, winds, black
-holes, metal return, ...) raise NotImplementedError naming the parameter
-(see :func:`check_supported`); none is silently ignored.
+force loops (sph/density.py, sph/hydra.py) for the gas, with CoolingOn
+and StarformationOn the gas source terms (physics/cooling.py, the cooling
+kernel K6; physics/sfr.py: the effective EOS, star particles, quick
+Lyman-alpha conversion; ``sfr.txt``), in-line power spectra, snapshot
+output at sync points and, with SnapshotWithFOF, a friends-of-friends halo
+catalogue (PIG) beside each snapshot (:meth:`Simulation.run_fof`).  The PM
+step is either one global KDK step or, with SplitGravityTimestepsOn,
+sub-cycled over per-particle power-of-two timebins whose short-range and
+hydro forces and gas source terms are computed for the closing set only
+(:meth:`Simulation.step_hierarchical`).  Switches this port does not carry
+yet (winds, black holes, metal return, metal cooling and UV fluctuation
+tables, ...) raise NotImplementedError naming the parameter (see
+:func:`check_supported`); none is silently ignored.
 """
 
 import os
@@ -206,28 +209,33 @@ def check_supported(cfg: SimConfig, has_gas: bool):
     """Raise NotImplementedError for a switch this port does not carry.
 
     Gas-only switches matter only when gas is present, as in the JAX
-    package (with HydroOn = 0 gas particles are collisionless)."""
+    package (with HydroOn = 0 gas particles are collisionless); the
+    cooling tables only when the gas cools."""
     always = (
         ("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
         ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
         ("BlackHoleOn", cfg.black_hole_on),
-        ("StarformationOn", cfg.starformation_on),
         ("LightconeOn", cfg.lightcone_on),
         ("PlaneOutputList", bool(cfg.plane_output_list)),
         ("OutputEnergyDebug", cfg.output_energy_debug),
     )
     with_gas = (
-        ("CoolingOn", cfg.cooling_on),
         ("WindOn", cfg.wind_on),
         ("MetalReturnOn", cfg.metal_return_on),
         ("ExcursionSetReionOn", cfg.excursion_set_on),
         ("QSOLightupOn", cfg.qso_lightup_on),
     )
-    for name, on in always + (with_gas if has_gas else ()):
+    cools = cfg.cooling_on or cfg.starformation_on
+    with_cooling = (
+        ("MetalCoolFile", bool(cfg.metal_cool_file)),
+        ("UVFluctuationFile", bool(cfg.uv_fluctuation_file)),
+    )
+    for name, on in always + (with_gas if has_gas else ()) \
+            + (with_cooling if has_gas and cools else ()):
         if on:
             raise NotImplementedError(
                 f"{name} is not supported by mpgadget_tpu_torch yet "
-                "(TreePM with non-radiative SPH)")
+                "(TreePM with SPH, cooling and star formation)")
 
 
 class Simulation:
@@ -255,6 +263,9 @@ class Simulation:
         # SPH state (sph/state.SphData), set up by setup_gas or
         # _restore_gas when gas is present and HydroOn
         self.sph = None
+        self.stars = None           # physics/stars.StarData, once stars exist
+        self._cooling = None        # set up lazily by _init_cooling
+        self._sfr = None            # and _init_sfr
         self._gas_initialized = False
         self._gas_restore = None
         self._min_egy_spec = 0.0
@@ -284,11 +295,10 @@ class Simulation:
         """Read an IC/snapshot bigfile (petaio_read_snapshot analog)."""
         bf = BigFile(path)
         header = snap_io.read_header(bf)
-        for t, name in ((4, "stars"), (5, "black holes")):
-            if int(header.TotNumPart[t]) > 0:
-                raise NotImplementedError(
-                    f"snapshots with {name} (type {t}) are not supported "
-                    "by mpgadget_tpu_torch yet")
+        if int(header.TotNumPart[5]) > 0:
+            raise NotImplementedError(
+                "snapshots with black holes (type 5) are not supported by "
+                "mpgadget_tpu_torch yet")
         pos_all, vel_all, mass_all, type_all, id_all = [], [], [], [], []
         for ptype in range(6):
             sp = snap_io.read_species(bf, ptype, header)
@@ -302,9 +312,13 @@ class Simulation:
             id_all.append(sp["pid"].astype(np.int64))
         pos = np.concatenate(pos_all)
         n_read = len(pos)
-        # nothing spawns on this path, so no PartAllocFactor padding;
-        # rounded up to a multiple of 128 as in the JAX package
-        capacity = int(np.ceil(n_read / 128)) * 128
+        # over-allocate rows for star spawning (PartAllocFactor;
+        # slots_reserve analog), rounded up to a multiple of 128 as in the
+        # JAX package
+        alloc = float(cfg_kwargs.get("part_alloc_factor", 1.5))
+        if not cfg_kwargs.get("starformation_on"):
+            alloc = 1.0     # nothing spawns: no padding needed
+        capacity = int(np.ceil(max(1.0, alloc) * n_read / 128)) * 128
         pdata = ParticleData.from_numpy(
             pos, np.concatenate(vel_all), np.concatenate(mass_all),
             np.concatenate(type_all), np.concatenate(id_all),
@@ -349,7 +363,35 @@ class Simulation:
                 if "0/" + spec.name in bf:
                     sim._gas_restore[spec.field] = \
                         bf.open("0/" + spec.name).read()
+        # star slot state via the declarative registry (petaio.c:1040-1069)
+        from .io.registry import blocks_for_type
+        if int(header.TotNumPart[4]) > 0:
+            sim._restore_stars({
+                spec.name: bf.open(f"4/{spec.name}").read()
+                for spec in blocks_for_type(4)
+                if not spec.wronly and f"4/{spec.name}" in bf})
         return sim
+
+    def _restore_stars(self, blocks):
+        """Scatter the registry's star blocks (name -> array, in snapshot
+        order) into an aligned StarData (_restore_slot_state's type-4
+        part)."""
+        from .io.registry import blocks_for_type
+        from .physics.stars import StarData
+        rows = (self.pdata.valid & (self.pdata.ptype == 4)).cpu().numpy()
+        if not blocks or not rows.any():
+            return
+        holder = StarData.zeros(self.pdata.capacity, self.device)
+        updates = {}
+        for spec in blocks_for_type(4):
+            arr = blocks.get(spec.name)
+            if arr is None:
+                continue
+            full = getattr(holder, spec.field).cpu().numpy().copy()
+            full[rows] = np.asarray(arr).reshape(
+                (-1,) + full.shape[1:]).astype(full.dtype)
+            updates[spec.field] = torch.as_tensor(full, device=self.device)
+        self.stars = holder.replace(**updates)
 
     def _compute_omegas(self):
         """Density parameter per particle type, from total masses."""
@@ -657,6 +699,187 @@ class Simulation:
             max_signal_vel=merge(res["max_signal_vel"],
                                  sph.max_signal_vel))
 
+    # -- gas source terms: cooling and star formation -----------------
+
+    def _init_cooling(self):
+        from .physics.cooling import (CoolingParams, CoolingRates,
+                                      CoolingUnits, TreeCool)
+        par = CoolingParams(
+            recomb=self.cfg.recomb_rates, cooling=self.cfg.cooling_rates,
+            SelfShieldingOn=self.cfg.self_shielding_on,
+            PhotoIonizationOn=self.cfg.photo_ionization_on,
+            PhotoIonizeFactor=self.cfg.photo_ionize_factor,
+            MinGasTemp=self.cfg.min_gas_temp,
+            CMBTemperature=self.CP.CMBTemperature,
+            fBar=self.CP.OmegaBaryon / max(self.CP.OmegaCDM, 1e-10),
+            HeliumHeatOn=self.cfg.helium_heat_on,
+            HeliumHeatThresh=self.cfg.helium_heat_thresh,
+            HeliumHeatAmp=self.cfg.helium_heat_amp,
+            HeliumHeatExp=self.cfg.helium_heat_exp)
+        self._treecool = TreeCool(self.cfg.treecool_file or None, par)
+        self._cooling = CoolingRates(par, self._treecool)
+        units = self.cfg.units
+        h = self.CP.HubbleParam
+        self._cooling_units = CoolingUnits(
+            density_in_phys_cgs=units.UnitDensity_in_cgs * h * h,
+            uu_in_cgs=units.UnitInternalEnergy_in_cgs,
+            tt_in_s=units.UnitTime_in_s / h)
+
+    def _source_setup(self, active):
+        """What both source-term paths start from: the gas rows to update
+        (the closing ones when active is given), a, the redshift, H(a) and
+        the UV background."""
+        if self._cooling is None:
+            self._init_cooling()
+        gas = self.gas_mask
+        if active is not None:
+            gas = gas & active
+        atime = self.atime
+        redshift = 1.0 / atime - 1.0
+        hubble = self.CP.hubble_function(atime)
+        uvbg = self._treecool.get_global_uvbg(redshift)
+        return gas, atime, redshift, hubble, uvbg
+
+    def apply_cooling(self, dloga, active=None):
+        """Strang-split cooling after the kick (the cooling_direct path of
+        cooling_and_starformation, sfr_eff.c:187).  dloga may be per
+        particle (hierarchical bins, each closing particle cools over its
+        own interval) and ``active`` restricts the update to the closing
+        set."""
+        from .physics.cooling import do_cooling
+        from .utils.constants import GAMMA_MINUS1
+        gas, atime, redshift, hubble, uvbg = self._source_setup(active)
+        a3 = atime ** 3
+        rho_phys = torch.clamp(self.sph.density, min=1e-30) / a3
+        u = self.sph.entropy / GAMMA_MINUS1 * rho_phys ** GAMMA_MINUS1
+        dt = torch.broadcast_to(torch.as_tensor(
+            dloga, dtype=u.dtype, device=self.device) / hubble,
+            u.shape).contiguous()
+        self.walltime.start("Cooling")
+        u_new, ne = do_cooling(self._cooling, redshift, u, rho_phys, dt,
+                               uvbg, self.sph.ne, self._min_egy_spec,
+                               self._cooling_units, rows=gas)
+        self.walltime.stop("Cooling")
+        ent_new = GAMMA_MINUS1 * u_new / rho_phys ** GAMMA_MINUS1
+        self.sph = self.sph.replace(
+            entropy=torch.where(gas, ent_new, self.sph.entropy),
+            ne=torch.where(gas, ne, self.sph.ne))
+
+    def _init_sfr(self):
+        from .physics.sfr import SFRParams, init_sfr
+        if self._cooling is None:
+            self._init_cooling()
+        mass = self.pdata.mass.cpu().numpy()
+        gas = self.gas_mask.cpu().numpy()
+        avg_bar = float(mass[gas].mean()) if gas.any() else 0.0
+        par = SFRParams(
+            StarformationCriterion=self.cfg.sfr_criterion,
+            CritOverDensity=self.cfg.crit_overdensity,
+            CritPhysDensity=self.cfg.crit_phys_density,
+            FactorSN=self.cfg.factor_sn,
+            FactorEVP=self.cfg.factor_evp,
+            TempSupernova=self.cfg.temp_supernova,
+            TempClouds=self.cfg.temp_clouds,
+            MaxSfrTimescale=self.cfg.max_sfr_timescale,
+            Generations=self.cfg.generations,
+            QuickLymanAlphaProbability=self.cfg.quick_lya_probability,
+            QuickLymanAlphaTempThresh=self.cfg.quick_lya_temp_thresh,
+            WindOn=self.cfg.wind_on)
+        self._sfr = init_sfr(par, self.CP, self.cfg.units, self._cooling,
+                             self._cooling_units, avg_bar,
+                             device=self.device)
+
+    def apply_cooling_sfr(self, dloga, active=None):
+        """cooling_and_starformation (sfr_eff.c:187): the effective EOS and
+        star formation for star-forming gas, plain cooling otherwise, then
+        the new stars and a line of ``sfr.txt``.  dloga may be per particle
+        (hierarchical stepping applies the source terms to each closing
+        bin over its own interval, timestep.c:298 + run.c:374-520);
+        ``active`` restricts the update to the closing set.  The winds
+        branches wait for WindOn, which check_supported refuses."""
+        from .physics import sfr as sfrmod
+        from .physics.cooling import do_cooling
+        from .utils import threefry
+        gas, atime, redshift, hubble, uvbg = self._source_setup(active)
+        if self._sfr is None:
+            self._init_sfr()
+        key = threefry.prng_key(
+            (self.cfg.random_seed + self.ti_current) % (2 ** 31))
+
+        def cool_fn(u, rho_phys, dt, ne, rows):
+            return do_cooling(self._cooling, redshift, u, rho_phys, dt,
+                              uvbg, ne, self._min_egy_spec,
+                              self._cooling_units, rows=rows)
+
+        self.walltime.start("Cooling/SFR")
+        sph = self.sph
+        out = sfrmod.cooling_and_starformation(
+            self._sfr, self._cooling, self._cooling_units, key,
+            density=sph.density, entropy=sph.entropy, ne=sph.ne,
+            metallicity=sph.metallicity, delay_time=sph.delay_time,
+            mass=self.pdata.mass, pid=self.pdata.pid, valid_gas=gas,
+            redshift=redshift, atime=atime, hubble=hubble, dloga=dloga,
+            uvbg=uvbg, do_cooling_fn=cool_fn)
+        # keep the stored SFR of non-closing rows (out zeroes outside the
+        # update mask)
+        sfr_new = out["sfr"] if active is None else \
+            torch.where(gas, out["sfr"], sph.sfr)
+        self.sph = sph.replace(entropy=out["entropy"], ne=out["ne"],
+                               sfr=sfr_new, metallicity=out["metallicity"])
+        # sfr.txt's sums, gathered before spawn_stars changes masses
+        # (sfr_eff.c:319-364), read from the device in one transfer
+        on_sf, make = out["on_eeqos"], out["make_star"]
+        dt_sf = torch.broadcast_to(torch.as_tensor(
+            dloga, dtype=torch.float32, device=self.device) / hubble,
+            on_sf.shape)
+        sums = torch.stack([
+            torch.where(on_sf, dt_sf, 0.0).sum(),
+            on_sf.sum().to(torch.float32),
+            torch.where(make, torch.where(out["convert"], self.pdata.mass,
+                                          out["star_mass"]), 0.0).sum(),
+            make.sum().to(torch.float32),
+            self.sph.sfr.sum(),
+            torch.where(gas, out["sm"], 0.0).sum()]).cpu().numpy()
+        sum_dtime, mass_formed, total_sfr, total_sm = (
+            float(sums[i]) for i in (0, 2, 4, 5))
+        n_sf, nstar = int(sums[1]), int(sums[3])
+        if nstar > 0:
+            if self.stars is None:
+                from .physics.stars import StarData
+                self.stars = StarData.zeros(self.pdata.capacity, self.device)
+            self.pdata, self.sph, self.stars, _, ovf, _ = \
+                sfrmod.spawn_stars(self.pdata, self.sph, make,
+                                   out["convert"], out["star_mass"], atime,
+                                   stars=self.stars)
+            if ovf:
+                raise RuntimeError("particle capacity exhausted while "
+                                   "spawning stars; raise PartAllocFactor")
+        self.walltime.stop("Cooling/SFR")
+        # sfr.txt in the reference's 8-column layout (write_sfr,
+        # sfr_eff.c:381): a, total_sm (expected mass formed, internal),
+        # totsfrrate (Msun/yr), the rate total_sm implies over the mean
+        # star-forming dt (Msun/yr), the mass actually formed, the mean
+        # dt, the star-forming count and the new stars
+        rate_msun = (total_sm * n_sf / sum_dtime
+                     * self._sfr.UnitSfr_in_solar_per_year
+                     if sum_dtime > 0 else 0.0)
+        mean_dt = sum_dtime / n_sf if n_sf > 0 else 0.0
+        with open(os.path.join(self.cfg.output_dir, "sfr.txt"), "a") as fh:
+            fh.write(f"{atime:.12g} {total_sm:g} {total_sfr:g} "
+                     f"{rate_msun:g} {mass_formed:g} "
+                     f"{mean_dt:g} {n_sf} {nstar}\n")
+
+    def _source_terms(self, dloga, active=None):
+        """The Strang-split gas source terms after the closing kick
+        (run.c:586-604): star formation with its cooling, or cooling
+        alone."""
+        if not (self.has_gas and self._gas_initialized):
+            return
+        if self.cfg.starformation_on:
+            self.apply_cooling_sfr(dloga, active)
+        elif self.cfg.cooling_on:
+            self.apply_cooling(dloga, active)
+
     def find_hydro_timestep_dloga(self):
         """Courant + Hsml-change criteria (timestep.c:1075-1090)."""
         from .utils.constants import GAMMA
@@ -812,6 +1035,7 @@ class Simulation:
         self.force_evals += self.pdata.num_valid
         # K: half kick with forces at t1
         self._apply_half_kick(th, t1)
+        self._source_terms(self.timeline.dloga_from_dti(dti, t0))
 
     def step_hierarchical(self, dti_pm: int):
         """One PM interval with per-particle timebin sub-cycling
@@ -875,6 +1099,22 @@ class Simulation:
             self._bin_half_kick(closing, bins, ti, maxbin, opening=False)
             self.force_evals += n_closing
             log["actives"].append(n_closing)
+            # gas source terms per closing bin, each particle over its own
+            # interval (cooling_and_starformation on the active list,
+            # run.c:374-520 + timestep.c:298)
+            if self.has_gas and self._gas_initialized and (
+                    self.cfg.starformation_on or self.cfg.cooling_on):
+                dlg1 = self.timeline.dloga_from_dti(1, ti)
+                dloga_pp = torch.where(
+                    closing, dtib.to(torch.float32) * float(np.float32(dlg1)),
+                    0.0)
+                self._source_terms(dloga_pp, active=closing)
+                if self.cfg.starformation_on:
+                    # spawning may have added stars: refresh the loop's
+                    # masks so that new particles drift and kick
+                    valid = self.pdata.valid
+                    bins = torch.clamp(self.pdata.timebin, 1, maxbin)
+                    dtib = torch.ones_like(dtib) << bins.long()
             # re-derive the bins of the closing particles from the fresh
             # forces (timestep.c:298-503): a bin may shrink at its own
             # boundary, and grow only when the longer interval is aligned
@@ -1088,11 +1328,12 @@ class Simulation:
         """Type-specific blocks for a boolean selection sel, driven by the
         declarative registry (petaio.c:992-1078 analog), plus the derived
         InternalEnergy block of the gas.  The holders on this path are
-        the base particles and, with gas, the SPH state."""
+        the base particles, with gas the SPH state, with stars StarData."""
         from .io.registry import blocks_for_type
         from .utils.constants import GAMMA_MINUS1
         extra = {}
-        holders = {"pdata": self.pdata, "sph": self.sph}
+        holders = {"pdata": self.pdata, "sph": self.sph,
+                   "stars": self.stars}
         for spec in blocks_for_type(t):
             holder = holders.get(spec.holder)
             if holder is None:

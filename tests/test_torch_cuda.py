@@ -739,3 +739,170 @@ def test_sph_density_and_hydro_cuda_match_cpu(cuda):
         err = float((got - want.double()).norm()
                     / want.double().norm().clamp(min=1e-300))
         assert err <= 1e-5, (k, err)
+
+
+# ---- K6: the cooling network ------------------------------------------------
+
+def _cooling_case(device, dtype, n=512, seed=21):
+    """do_cooling's and the rate's inputs over n_H 1e-6 ... 1e2 cm^-3, T
+    1e2 ... 1e7 K (internal units: kpc, 1e10 Msun, km/s, h = 0.7)."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    from mpgadget_tpu_torch.utils import constants as C
+    from mpgadget_tpu_torch.utils import get_unitsystem
+    units = get_unitsystem(C.CM_PER_KPC, 1.989e43, 1e5)
+    cu = cool.CoolingUnits(units.UnitDensity_in_cgs * 0.49,
+                           units.UnitInternalEnergy_in_cgs,
+                           units.UnitTime_in_s / 0.7)
+    rng = np.random.default_rng(seed)
+    nh = 10 ** rng.uniform(-6, 2, n)
+    temp = 10 ** rng.uniform(2, 7, n)
+    ucgs = temp * C.BOLTZMANN / (C.GAMMA_MINUS1 * 0.6 * C.PROTONMASS)
+    rho = nh * C.PROTONMASS / C.HYDROGEN_MASSFRAC / cu.density_in_phys_cgs
+    put = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    return dict(cu=cu, u=put(ucgs / cu.uu_in_cgs), rho=put(rho),
+                dt=put(10 ** rng.uniform(-6, -2, n)),
+                ne=put(rng.uniform(0, 1.2, n)),
+                dens=put(nh / C.HYDROGEN_MASSFRAC), ucgs=put(ucgs),
+                min_egy=100 * C.BOLTZMANN / C.PROTONMASS / C.GAMMA_MINUS1
+                / cu.uu_in_cgs / (4 / (1 + 3 * C.HYDROGEN_MASSFRAC)))
+
+
+def _uvbg(on):
+    from mpgadget_tpu_torch.physics import cooling as cool
+    return cool.UVBG(gJH0=1e-12, gJHe0=8e-13, gJHep=3e-14, epsH0=5e-24,
+                     epsHe0=6e-24, epsHep=2e-25, self_shield_dens=5e-3) \
+        if on else cool.UVBG()
+
+
+def _cooling_rates():
+    from mpgadget_tpu_torch.physics import cooling as cool
+    p = cool.CoolingParams(MinGasTemp=100.0)
+    return cool.CoolingRates(p, cool.TreeCool(None, p))
+
+
+@pytest.mark.parametrize("dtype,uv", [(torch.float32, False),
+                                      (torch.float32, True),
+                                      (torch.float64, True)])
+@pytest.mark.parametrize("rows", [False, True])
+def test_cooling_kernel_matches_plain(cuda, dtype, uv, rows):
+    """K6's do_cooling against its plain version on the card, float32 and
+    float64, all rows or a listed third: u_new within 2e-5 relative and
+    ne/nh within 2e-6 + 2e-3 relative (the CPU parity tolerances of
+    tests/test_torch_cooling.py), 1e-9 in float64; unlisted rows
+    untouched; two launches bit-identical."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr, uvbg = _cooling_rates(), _uvbg(uv)
+    c = _cooling_case(cuda, dtype)
+    idx = torch.arange(0, 512, 3, device=cuda) if rows else None
+    args = (cr, 1.5, c["u"], c["rho"], c["dt"], uvbg, c["ne"], c["min_egy"],
+            c["cu"])
+    before = cool.LAUNCHES
+    u1, n1 = cool.do_cooling(*args, rows=idx)
+    u2, n2 = cool.do_cooling(*args, rows=idx)
+    assert cool.LAUNCHES == before + 2
+    assert torch.equal(u1, u2) and torch.equal(n1, n2)
+    ur, nr = cool.do_cooling_reference(cr, 1.5, c["u"], c["rho"], c["dt"],
+                                       uvbg, c["ne"], c["min_egy"], c["cu"])
+    sel = idx if rows else slice(None)
+    tol = (2e-5, 2e-3, 2e-6) if dtype == torch.float32 else (1e-9, 1e-9, 0)
+    torch.testing.assert_close(u1[sel], ur[sel], rtol=tol[0], atol=0)
+    torch.testing.assert_close(n1[sel], nr[sel], rtol=tol[1], atol=tol[2])
+    if rows:
+        rest = torch.ones(512, dtype=torch.bool, device=cuda)
+        rest[idx] = False
+        assert torch.equal(u1[rest], c["u"][rest])
+        assert torch.equal(n1[rest], c["ne"][rest])
+
+
+@pytest.mark.parametrize("dtype,uv", [(torch.float32, False),
+                                      (torch.float64, True)])
+@pytest.mark.parametrize("rows", [False, True])
+def test_heatingcooling_kernel_matches_plain(cuda, dtype, uv, rows):
+    """K6's heatingcooling_rate (the equilibrium ne and the net rate)
+    against the plain version on the card: ne/nh within 1e-6 and the rate
+    within 4e-6 plus 1e-7 of the largest |rate| in float32, 1e-9 in
+    float64; unlisted rows 0 and ne_init; two launches bit-identical."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr, uvbg = _cooling_rates(), _uvbg(uv)
+    c = _cooling_case(cuda, dtype, seed=23)
+    idx = torch.arange(1, 512, 4, device=cuda) if rows else None
+    args = (cr, c["dens"], c["ucgs"], 3.0, uvbg, c["ne"])
+    l1, n1 = cool.heatingcooling_rate(*args, rows=idx)
+    l2, n2 = cool.heatingcooling_rate(*args, rows=idx)
+    assert torch.equal(l1, l2) and torch.equal(n1, n2)
+    lr, nr = cr.get_heatingcooling_rate(c["dens"], c["ucgs"], 3.0, uvbg,
+                                        c["ne"])
+    sel = idx if rows else slice(None)
+    scale = float(lr.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(n1[sel], nr[sel], rtol=0, atol=1e-6)
+        torch.testing.assert_close(l1[sel], lr[sel], rtol=4e-6,
+                                   atol=1e-7 * scale)
+    else:
+        torch.testing.assert_close(n1[sel], nr[sel], rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(l1[sel], lr[sel], rtol=1e-9,
+                                   atol=1e-12 * scale)
+    if rows:
+        rest = torch.ones(512, dtype=torch.bool, device=cuda)
+        rest[idx] = False
+        assert torch.equal(l1[rest], torch.zeros_like(l1[rest]))
+        assert torch.equal(n1[rest], c["ne"][rest])
+
+
+def test_init_sfr_uses_the_double_kernel(cuda, monkeypatch):
+    """init_sfr's self-consistent threshold on the card runs K6's float64
+    instance (no plain fallback) and equals the CPU's to 1e-9."""
+    from mpgadget_tpu_torch.cosmology import Cosmology
+    from mpgadget_tpu_torch.physics import cooling as cool
+    from mpgadget_tpu_torch.physics import sfr
+    from mpgadget_tpu_torch.utils import constants as C
+    from mpgadget_tpu_torch.utils import get_unitsystem
+    units = get_unitsystem(C.CM_PER_KPC, 1.989e43, 1e5)
+    cp = Cosmology(Omega0=0.3, OmegaBaryon=0.045, OmegaLambda=0.7,
+                   HubbleParam=0.7).init_units(units)
+    cu = cool.CoolingUnits(units.UnitDensity_in_cgs * 0.49,
+                           units.UnitInternalEnergy_in_cgs,
+                           units.UnitTime_in_s / 0.7)
+    cr = _cooling_rates()
+    want = sfr.init_sfr(sfr.SFRParams(), cp, units, cr, cu, 1e-3,
+                        device="cpu").PhysDensThresh
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    monkeypatch.setattr(cr, "get_heatingcooling_rate", refuse)
+    before = cool.LAUNCHES
+    got = sfr.init_sfr(sfr.SFRParams(), cp, units, cr, cu, 1e-3,
+                       device=cuda).PhysDensThresh
+    assert cool.LAUNCHES == before + 1
+    assert got == pytest.approx(want, rel=1e-9)
+
+
+def test_cooling_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
+    """On CUDA tensors the K6 wrappers launch the kernel or raise: wrong
+    types and mixed devices are refused, and with the kernel library
+    unavailable the call raises rather than running the plain version."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr, uvbg = _cooling_rates(), _uvbg(False)
+    c = _cooling_case(cuda, torch.float32, n=64)
+    args = [cr, 1.5, c["u"], c["rho"], c["dt"], uvbg, c["ne"], c["min_egy"],
+            c["cu"]]
+    for i, bad in ((2, c["u"].half()), (3, c["rho"].cpu()),
+                   (4, c["dt"].double())):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            cool.do_cooling(*a)
+    monkeypatch.setattr(cool, "do_cooling_reference", lambda *a, **k: (
+        _ for _ in ()).throw(AssertionError("plain version on the card")))
+    before = cool.LAUNCHES
+    cool.do_cooling(*args)
+    assert cool.LAUNCHES == before + 1
+
+    def no_library(name):
+        raise RuntimeError(f"no {name}")
+
+    monkeypatch.setattr(cool, "_fns", {})
+    monkeypatch.setattr(cool.kernels, "load", no_library)
+    with pytest.raises(RuntimeError, match="no cooling"):
+        cool.do_cooling(*args)

@@ -209,7 +209,7 @@ def test_bad_timestep_error_survives_a_failed_emergency_snapshot(
 
 
 @pytest.mark.parametrize("name,value", [
-    ("MassiveNuLinRespOn", 1), ("BlackHoleOn", 1), ("StarformationOn", 1),
+    ("MassiveNuLinRespOn", 1), ("BlackHoleOn", 1),
     ("LightconeOn", 1), ("PlaneOutputList", "0.11"),
     ("OutputEnergyDebug", 1), ("HybridNeutrinosOn", 1)])
 def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
@@ -220,7 +220,8 @@ def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
 
 
 @pytest.mark.parametrize("name,field", [
-    ("ExcursionSetReionOn", "excursion_set_on"), ("CoolingOn", "cooling_on"),
+    ("ExcursionSetReionOn", "excursion_set_on"),
+    ("QSOLightupOn", "qso_lightup_on"),
     ("WindOn", "wind_on"), ("MetalReturnOn", "metal_return_on")])
 def test_gas_switches_raise_only_with_gas(name, field):
     cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
