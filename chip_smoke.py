@@ -13,9 +13,9 @@ fails the run (non-zero exit, no result line) if it fails:
    (csrc/pairkernel.cu), the walk kernel K2 (csrc/treewalk.cu), the
    neighbour walk K3 (csrc/neighbors.cu), the SPH pair sums K4
    (csrc/sph_density.cu) and K5 (csrc/sph_hydro.cu) and the cooling
-   network K6 (csrc/cooling.cu), and the five
+   network K6 (csrc/cooling.cu), and the six
    measurement aids (the serial walks K2 and K3 began as, the first
-   designs of K4 and K5, and an L2 pointer chase), one nvcc each, in
+   designs of K4, K5 and K6, and an L2 pointer chase), one nvcc each, in
    parallel;
 3. K1: the pair kernel against its plain PyTorch version on the card at
    the main path's shapes (nb=1024 blocks, G=256 targets, S=4096
@@ -139,9 +139,14 @@ fails the run (non-zero exit, no result line) if it fails:
    subset in float32, every gas particle in float64, the net rate (the
    cooling time's call) on every gas particle, and init_sfr's float64
    threshold (one particle): u_new, ne/nh and the rate within COOL_TOL,
-   unlisted rows untouched, two launches bit-identical; the kernel's
-   time (CUDA events), the plain version's (one call), the bound, and
-   the operations and transcendentals a row.
+   unlisted rows untouched, two launches bit-identical; in every case the
+   first design of K6 (csrc/cooling_simple.cu, loaded only here) on the
+   same inputs, whose outputs the kernel must equal bit for bit; the
+   kernel's time and the first design's (CUDA graph replays of the entry
+   point), the plain version's (one call), the bound and the kernel's
+   share of it; and in every case where K6's loops stop (cooling_exits,
+   rate_exits: the plain step functions run to the caps on the card, row
+   by row) and the operations that leaves.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -162,8 +167,11 @@ the fill of the lists' unused slots.  K4's and K5's are the particle
 tables read once and each target's row written once, against
 DENSITY_PAIR_OPS / HYDRO_PAIR_OPS for each pair that counts and the
 distance's operations for each other pair the lists hold.  K6's are
-its operations a row (cooling_work: a transcendental, division or square
-root counted as one) times the rows, against the bytes of its arrays.
+the operations its exits leave on these rows (cooling_exits: the network
+evaluations and iterations each row makes, a transcendental, division or
+square root counted as one), against the bytes of its arrays; beside it
+stands the full work's (cooling_work: every iteration run, as the first
+design does), which reads two designs against the same work.
 
 The last two lines of standard output are the kernel table and the
 result, each one JSON object.
@@ -2367,10 +2375,17 @@ COOL_BISECT_OPS = 8
 # of which exp, log, pow and sqrt: 27 an evaluation, 62 in the tail
 COOL_NE_TRANSC = 27
 COOL_TAIL_TRANSC = 62
+# The closing terms of the net rate beside its evaluation as csrc/cooling.cu
+# computes them (closing(): the rates come from the evaluation), counted for
+# the same options: 86 operations, of which 9 exp, log, pow and sqrt
+COOL_CLOSE_OPS = 86
+COOL_CLOSE_TRANSC = 9
+ROWS_PER_WARP = 8     # csrc/cooling.cu: 4 lanes a row
 
 
 def cooling_work(bisect):
-    """(operations, transcendentals) per particle of one K6 call:
+    """(operations, transcendentals) per particle of one K6 call at the
+    full trip counts (every iteration run, the first design's work):
     do_cooling's bisection when bisect, else one net rate."""
     from mpgadget_tpu_torch.physics.cooling import BISECT_ITERS, NE_ITERS
     ops = NE_ITERS * (2 * COOL_NE_OPS + COOL_STEFF_OPS) + 4 + COOL_TAIL_OPS
@@ -2571,15 +2586,223 @@ def lya_pig_stars(workdir, snapnum):
     return n4
 
 
+def simple_cooling(call):
+    """call() (a K6 wrapper's call) with the first design's entry points
+    (csrc/cooling_simple.cu) in place of the kernel's for this call: the
+    wrapper's checks and output; its launch count is left as it was."""
+    import ctypes
+    from mpgadget_tpu_torch import kernels
+    from mpgadget_tpu_torch.physics import cooling
+
+    lib = kernels.load("cooling_simple")
+    fns = {}
+    for name, n_ptr in (("do_cooling", 7), ("heatingcooling_rate", 6)):
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = cooling._kernel(f"{name}_{suffix}", n_ptr).argtypes
+            fns[f"{name}_{suffix}"] = fn
+    real, launches = cooling._fns, cooling.LAUNCHES
+    cooling._fns = fns
+    try:
+        return call()
+    finally:
+        cooling._fns, cooling.LAUNCHES = real, launches
+
+
+def same_bits(a, b):
+    """a and b (tensors of one float type) hold the same bits."""
+    import torch
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return bool(torch.equal(a.view(it), b.view(it)))
+
+
+def cooling_designs(name, kern, launch, outs, reps):
+    """K6's outputs against its first design's (simple_cooling) on the
+    same call, bit for bit, and both designs' times: (ms, simple_ms), each
+    the mean of reps CUDA graph replays of launch (the entry point alone,
+    its rows checked and its arguments made beforehand)."""
+    simple = simple_cooling(kern)
+    check(all(same_bits(x, y) for x, y in zip(outs, simple)),
+          f"K6 {name}: the kernel differs from its first design "
+          "(csrc/cooling_simple.cu) in some bit")
+    return (graph_ms(launch, reps),
+            simple_cooling(lambda: graph_ms(launch, reps)))
+
+
+def cooling_launch(name, rows, args, ins, outs):
+    """A call of K6's entry point `name` alone (physics.cooling._launch)
+    on these inputs, rows checked once here and outputs made once: what
+    cooling_designs times."""
+    from mpgadget_tpu_torch.physics import cooling
+    n = ins[0].shape[0]
+    rows = cooling._as_rows(rows, n, ins[0].device)
+    n_rows = n if rows is None else rows.shape[0]
+    ins = [x.contiguous() for x in ins]
+    outs = [x.clone() for x in outs]
+    return lambda: cooling._launch(name, n_rows, rows, args, ins, outs)
+
+
+def same_elems(a, b):
+    """Elementwise: a and b hold the same bits and are no NaN."""
+    import torch
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a == b) & (a.view(it) == b.view(it))
+
+
+def first_repeat(hist, eq, period):
+    """Per row, where a loop over hist (its iterates, hist[0] the first)
+    that stops as csrc/cooling.cu's cycle_end does stops: (steps, p), steps
+    the first i whose iterate repeats one of the last `period` (p the
+    distance back, the cycle's period), else the cap len(hist) - 1 with
+    p = 0."""
+    import torch
+    cap = len(hist) - 1
+    shape = eq(hist[0], hist[0])
+    steps = torch.full(shape.shape, cap, dtype=torch.int64,
+                       device=shape.device)
+    per = torch.zeros_like(steps)
+    for i in range(cap, 0, -1):
+        hit = torch.zeros_like(per)
+        for q in range(min(period, i), 0, -1):
+            hit = torch.where(eq(hist[i], hist[i - q]), q, hit)
+        steps = torch.where(hit > 0, i, steps)
+        per = torch.where(hit > 0, hit, per)
+    return steps, per
+
+
+def steffensen_exits(cr, nh, ienergy, ne_init, uvbg):
+    """K6's Steffensen loop on these rows (csrc/cooling.cu: solve_row),
+    from the plain step function run to the cap: per row (iterations,
+    network evaluations).  An iteration evaluates the network at its
+    iterate, and at the iterate's image unless that is the iterate itself;
+    the closing rate evaluates it at the iterate the loop ends on unless
+    that is the last iteration's own."""
+    import torch
+    from mpgadget_tpu_torch.physics import cooling
+    x = [torch.where(ne_init <= 0, 1.0, ne_init)]
+    fixed = []
+    for _ in range(cooling.NE_ITERS):
+        ne1 = cr._ne_internal(nh, ienergy, x[-1] * nh, cr.helium, uvbg) / nh
+        fixed.append(same_elems(ne1 * nh, x[-1] * nh))
+        x.append(cr.equilib_ne_step(nh, ienergy, x[-1], cr.helium, uvbg))
+    n, per = first_repeat(x, same_elems, cooling.NE_PERIOD)
+    X = torch.stack(x, 1)
+    safe = per.clamp(min=1)
+    m = (cooling.NE_ITERS - n) % safe
+    at = torch.where((per > 0) & (m > 0), n - per + m, n)
+    fin = X.gather(1, at[:, None])[:, 0]
+    last = X.gather(1, (n - 1)[:, None])[:, 0]
+    taken = torch.arange(cooling.NE_ITERS, device=n.device)[None, :] \
+        < n[:, None]
+    image = ((~torch.stack(fixed, 1)) & taken).sum(1)
+    closing = (~same_elems(fin * nh, last * nh)).long()
+    return n, n + image + closing
+
+
+def dist(x):
+    """median, 99th percentile and maximum of x."""
+    x = x.double()
+    return {"median": float(x.median()), "p99": float(x.quantile(0.99)),
+            "max": float(x.max())}
+
+
+def exits_summary(name, steps, its, evals, taken):
+    """The exit census of a K6 case (cooling_exits, rate_exits), printed."""
+    from mpgadget_tpu_torch.physics import cooling
+    res = {"rows": int(evals.shape[0])}
+    if steps is not None:
+        res["bisection_steps"] = dist(steps)
+    res["steffensen_iterations"] = dist(its[taken])
+    res["steffensen_iterations"]["at_cap"] = float(
+        (its[taken] == cooling.NE_ITERS).double().mean())
+    res["evaluations"] = dist(evals)
+    m = evals.shape[0] // ROWS_PER_WARP * ROWS_PER_WARP
+    res["evaluations_warp_max"] = dist(
+        evals[:m].view(-1, ROWS_PER_WARP).max(1).values if m else evals)
+    print(f"K6 exits, {name} ({res['rows']} rows, plain step functions on "
+          f"the card): " + (f"bisection steps {res['bisection_steps']}; "
+                            if steps is not None else "")
+          + f"Steffensen iterations a rate {res['steffensen_iterations']}; "
+          f"network evaluations a row {res['evaluations']} (the largest of "
+          f"{ROWS_PER_WARP} consecutive rows {res['evaluations_warp_max']})",
+          flush=True)
+    return res
+
+
+def cooling_exits(name, cr, redshift, uvbg, ins, rows, min_egy, units):
+    """Where K6's loops stop on these do_cooling inputs, row by row, and
+    the work that leaves: the plain step functions (physics/cooling.py)
+    run to the caps on the card, the bisection stopped where (u_lo, u_hi,
+    ne) repeats one of the last BISECT_PERIOD states, each of its rates as
+    steffensen_exits.  Returns the census and, per row, the operations
+    and transcendentals K6 makes (COOL_* counts)."""
+    import torch
+    from mpgadget_tpu_torch.physics import cooling
+
+    u, rho, dt, ne = [x[rows] for x in ins]
+    br = cooling.cooling_bracket(u, rho, dt, min_egy, units)
+    nh = br.rho_cgs * (1 - cr.helium)
+    states = [(br.u_lo, br.u_hi, ne)]
+    its, evs = [], []
+    for _ in range(cooling.BISECT_ITERS):
+        lo, hi, e = states[-1]
+        n, ev = steffensen_exits(cr, nh, 0.5 * (lo + hi), e, uvbg)
+        its.append(n)
+        evs.append(ev)
+        states.append(cooling.bisection_step(cr, redshift, uvbg, br, lo, hi,
+                                             e))
+    steps = first_repeat(
+        states, lambda a, b: same_elems(a[0], b[0]) & same_elems(a[1], b[1])
+        & same_elems(a[2], b[2]), cooling.BISECT_PERIOD)[0]
+    taken = torch.arange(cooling.BISECT_ITERS, device=steps.device)[None, :] \
+        < steps[:, None]
+    its, evs = torch.stack(its, 1), torch.stack(evs, 1)
+    per_step = evs * COOL_NE_OPS + its * COOL_STEFF_OPS + 4 \
+        + COOL_CLOSE_OPS + COOL_BISECT_OPS
+    ops = (per_step * taken).sum(1) + 10
+    trans = ((evs * COOL_NE_TRANSC + COOL_CLOSE_TRANSC) * taken).sum(1)
+    res = exits_summary(name, steps, its, (evs * taken).sum(1), taken)
+    return res, ops, trans
+
+
+def rate_exits(name, cr, uvbg, dens, u, ne, rows):
+    """The same for heatingcooling_rate's inputs: one rate a row."""
+    import torch
+    sel = rows if rows is not None else slice(None)
+    nh = dens[sel] * (1 - cr.helium)
+    its, evs = steffensen_exits(cr, nh, u[sel], ne[sel], uvbg)
+    res = exits_summary(name, None, its[:, None], evs,
+                        torch.ones_like(its[:, None], dtype=torch.bool))
+    ops = evs * COOL_NE_OPS + its * COOL_STEFF_OPS + 4 + COOL_CLOSE_OPS
+    return res, ops, evs * COOL_NE_TRANSC + COOL_CLOSE_TRANSC
+
+
+def k6_bounds(nrows, ops, trans, esize, n_io, full):
+    """K6's bound from the operations its exits leave on these rows (ops,
+    trans: per row) and, for comparing designs, from the full trip counts
+    (full: cooling_work's pair)."""
+    peak = FP64_OPS_PER_S if esize == 8 else FP32_OPS_PER_S
+    nbytes = nrows * (n_io * esize + 8)
+    bms, by = bound(int(ops.sum()), nbytes, peak)
+    full_ms, _ = bound(nrows * full[0], nbytes, peak)
+    return dict(bound_ms=bms, bound_by=by, full_work_bound_ms=full_ms,
+                ops=int(ops.sum()) / nrows,
+                transcendentals=int(trans.sum()) / nrows,
+                full_work_ops=full[0], full_work_transcendentals=full[1])
+
+
 def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
                  reps=5, plain=None):
     """K6's do_cooling on the given inputs (u, rho, dt, ne) and rows,
     against its plain version on the card: u_new and ne/nh within COOL_TOL
     on the listed rows, unlisted rows untouched, two launches
-    bit-identical; the kernel's time (CUDA events), the plain version's
-    (one call) and the bound.  plain: the plain version's (u_new, ne) on
-    these rows from an earlier case on the same inputs (elementwise, so
-    the same values), not timed again."""
+    bit-identical, and bit for bit its first design's (cooling_designs);
+    the kernel's time and the first design's (CUDA graph replays), the
+    plain version's (one call) and the bound, from the operations the
+    exits leave (cooling_exits), the full work's beside it.  plain: the
+    plain version's (u_new, ne) on these rows from an earlier case on the
+    same inputs (elementwise, so the same values), not timed again."""
     import torch
     from mpgadget_tpu_torch.physics import cooling
     f64 = ins[0].dtype == torch.float64
@@ -2603,7 +2826,11 @@ def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
         plain_ms = (time.perf_counter() - t0) * 1e3
     else:
         (ur, nr), plain_ms = plain, None
-    ms = time_ms(kern, reps)
+    launch = cooling_launch(
+        "do_cooling", rows, cooling.kernel_args(cr, redshift, uvbg, min_egy,
+                                                units),
+        ins, [ins[0], ins[3]])
+    ms, simple_ms = cooling_designs(name, kern, launch, (u1, n1), reps)
     if rows is not None:
         rest = torch.ones(ins[0].shape[0], dtype=torch.bool,
                           device=ins[0].device)
@@ -2623,29 +2850,35 @@ def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
           f"K6 {name}: u_new rel {rel_u:.3e}, ne rel {rel_n:.3e} (abs "
           f"{float(err_n.max()):.3e}) against the plain version")
     nrows = int(u.shape[0])
-    ops, trans = cooling_work(True)
-    esize = 8 if f64 else 4
-    bms, by = bound(nrows * ops, nrows * (6 * esize + 8),
-                    FP64_OPS_PER_S if f64 else FP32_OPS_PER_S)
+    exits, ops, trans = cooling_exits(name, cr, redshift, uvbg, ins, sel,
+                                      min_egy, units)
+    b = k6_bounds(nrows, ops, trans, 8 if f64 else 4, 6,
+                  cooling_work(True))
     plain_s = "not timed again" if plain_ms is None else \
         f"{plain_ms:.6f} ms (one call)"
     print(f"K6 do_cooling {name} ({'float64' if f64 else 'float32'}, "
-          f"{nrows} rows): {ms:.6f} ms (CUDA events, mean of {reps}); plain "
-          f"{plain_s}; bound {bms:.6f} ms ({by}: {ops} "
-          f"operations a row, {trans} of them exp/log/pow/sqrt); u_new rel "
-          f"err {rel_u:.3e}, ne/nh max abs err {float(err_n.max()):.3e} "
-          f"(rel {rel_n:.3e}); two launches bit-identical", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                rows=nrows, ops=ops, transcendentals=trans,
+          f"{nrows} rows): {ms:.6f} ms (CUDA graph replays, mean of {reps}),"
+          f" {100 * b['bound_ms'] / ms:.2f}% of the bound; first design "
+          f"{simple_ms:.6f} ms ({simple_ms / ms:.2f}x), bit for bit the "
+          f"same; plain {plain_s}; bound {b['bound_ms']:.6f} ms "
+          f"({b['bound_by']}: {b['ops']:.1f} operations a row the exits "
+          f"leave, {b['transcendentals']:.1f} of them exp/log/pow/sqrt); "
+          f"full-work bound {b['full_work_bound_ms']:.6f} ms "
+          f"({b['full_work_ops']} a row); u_new rel err {rel_u:.3e}, ne/nh "
+          f"max abs err {float(err_n.max()):.3e} (rel {rel_n:.3e}); two "
+          "launches bit-identical", flush=True)
+    return dict(ms=ms, simple_ms=simple_ms, plain_ms=plain_ms,
+                bound_share=b["bound_ms"] / ms, rows=nrows, exits=exits,
                 max_abs_err=float((u - urd).abs().max()), rel_u=rel_u,
-                ne_abs_err=float(err_n.max()), plain=(ur, nr))
+                ne_abs_err=float(err_n.max()), plain=(ur, nr), **b)
 
 
 def rate_case(name, cr, redshift, uvbg, dens, u, ne, rows, reps=5):
     """K6's heatingcooling_rate (get_cooling_time's call) against the plain
     version on the card: ne/nh within COOL_TOL["ne_abs"] and the rate
     within COOL_TOL["rate"] plus COOL_TOL["rate_scale"] of its largest
-    value (float64: COOL_TOL["f64"])."""
+    value (float64: COOL_TOL["f64"]); bit for bit its first design's, both
+    timed (cooling_designs); the bound as cooling_case's (rate_exits)."""
     import torch
     from mpgadget_tpu_torch.physics import cooling
     f64 = dens.dtype == torch.float64
@@ -2665,7 +2898,11 @@ def rate_case(name, cr, redshift, uvbg, dens, u, ne, rows, reps=5):
                                         ne[sel])
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    ms = time_ms(kern, reps)
+    launch = cooling_launch("heatingcooling_rate", rows,
+                            cooling.kernel_args(cr, redshift, uvbg),
+                            [dens, u, ne], [torch.zeros_like(dens), ne])
+    ms, simple_ms = cooling_designs(f"rate {name}", kern, launch, (l1, n1),
+                                    reps)
     lk, nk = l1[sel].double(), n1[sel].double()
     lr, nr = lr.double(), nr.double()
     scale = float(lr.abs().max())
@@ -2681,16 +2918,21 @@ def rate_case(name, cr, redshift, uvbg, dens, u, ne, rows, reps=5):
     check(ok, f"K6 rate {name}: rate err {float(err_l.max()):.3e} (scale "
           f"{scale:.3e}), ne err {float(err_n.max()):.3e}")
     nrows = int(lk.shape[0])
-    ops, trans = cooling_work(False)
-    esize = 8 if f64 else 4
-    bms, by = bound(nrows * ops, nrows * (5 * esize + 8),
-                    FP64_OPS_PER_S if f64 else FP32_OPS_PER_S)
+    exits, ops, trans = rate_exits(f"rate {name}", cr, uvbg, dens, u, ne,
+                                   rows)
+    b = k6_bounds(nrows, ops, trans, 8 if f64 else 4, 5, cooling_work(False))
     print(f"K6 heatingcooling_rate {name} ({'float64' if f64 else 'float32'},"
-          f" {nrows} rows): {ms:.6f} ms; plain {plain_ms:.6f} ms; bound "
-          f"{bms:.6f} ms ({by}); rate max abs err {float(err_l.max()):.3e} "
-          f"of {scale:.3e}, ne/nh {float(err_n.max()):.3e}", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                rows=nrows, max_abs_err=float(err_l.max()))
+          f" {nrows} rows): {ms:.6f} ms (CUDA graph replays, mean of {reps}),"
+          f" {100 * b['bound_ms'] / ms:.2f}% of the bound; first design "
+          f"{simple_ms:.6f} ms, bit for bit the same; plain {plain_ms:.6f} "
+          f"ms; bound {b['bound_ms']:.6f} ms ({b['bound_by']}, "
+          f"{b['ops']:.1f} operations a row the exits leave); full-work "
+          f"bound {b['full_work_bound_ms']:.6f} ms; rate max abs err "
+          f"{float(err_l.max()):.3e} of {scale:.3e}, ne/nh "
+          f"{float(err_n.max()):.3e}", flush=True)
+    return dict(ms=ms, simple_ms=simple_ms, plain_ms=plain_ms,
+                bound_share=b["bound_ms"] / ms, rows=nrows, exits=exits,
+                max_abs_err=float(err_l.max()), **b)
 
 
 def cooling_phase(lres):
@@ -2701,7 +2943,8 @@ def cooling_phase(lres):
     float64, and on the call that listed the fewest rows (a substep's
     closing gas) over those rows; the net rate (get_cooling_time's call)
     on every gas particle; and init_sfr's float64 threshold, one
-    particle."""
+    particle.  Each case also runs the first design (cooling_designs) and
+    counts where K6's loops stop (cooling_exits, rate_exits)."""
     import torch
     from mpgadget_tpu_torch.physics import cooling
     from mpgadget_tpu_torch.utils import constants as C
@@ -2778,8 +3021,10 @@ def sph_entry(name, which, gas, lya, case, big):
 
 def cooling_entry(lya, k6):
     """The kernels line's entry of K6: times on lya's final gas state, the
-    closing subset, float64 and the net rate beside them."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rows")
+    closing subset, float64 and the net rate beside them, each with the
+    first design's."""
+    keys = ("ms", "simple_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "full_work_bound_ms", "ops", "rows", "exits")
     case = k6["cases"]["all gas"]
     return {
         "name": "cooling_network", "route": "cuda",
@@ -2793,11 +3038,16 @@ def cooling_entry(lya, k6):
         "max_rel_err": max(c["rel_u"] for c in k6["cases"].values()),
         "rows": case["rows"], "operations_per_row": case["ops"],
         "transcendentals_per_row": case["transcendentals"],
+        "full_work_operations_per_row": case["full_work_ops"],
+        "full_work_bound_ms": case["full_work_bound_ms"],
+        "exits": case["exits"],
         "closing_subset": {k: k6["cases"]["closing"][k] for k in keys},
         "rows_128": {k: k6["cases"]["128 rows"][k] for k in keys},
         "float64": {k: k6["cases"]["all gas f64"][k] for k in keys},
         "heatingcooling_rate": {k: k6["rate"][k] for k in keys},
         "init_sfr_float64": {k: k6["thresh"][k] for k in keys},
+        "simple_source": "mpgadget_tpu_torch/csrc/cooling_simple.cu",
+        "simple_ms": case["simple_ms"], "bound_share": case["bound_share"],
         "ms": case["ms"], "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
         "library_ms": None}

@@ -44,12 +44,13 @@ SOURCES = {
     # rounds as the plain version's separate PyTorch operations do
     "cooling": ("cooling.cu", ("-fmad=false",)),
     # measurement aids that only chip_smoke.py loads: the serial walks the
-    # port began with (K2's and K3's) and the first designs of K4 and K5,
-    # as yardsticks, and an L2 pointer chase
+    # port began with (K2's and K3's) and the first designs of K4, K5 and
+    # K6, as yardsticks, and an L2 pointer chase
     "treewalk_serial": ("treewalk_serial.cu", ("-fmad=false",)),
     "neighbors_serial": ("neighbors_serial.cu", ("-fmad=false",)),
     "sph_density_simple": ("sph_density_simple.cu", ("-fmad=false",)),
     "sph_hydro_simple": ("sph_hydro_simple.cu", ("-fmad=false",)),
+    "cooling_simple": ("cooling_simple.cu", ("-fmad=false",)),
     "l2chase": ("l2chase.cu", ()),
 }
 

@@ -4,15 +4,21 @@ libgadget/cooling_rates.c and cooling.c).
 
 The reference solves the ionization network per particle with a
 Steffensen fixed point and integrates du implicitly by bisection.  Both
-loops run per gas particle, about 3,050 network evaluations for one
+loops run per gas particle, up to 3,050 network evaluations for one
 implicit step: in plain PyTorch that is some 300,000 elementwise
 operations.  So on CUDA tensors they run as one hand-written kernel, K6
-(``csrc/cooling.cu``): one thread per particle, the bisection and the
-fixed point in registers.  The plain versions here
+(``csrc/cooling.cu``): a group of lanes per particle, the bisection and
+the fixed point in registers.  The plain versions here
 (:func:`do_cooling_reference`, :meth:`CoolingRates.get_heatingcooling_rate`)
 follow the JAX arithmetic operation by operation and run for CPU tensors
 (the tests); the wrappers :func:`do_cooling` and
 :func:`heatingcooling_rate` launch K6 on CUDA tensors or raise.
+
+Both loops stop where every further step would repeat itself (a
+Steffensen iterate or the bisection's state repeating one of the last
+few bit for bit, :func:`iterate`): the result is the full count's, bit
+for bit.  The kernel stops row by row, the plain versions when every
+row of the batch repeats.
 
 Python scalars enter the arithmetic as the JAX package's weak-typed
 scalars do: rounded once to the tensors' type, composite scalar factors
@@ -46,9 +52,12 @@ GRAYOPAC_Z = np.arange(10.0)
 GRAYOPAC = np.array([2.59e-18, 2.37e-18, 2.27e-18, 2.15e-18, 2.02e-18,
                      1.94e-18, 1.82e-18, 1.71e-18, 1.60e-18, 1.60e-18])
 
-# fixed trip counts, compile-time constants of csrc/cooling.cu too
+# trip counts and the longest cycles closed exactly (iterate), compile-time
+# constants of csrc/cooling.cu too
 NE_ITERS = 30        # Steffensen iterations of get_equilib_ne
 BISECT_ITERS = 50    # bisection steps of do_cooling
+NE_PERIOD = 16
+BISECT_PERIOD = 2
 LOG10_E = 0.4342944819032518   # jnp.log10(x) = log(x) * LOG10_E
 
 LAUNCHES = 0         # K6 launches (not plain calls)
@@ -376,20 +385,27 @@ class CoolingRates:
 
     def get_equilib_ne(self, density, ienergy, uvbg, ne_init, helium=None):
         """Fixed-point ne solve with Steffensen acceleration (the
-        scipy_optimize_fixed_point analog); ne_init is ne/nh."""
+        scipy_optimize_fixed_point analog); ne_init is ne/nh.  NE_ITERS
+        iterations, left as soon as the iterates repeat (:func:`iterate`)."""
         helium = self.helium if helium is None else helium
         nh = density * (1 - helium)
         ne0 = torch.where(ne_init <= 0, 1.0, ne_init).to(nh.dtype)
+        ne = iterate(lambda x: self.equilib_ne_step(nh, ienergy, x, helium,
+                                                    uvbg),
+                     ne0, NE_ITERS, NE_PERIOD)
+        return ne * nh
+
+    def equilib_ne_step(self, nh, ienergy, ne0, helium, uvbg):
+        """One Steffensen iteration of :meth:`get_equilib_ne`: the next
+        iterate of ne/nh from ne0, a function of ne0 alone."""
         small = _scalar(1e-15, nh.dtype)
-        for _ in range(NE_ITERS):
-            ne1 = self._ne_internal(nh, ienergy, ne0 * nh, helium, uvbg) / nh
-            ne2 = self._ne_internal(nh, ienergy, ne1 * nh, helium, uvbg) / nh
-            d = ne0 + ne2 - 2.0 * ne1
-            big = torch.abs(d) > small
-            pp = torch.where(big, ne0 - _sq(ne1 - ne0)
-                             / torch.where(big, d, 1.0), ne2)
-            ne0 = torch.clamp(pp, min=0.0)
-        return ne0 * nh
+        ne1 = self._ne_internal(nh, ienergy, ne0 * nh, helium, uvbg) / nh
+        ne2 = self._ne_internal(nh, ienergy, ne1 * nh, helium, uvbg) / nh
+        d = ne0 + ne2 - 2.0 * ne1
+        big = torch.abs(d) > small
+        pp = torch.where(big, ne0 - _sq(ne1 - ne0)
+                         / torch.where(big, d, 1.0), ne2)
+        return torch.clamp(pp, min=0.0)
 
     def get_heatingcooling_rate(self, density, ienergy, redshift, uvbg,
                                 ne_init, helium=None):
@@ -467,30 +483,86 @@ def _rows(fn, rows, outs, *ins):
     return tuple(copies)
 
 
-def do_cooling_reference(cr: CoolingRates, redshift, u_old, rho, dt, uvbg,
-                         ne_guess, min_egy_spec, units: CoolingUnits):
-    """Implicit du integration (DoCooling, cooling.c:57-140): the
-    reference's bracket expanded by 1.1^k as wide initial bounds, then a
-    fixed-count bisection.  Per-particle tensors, internal units.
-    Returns (u_new internal, ne/nh).  The plain version of K6."""
+def unchanged(new, old):
+    """True when every element of new (a tensor or a tuple of them) equals
+    old bit for bit.  A NaN is never unchanged (a NaN never equals
+    itself), and -0 differs from +0."""
+    if isinstance(new, tuple):
+        return all(unchanged(a, b) for a, b in zip(new, old))
+    if not torch.equal(new, old):
+        return False
+    bits = torch.int32 if new.dtype == torch.float32 else torch.int64
+    return torch.equal(new.view(bits), old.view(bits))
+
+
+def iterate(step, x, iters, period):
+    """x after ``iters`` applications of ``step``, a function of its
+    argument alone, stopped as soon as an iterate repeats one of the last
+    ``period`` ones bit for bit: from there the sequence cycles, and the
+    iterate the remaining steps would end on is among those kept.  This
+    is exact; ``csrc/cooling.cu`` takes the same exits row by row, this
+    takes them when every row's iterate repeats (with the same period)."""
+    hist = [x]          # the last `period` iterates, the newest last
+    for i in range(iters):
+        nxt = step(hist[-1])
+        for p in range(1, len(hist) + 1):
+            if unchanged(nxt, hist[-p]):
+                m = (iters - i - 1) % p   # steps left, modulo the cycle
+                return nxt if m == 0 else hist[m - p]
+        hist = (hist + [nxt])[-period:]
+    return hist[-1]
+
+
+@dataclass
+class CoolingBracket:
+    """do_cooling's per-particle constants in cgs and its initial bracket
+    (:func:`cooling_bracket`)."""
+    rho_cgs: torch.Tensor
+    u_old_cgs: torch.Tensor
+    dt_s: torch.Tensor
+    min_u: float
+    u_lo: torch.Tensor
+    u_hi: torch.Tensor
+
+
+def cooling_bracket(u_old, rho, dt, min_egy_spec, units: CoolingUnits):
+    """The bisection's constants and initial bounds: the reference's
+    bracket expanded by 1.1^k as wide bounds (DoCooling, cooling.c:57-140)."""
     rho_cgs = rho * units.density_in_phys_cgs / C.PROTONMASS
     u_old_cgs = torch.clamp(u_old * units.uu_in_cgs,
                             min=min_egy_spec * units.uu_in_cgs)
     dt_s = dt * units.tt_in_s
     min_u = min_egy_spec * units.uu_in_cgs
     # the reference expands by 1.1 from u_old; 1.1^60 ~ 300x
-    u_lo = torch.clamp(u_old_cgs / 300.0, min=min_u)
-    u_hi = u_old_cgs * 300.0
-    ne = ne_guess
-    for _ in range(BISECT_ITERS):
-        u_mid = 0.5 * (u_lo + u_hi)
-        lam, ne = cr.get_heatingcooling_rate(rho_cgs, u_mid, redshift, uvbg,
-                                             ne)
-        val = u_mid - u_old_cgs - lam * dt_s
-        heat = val < 0  # u too small -> move lower bound up
-        u_lo = torch.where(heat, u_mid, u_lo)
-        u_hi = torch.where(heat, u_hi, u_mid)
-    u = torch.clamp(0.5 * (u_lo + u_hi), min=min_u)
+    return CoolingBracket(rho_cgs, u_old_cgs, dt_s, min_u,
+                          torch.clamp(u_old_cgs / 300.0, min=min_u),
+                          u_old_cgs * 300.0)
+
+
+def bisection_step(cr: CoolingRates, redshift, uvbg, br: CoolingBracket,
+                   u_lo, u_hi, ne):
+    """One step of do_cooling's bisection: (u_lo, u_hi, ne/nh) -> the
+    next, a function of that triple alone (given br)."""
+    u_mid = 0.5 * (u_lo + u_hi)
+    lam, ne = cr.get_heatingcooling_rate(br.rho_cgs, u_mid, redshift, uvbg,
+                                         ne)
+    val = u_mid - br.u_old_cgs - lam * br.dt_s
+    heat = val < 0  # u too small -> move lower bound up
+    return torch.where(heat, u_mid, u_lo), torch.where(heat, u_hi, u_mid), ne
+
+
+def do_cooling_reference(cr: CoolingRates, redshift, u_old, rho, dt, uvbg,
+                         ne_guess, min_egy_spec, units: CoolingUnits):
+    """Implicit du integration (DoCooling, cooling.c:57-140): wide initial
+    bounds, then a bisection of BISECT_ITERS steps over (u_lo, u_hi, ne),
+    left as soon as that state repeats (:func:`iterate`).  Per-particle
+    tensors, internal units.  Returns (u_new internal, ne/nh).  The plain
+    version of K6."""
+    br = cooling_bracket(u_old, rho, dt, min_egy_spec, units)
+    u_lo, u_hi, ne = iterate(
+        lambda st: bisection_step(cr, redshift, uvbg, br, *st),
+        (br.u_lo, br.u_hi, ne_guess), BISECT_ITERS, BISECT_PERIOD)
+    u = torch.clamp(0.5 * (u_lo + u_hi), min=br.min_u)
     return u / units.uu_in_cgs, ne
 
 

@@ -200,11 +200,18 @@ def _cooling_inputs(n, seed):
 @pytest.fixture(scope="module")
 def cooling_runs():
     """do_cooling on 96 particles, compiled JAX and the port, for each of
-    (UV background off/on) x (float32, float64); the port's float32 run
-    also on a listed subset of the rows."""
+    (UV background off/on) x (float32, float64), with the port's
+    bisection steps counted; the port's float32 run also on a listed
+    subset of the rows."""
     jc, tc = _pair()
     ins, min_egy, cu = _cooling_inputs(96, 11)
     out = {}
+    step = tcool.bisection_step
+
+    def counted(*a):
+        out["steps", uv, dt] += 1
+        return step(*a)
+
     for uv in (False, True):
         juv, tuv = _uv(uv)
         for dt in (np.float32, np.float64):
@@ -214,8 +221,13 @@ def cooling_runs():
                                  jnp.asarray(ins[3], dt), None, min_egy,
                                  jcool.CoolingUnits(**cu))
             targs = [torch.as_tensor(x, dtype=tdt) for x in ins]
-            t = tcool.do_cooling(tc, 2.0, *targs[:3], tuv, targs[3],
-                                 min_egy, tcool.CoolingUnits(**cu))
+            out["steps", uv, dt] = 0
+            tcool.bisection_step = counted
+            try:
+                t = tcool.do_cooling(tc, 2.0, *targs[:3], tuv, targs[3],
+                                     min_egy, tcool.CoolingUnits(**cu))
+            finally:
+                tcool.bisection_step = step
             out[uv, dt] = (j, t)
             if dt == np.float32 and uv:
                 rows = torch.arange(1, 96, 3)
@@ -255,6 +267,120 @@ def test_do_cooling_rows(cooling_runs):
                                                            nf[rows])
     assert torch.equal(ur[rest], u[rest]) and torch.equal(nr[rest],
                                                           ne[rest])
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def test_iterate_closes_cycles_exactly():
+    """tcool.iterate, the plain loops' exit, against every step taken: rows
+    that enter a cycle of 1-5 iterates after 0-2 others, from several
+    starts, with cycles of up to 1, 2, 4 and 16 iterates closed, 0-13 steps.
+    Where the batch's iterates cycle with a period it closes, it returns
+    the iterate the full count ends on; otherwise it takes every step."""
+    for tail in range(3):
+        for length in range(1, 6):
+            succ = torch.tensor(list(range(1, tail + length)) + [tail])
+            x0 = torch.tensor([0.0, min(1, tail + length - 1), tail])
+
+            def step(x):
+                return succ[x.long()].float()
+
+            for period in (1, 2, 4, 16):
+                for iters in range(14):
+                    want = x0
+                    for _ in range(iters):
+                        want = step(want)
+                    got = tcool.iterate(step, x0, iters, period)
+                    assert torch.equal(_bits(got), _bits(want)), \
+                        (tail, length, period, iters)
+
+
+@pytest.mark.parametrize("uv", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_equilib_ne_exits_are_exact(uv, dtype, monkeypatch):
+    """get_equilib_ne, which stops where the Steffensen iterates repeat,
+    against equilib_ne_step run NE_ITERS times, bit for bit, on 16-row
+    slices of the grid (self-shielded rows with the UV background, and a
+    NaN row in the first slice); most slices stop early."""
+    _, tc = _pair()
+    _, tuv = _uv(uv)
+    dens, u, ne = (torch.as_tensor(x[:128], dtype=torch.float32
+                                   if dtype == np.float32 else torch.float64)
+                   for x in _grid(400, 7))
+    u[5] = float("nan")
+    steps = []
+    real = tcool.CoolingRates.equilib_ne_step
+
+    def counted(*a):
+        steps[-1] += 1
+        return real(*a)
+
+    for k in range(0, 128, 16):
+        d, e, n = dens[k:k + 16], u[k:k + 16], ne[k:k + 16]
+        nh = d * (1 - tc.helium)
+        x = torch.where(n <= 0, 1.0, n)
+        for _ in range(tcool.NE_ITERS):
+            x = real(tc, nh, e, x, tc.helium, tuv)
+        steps.append(0)
+        monkeypatch.setattr(tcool.CoolingRates, "equilib_ne_step", counted)
+        got = tc.get_equilib_ne(d, e, tuv, n)
+        monkeypatch.setattr(tcool.CoolingRates, "equilib_ne_step", real)
+        assert torch.equal(_bits(got), _bits(x * nh)), k
+    assert steps[0] == tcool.NE_ITERS       # the NaN row never repeats
+    assert sum(s < tcool.NE_ITERS for s in steps) >= 3
+
+
+@pytest.mark.parametrize("uv", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_do_cooling_exits_are_exact(cooling_runs, uv, dtype):
+    """do_cooling_reference, whose bisection stops where (u_lo, u_hi, ne)
+    repeats, against bisection_step run BISECT_ITERS times on the same 96
+    rows, bit for bit (in float32 the bisection stops early; in float64
+    (u_lo, u_hi) keep halving past the cap)."""
+    _, tc = _pair()
+    _, tuv = _uv(uv)
+    ins, min_egy, cu = _cooling_inputs(96, 11)
+    ins = [torch.as_tensor(x, dtype=torch.float32 if dtype == np.float32
+                           else torch.float64) for x in ins]
+    units = tcool.CoolingUnits(**cu)
+    br = tcool.cooling_bracket(*ins[:3], min_egy, units)
+    st = (br.u_lo, br.u_hi, ins[3])
+    for _ in range(tcool.BISECT_ITERS):
+        st = tcool.bisection_step(tc, 2.0, tuv, br, *st)
+    want = (torch.clamp(0.5 * (st[0] + st[1]), min=br.min_u)
+            / units.uu_in_cgs, st[2])
+    _, got = cooling_runs[uv, dtype]
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    steps = cooling_runs["steps", uv, dtype]
+    assert (steps < tcool.BISECT_ITERS) == (dtype == np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_nan_or_a_signed_zero_is_no_repeat(dtype):
+    """tcool.unchanged, the exit's test: equal bits, and no NaN (a NaN
+    never equals itself) and no -0 against +0; so tcool.iterate takes
+    every step of a batch holding a NaN row, as the plain cooling loops
+    do (a NaN row on the real step: test_equilib_ne_exits_are_exact)."""
+    x = torch.tensor([0.5, 0.0, 3.0], dtype=dtype)
+    assert tcool.unchanged(x, x.clone())
+    assert tcool.unchanged((x, x), (x.clone(), x.clone()))
+    assert not tcool.unchanged(x, torch.tensor([0.5, -0.0, 3.0],
+                                               dtype=dtype))
+    y = torch.tensor([0.5, float("nan"), 3.0], dtype=dtype)
+    assert not tcool.unchanged(y, y.clone())
+    steps = []
+
+    def step(v):
+        steps.append(1)
+        return v.clone()
+
+    assert torch.equal(_bits(tcool.iterate(step, x, 30, 16)), _bits(x))
+    assert len(steps) == 1
+    got = tcool.iterate(step, y, 30, 16)
+    assert len(steps) == 31 and torch.equal(_bits(got), _bits(y))
 
 
 def _write_treecool(path):

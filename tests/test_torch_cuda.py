@@ -906,3 +906,107 @@ def test_cooling_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     monkeypatch.setattr(cool.kernels, "load", no_library)
     with pytest.raises(RuntimeError, match="no cooling"):
         cool.do_cooling(*args)
+
+
+def _rate_params(kind):
+    """CoolingParams of one case of the option tests: a (recomb, cooling)
+    pair, or "helium" (HeliumHeatOn with the default tables)."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    if kind == "helium":
+        return cool.CoolingParams(MinGasTemp=100.0, HeliumHeatOn=True,
+                                  HeliumHeatThresh=10.0, HeliumHeatAmp=1.5,
+                                  HeliumHeatExp=-0.5)
+    return cool.CoolingParams(MinGasTemp=100.0, recomb=kind[0],
+                              cooling=kind[1])
+
+
+def _against_first_design(cr, uvbg, c, rows):
+    """Both K6 entry points on case c against the first design
+    (csrc/cooling_simple.cu, through chip_smoke.simple_cooling): every
+    output bit for bit; with rows, the unlisted rows as they came in;
+    one launch counted for each call of the kernel, none for the first
+    design's."""
+    import chip_smoke
+    from mpgadget_tpu_torch.physics import cooling as cool
+
+    def cooling():
+        return cool.do_cooling(cr, 1.5, c["u"], c["rho"], c["dt"], uvbg,
+                               c["ne"], c["min_egy"], c["cu"], rows=rows)
+
+    def rate():
+        return cool.heatingcooling_rate(cr, c["dens"], c["ucgs"], 3.0, uvbg,
+                                        c["ne"], rows=rows)
+
+    for call, kept in ((cooling, (c["u"], c["ne"])),
+                       (rate, (torch.zeros_like(c["u"]), c["ne"]))):
+        before = cool.LAUNCHES
+        new = call()
+        assert cool.LAUNCHES == before + 1
+        first = chip_smoke.simple_cooling(call)
+        torch.cuda.synchronize()
+        assert cool.LAUNCHES == before + 1
+        for x, y in zip(new, first):
+            assert chip_smoke.same_bits(x, y)
+        if rows is not None:
+            rest = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+            rest[rows] = False
+            for x, k in zip(new, kept):
+                assert chip_smoke.same_bits(x[rest], k[rest])
+
+
+def _unconverged(cr, uvbg, dens, ucgs, ne):
+    """The rows whose Steffensen iterates (the rate's fixed point from
+    ne) repeat none of the last NE_PERIOD in NE_ITERS iterations: the rows
+    on which K6 runs all of them."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    nh = dens * (1 - cr.helium)
+    x = [torch.where(ne <= 0, 1.0, ne)]
+    for _ in range(cool.NE_ITERS):
+        x.append(cr.equilib_ne_step(nh, ucgs, x[-1], cr.helium, uvbg))
+    it = torch.int32 if ne.dtype == torch.float32 else torch.int64
+    moving = torch.ones_like(ne, dtype=torch.bool)
+    for i in range(1, len(x)):
+        for p in range(1, min(i, cool.NE_PERIOD) + 1):
+            moving &= ~((x[i] == x[i - p])
+                        & (x[i].view(it) == x[i - p].view(it)))
+    return moving
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("uv", [False, True])
+@pytest.mark.parametrize("rows", [False, True])
+def test_cooling_kernel_matches_first_design(cuda, dtype, uv, rows):
+    """K6 against its first design, bit for bit, on 509 rows (a multiple
+    neither of a row's lanes nor of a warp), all or a listed third: the
+    card-test grid with rows at min_u, zero ne_guess, and dense
+    self-shielded rows, some of whose Steffensen iterations (with the UV
+    background) run all 30 without repeating (checked on the CPU with the
+    plain step)."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr, uvbg = _cooling_rates(), _uvbg(uv)
+    c = _cooling_case(cuda, dtype, n=509, seed=29)
+    c["u"][::11] = 0.5 * c["min_egy"]
+    c["ne"][::7] = 0.0
+    dense = slice(3, None, 4)
+    c["rho"][dense] *= 1e4
+    c["dens"][dense] *= 1e4
+    if uv:
+        assert bool(_unconverged(cr, uvbg, c["dens"][dense].cpu(),
+                                 c["ucgs"][dense].cpu(),
+                                 c["ne"][dense].cpu()).any())
+    idx = torch.arange(2, 509, 3, device=cuda) if rows else None
+    _against_first_design(cr, uvbg, c, idx)
+
+
+@pytest.mark.parametrize("kind", [(r, c) for r in range(3) for c in range(3)]
+                         + ["helium"])
+def test_cooling_kernel_options_match_first_design(cuda, kind):
+    """K6 against its first design, bit for bit, with every recombination
+    x cooling option and with HeliumHeatOn (float32, UV background on,
+    121 rows, a listed half)."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    p = _rate_params(kind)
+    cr = cool.CoolingRates(p, cool.TreeCool(None, p))
+    c = _cooling_case(cuda, torch.float32, n=121, seed=31)
+    _against_first_design(cr, _uvbg(True), c,
+                          torch.arange(0, 121, 2, device=cuda))
