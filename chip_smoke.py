@@ -146,7 +146,35 @@ fails the run (non-zero exit, no result line) if it fails:
    point), the plain version's (one call), the bound and the kernel's
    share of it; and in every case where K6's loops stop (cooling_exits,
    rate_exits: the plain step functions run to the caps on the card, row
-   by row) and the operations that leaves.
+   by row) and the operations that leaves;
+18. neutrinos: dm-small from its own paramfiles with MassiveNuLinRespOn
+   1 and MNue 0.2 in both (genic in-process), planes at a = 0.2 and
+   0.25 and OutputEnergyDebug (NU_SWITCHES), to a = 0.25, the kernels'
+   launch counts reset just before and read just after (so in every
+   phase below): the delta_tot history holds an entry for each PM step,
+   grav_pm is finite, the multiplier is above 1 at the lowest k; its
+   P(k) printed beside phase 10's at a = 0.25, bin by bin; energy.txt
+   printed and held to one row a snapshot; the six planes read back
+   (finite, zero mean, NPART); "PMgrav" with the neutrino response;
+19. RestartFlags 1, 2, 4 and 99 through the CLI on phase 10's output,
+   each in a copy of it, four processes at once: flags 2 and 1 resume
+   from PART_001 to a = 0.25, their positions and P(k) held to the
+   uninterrupted run's and to each other's (RESUME_POS_TOL,
+   FLAG4_PK_RTOL); flag 4's P(k) of the last snapshot against the
+   in-run P(k); flag 99 on it against GRAVITY_TEST_LIMITS, with the
+   direct sum's seconds;
+20. hybrid neutrinos: dm-small with 32^3 type-2 particles beside the
+   64^3 DM (HYBRID_GENIC, HYBRID_SWITCHES: NuPartTime 0.2, to a = 0.22):
+   grav_pm of type 2 zero at every force call before NuPartTime and
+   nonzero after;
+21. the light cone: dm-small's IC in a 500 Mpc/h box with LightconeOn
+   (to a = 0.15): rows written, each inside the shell the run crossed,
+   "Lightcone" seconds;
+22. one IC through both packages: the committed reduced dm-small IC
+   (tests/torch_parity/IC, 24^3, Nmesh 48) run twice to a = 0.25, each
+   run's P(k) and PIGs against the JAX package's outputs from it
+   (tests/torch_parity/jax_outputs.json) and the two runs against each
+   other, within PARITY_PK_RTOL.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -1687,6 +1715,561 @@ def restart_phase(workdir, snapnum, in_process, device="cuda",
     return dict(seconds=seconds, groups=ng)
 
 
+# -- the dark-matter options: neutrinos, hybrid neutrinos, the light cone,
+#    potential planes, OutputEnergyDebug, RestartFlag 1/2/4/99, and one IC
+#    through both packages --------------------------------------------------
+
+NU_SWITCHES = {"MassiveNuLinRespOn": 1, "MNue": 0.2,
+               "PlaneOutputList": "0.2,0.25", "OutputEnergyDebug": 1}
+HYBRID_GENIC = {"NgridNu": 32, "Max_nuvel": 3000, "MNue": 0.2, "MNum": 0.2,
+                "MNut": 0.2}
+HYBRID_SWITCHES = {"MassiveNuLinRespOn": 1, "HybridNeutrinosOn": 1,
+                   "Vcrit": 3000, "NuPartTime": 0.2, "MNue": 0.2,
+                   "MNum": 0.2, "MNut": 0.2,
+                   # depth: to a = 0.22, past NuPartTime (dm-small: 0.25)
+                   "OutputList": "0.22", "TimeMax": 0.22}
+# dm-small's IC in a 500 Mpc/h box: its replicas reach the horizon from
+# z = 9 (a 64 Mpc/h box, with BoxBoost 20, reaches 2.2 Gpc/h: no row
+# before z ~ 3); depth to a = 0.15 (dm-small's first output)
+LIGHTCONE_GENIC = {"BoxSize": 500000}
+LIGHTCONE_SWITCHES = {"LightconeOn": 1, "OutputList": "0.15",
+                      "TimeMax": 0.15}
+# RestartFlag 99 on dm-small's final state: the accuracy phase's limits
+GRAVITY_TEST_LIMITS = {"mean_rel_err": 5e-3, "p99_rel_err": 5e-2}
+# one IC through both packages (tests/test_torch_parity.py): the reduced
+# dm-small (Ngrid 24) IC made once by the port's genic, and the JAX
+# package's outputs from it on the CPU
+PARITY_DIR = os.path.join(HERE, "tests", "torch_parity")
+PARITY_NMESH = 48
+# the card's P(k) against the JAX package's and against a second card run
+# of the same IC: the CPU test's tolerance (tests/test_torch_parity.py
+# PK_RTOL, 5x the 9.8e-6 by which the port on the CPU differs from the
+# JAX package), which also covers the card's run-to-run spread (2.0e-6
+# and 4.7e-6 in two smoke runs on the card: the sums in no fixed order) ten
+# times over
+PARITY_PK_RTOL = 5e-5
+# RestartFlag 4's P(k) of the final snapshot against the in-run P(k) of
+# the same a, below half the mesh's Nyquist k: the snapshot's positions
+# lack the run's random box shift, which moves the CIC window's aliasing;
+# the resumed runs' P(k) against the uninterrupted run's likewise (their
+# box shifts differ from the restart on).  ~5x the 4.2e-3 / 4.6e-3
+# measured on the card (64^3; 4.9e-2 at 16^3 on the CPU, shot noise)
+FLAG4_PK_RTOL = 0.02
+# a resumed run's positions against the uninterrupted run's, and flag 1's
+# against flag 2's: the 99th percentile of the per-particle distance, in
+# box units.  Their random box shifts differ from the restart on, and
+# with them the tree's force errors over 5 PM steps: 5.1e-6 on the card
+# (flag 1 against flag 2, the card's sums alone: 9.9e-10); 20x that.  A
+# resumed run that lost its state would miss by the displacements
+# themselves, 1e-3 of the box and more
+RESUME_POS_TOL = 1e-4
+
+
+def dm_variant(workdir, device, genic_over=None, gadget_over=None, ic=None,
+               spy=None, ngrid=None, nmesh=None):
+    """dm-small from its own paramfiles with the overrides named: genic
+    (in-process, GENIC_OVERRIDE and genic_over) unless ic names an IC,
+    then Simulation.run() to the paramfile's TimeMax, every kernel's
+    LAUNCHES reset just before the run and read just after.  spy(sim) may
+    wrap the simulation's methods before it runs.  Returns a dict."""
+    import torch
+    from mpgadget_tpu_torch.genic.main import run_genic
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.params import create_genic_parameter_set
+
+    os.makedirs(workdir, exist_ok=True)
+    gadget_over = dict(gadget_over or {})
+    if nmesh is not None:      # a smaller rehearsal on the CPU
+        gadget_over["Nmesh"] = nmesh
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        if ic is None:
+            over = dict(GENIC_OVERRIDE, **(genic_over or {}))
+            if ngrid is not None:
+                over["Ngrid"] = ngrid
+            gps = create_genic_parameter_set()
+            gps.parse_file(paramfile_copy(
+                os.path.join(HERE, "examples", "dm-small", "paramfile.genic"),
+                "paramfile.genic", over))
+            run_genic(gps, device=device)
+        else:
+            gadget_over["InitCondFile"] = ic
+        genic_seconds = time.perf_counter() - t0
+        paramfile = os.path.abspath(paramfile_copy(
+            os.path.join(HERE, "examples", "dm-small", "paramfile.gadget"),
+            "paramfile.gadget", gadget_over))
+        sim, _ = build_simulation(paramfile, device=device)
+        if spy is not None:
+            spy(sim)
+        pk.LAUNCHES = tw.LAUNCHES = pairs.LAUNCHES = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nsteps = sim.run(verbose=False)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"pair": pk.LAUNCHES, "walk": tw.LAUNCHES,
+                    "neighbors": pairs.LAUNCHES}
+    finally:
+        os.chdir(cwd)
+    out = os.path.join(workdir, sim.cfg.output_dir)
+    check(sim.ti_current == sim.timeline.ti_end,
+          f"{workdir}: ran {nsteps} PM steps to a={sim.atime}")
+    if device == "cuda":
+        for name in ("pair", "walk"):
+            check(launches[name] >= sim.tree_force_calls > 0,
+                  f"{workdir}: {name} kernel launched {launches[name]} times "
+                  f"for {sim.tree_force_calls} tree-force evaluations")
+        if sim.cfg.snapshot_with_fof:
+            check(launches["neighbors"] > 0,
+                  f"{workdir}: the neighbour kernel was not launched")
+    return dict(sim=sim, nsteps=nsteps, seconds=seconds, out=out,
+                launches=launches, paramfile=paramfile,
+                genic_seconds=genic_seconds,
+                walltime=dict(sim.walltime.totals))
+
+
+def read_fits(path):
+    """(header cards as {key: value text}, float array) of a FITS image of
+    io/fits.py: one header block of 80-byte cards, big-endian data."""
+    import numpy as np
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    cards, pos = {}, 0
+    while True:
+        block = raw[pos:pos + 2880].decode("ascii")
+        pos += 2880
+        done = False
+        for i in range(0, 2880, 80):
+            card = block[i:i + 80]
+            key = card[:8].strip()
+            if key == "END":
+                done = True
+                break
+            if card[8:10] == "= ":
+                cards[key] = card[10:].split("/")[0].strip()
+        if done:
+            break
+    dtype = {"-32": ">f4", "-64": ">f8"}[cards["BITPIX"]]
+    n0, n1 = int(cards["NAXIS1"]), int(cards["NAXIS2"])
+    data = np.frombuffer(raw[pos:pos + n0 * n1 * int(dtype[-1])], dtype)
+    return cards, data.reshape(n1, n0)
+
+
+def neutrino_phase(workdir, hres_out, device="cuda", ngrid=None, nmesh=None):
+    """dm-small with massive neutrinos in linear response (NU_SWITCHES in
+    both paramfiles: MNue 0.2; planes at a = 0.2 and 0.25;
+    OutputEnergyDebug) to a = 0.25: the delta_tot history holds an entry
+    for each PM step, grav_pm is finite, the multiplier nufac is above 1
+    at the lowest k (tests/test_neutrinos.py:141-153); its P(k) beside
+    the no-neutrino run's (hres_out) at the same a, bin by bin;
+    energy.txt printed and checked; the planes read back and checked."""
+    import copy
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.physics import neutrinos_lra
+    table_step = neutrinos_lra.DeltaTotTable.step
+    host = []
+
+    def timed_step(self, *a, **k):
+        t0 = time.perf_counter()
+        out = table_step(self, *a, **k)
+        host.append(time.perf_counter() - t0)
+        return out
+
+    neutrinos_lra.DeltaTotTable.step = timed_step
+    try:
+        res = dm_variant(workdir, device, genic_over={"MNue": 0.2},
+                         gadget_over=NU_SWITCHES, ngrid=ngrid, nmesh=nmesh)
+    finally:
+        neutrinos_lra.DeltaTotTable.step = table_step
+    sim = res["sim"]
+    table = sim._nu_table_state
+    check(table is not None, "no neutrino table")
+    check(len(table.scalefact) == res["nsteps"] + 1,
+          f"delta_tot history of {len(table.scalefact)} entries for "
+          f"{res['nsteps']} PM steps and the first forces")
+    check(bool(torch.isfinite(sim.pdata.grav_pm).all()), "grav_pm not finite")
+    ps = sim.last_power
+    _, nufac = copy.deepcopy(table).step(
+        sim.atime, np.sqrt(np.maximum(ps.power[ps.nmodes > 0], 0)))
+    check(nufac[0] > 1.0, f"nufac at the lowest k {nufac[0]} <= 1")
+    name = f"powerspectrum-{sim.atime:0.4f}.txt"
+    nu = np.loadtxt(os.path.join(res["out"], name))
+    plain = np.loadtxt(os.path.join(hres_out, name))
+    print(f"neutrinos (MNue 0.2) dm-small to a={sim.atime:.6f}: "
+          f"{res['nsteps']} PM steps in {res['seconds']:.6f} s (genic "
+          f"{res['genic_seconds']:.6f} s); walltime PMgrav (the neutrino "
+          f"response included) {res['walltime'].get('PMgrav', 0.0):.6f} s, "
+          f"of it the host's DeltaTotTable.step {sum(host):.6f} s in "
+          f"{len(host)} calls; Planes {res['walltime'].get('Planes', 0.0):.6f}"
+          f" s; delta_tot "
+          f"history {len(table.scalefact)} entries; nufac at the lowest k "
+          f"{nufac[0]:.6f}, at the highest {nufac[-1]:.6f}; kernel launches "
+          f"{res['launches']}", flush=True)
+    print(f"{name}, k [h/Mpc], P with MNue 0.2 (total matter) and without, "
+          f"ratio: " + "; ".join(
+              f"{a[0]:g} {a[1]:g} {b[1]:g} {a[1] / b[1]:.4f}"
+              for a, b in zip(nu, plain)), flush=True)
+    with open(os.path.join(res["out"], "energy.txt")) as fh:
+        energy = fh.read()
+    print("energy.txt:\n" + energy.rstrip(), flush=True)
+    rows = np.loadtxt(os.path.join(res["out"], "energy.txt"), ndmin=2)
+    check(rows.shape == (sim.snapshot_count, 29) and np.isfinite(rows).all()
+          and (rows[:, 3] < 0).all() and (rows[:, 4] > 0).all(),
+          f"energy.txt rows {rows.shape}: one a snapshot, 29 columns, "
+          "EnergyPot < 0 < EnergyKin")
+    planes = sorted(f for f in os.listdir(res["out"]) if f.endswith(".fits"))
+    check(len(planes) == 6, f"planes written: {planes}")
+    for f in planes:
+        cards, pix = read_fits(os.path.join(res["out"], f))
+        res_ = int(cards["NAXIS1"])
+        rms = float(np.sqrt(np.mean(pix.astype(np.float64) ** 2)))
+        # the slab is the whole box (PlaneThickness <= 0): every particle
+        # but those on its boundary, |dn| = 0.5 exactly
+        npart = int(cards["NPART"])
+        check(pix.shape == (res_, res_) and np.isfinite(pix).all() and rms > 0
+              and abs(float(pix.astype(np.float64).mean())) < 1e-4 * rms
+              and 0.999 * int(sim.pdata.num_valid) <= npart
+              <= int(sim.pdata.num_valid)
+              and cards["UNIT"] == "'rad2    '",
+              f"plane {f}: {res_}^2 pixels, rms {rms}, cards {cards}")
+        print(f"plane {f}: {res_}^2 pixels, rms {rms:.6e} rad^2, zero "
+              f"mean, NPART {cards['NPART']}, Z {cards['Z']}, CHI "
+              f"{cards['CHI']} Mpc/h", flush=True)
+    return res
+
+
+def hybrid_phase(workdir, device="cuda", ngrid=None, nmesh=None,
+                 ngrid_nu=None):
+    """dm-small with hybrid neutrinos (HYBRID_GENIC: 32^3 type-2
+    particles beside the 64^3 DM; HYBRID_SWITCHES: NuPartTime 0.2 inside
+    the run): before NuPartTime the type-2 particles are tracers with
+    zero grav_pm, after it they gravitate (nonzero grav_pm)."""
+    import numpy as np
+    import torch
+    seen = []
+
+    def spy(sim):
+        forces = sim.compute_forces
+
+        def recorded(*a, **k):
+            forces(*a, **k)
+            nu = sim.pdata.valid & (sim.pdata.ptype == 2)
+            seen.append((sim.atime, float(sim.pdata.grav_pm[nu].abs().max()),
+                         sim.CP.hybrid_nu_tracer(sim.atime)))
+        sim.compute_forces = recorded
+
+    genic = dict(HYBRID_GENIC)
+    if ngrid_nu is not None:
+        genic["NgridNu"] = ngrid_nu
+    res = dm_variant(workdir, device, genic_over=genic,
+                     gadget_over=HYBRID_SWITCHES, spy=spy, ngrid=ngrid,
+                     nmesh=nmesh)
+    sim = res["sim"]
+    n_nu = int((sim.pdata.valid & (sim.pdata.ptype == 2)).sum())
+    check(n_nu == genic["NgridNu"] ** 3, f"{n_nu} type-2 particles")
+    before = [s for s in seen if s[2]]
+    after = [s for s in seen if not s[2]]
+    check(before and after, f"NuPartTime not inside the run: {seen}")
+    check(all(s[1] == 0 for s in before),
+          f"tracers with grav_pm before NuPartTime: {before}")
+    check(all(s[1] > 0 for s in after),
+          f"type-2 grav_pm zero after NuPartTime: {after}")
+    print(f"hybrid neutrinos ({n_nu} type-2 beside "
+          f"{int((sim.pdata.ptype == 1).sum())} DM, NuPartTime "
+          f"{HYBRID_SWITCHES['NuPartTime']}): {res['nsteps']} PM steps to "
+          f"a={sim.atime:.6f} in {res['seconds']:.6f} s; max |grav_pm| of "
+          f"type 2 is 0 at {len(before)} force calls before NuPartTime, "
+          f"{min(s[1] for s in after):.6e}..{max(s[1] for s in after):.6e} "
+          f"at {len(after)} after; kernel launches {res['launches']}",
+          flush=True)
+    return res
+
+
+def lightcone_phase(workdir, device="cuda", ngrid=None, nmesh=None):
+    """dm-small's IC in a 500 Mpc/h box with LightconeOn to a = 0.15: rows
+    were written, each inside the shell of horizon distances the run
+    crossed, with a sample fraction in (0, 1]."""
+    import numpy as np
+    from mpgadget_tpu_torch.physics import lightcone
+    replicas = lightcone.Lightcone.replicas
+    counts = []
+
+    def counted(self):
+        reps = replicas(self)
+        counts.append(len(reps))
+        return reps
+
+    lightcone.Lightcone.replicas = counted
+    try:
+        res = dm_variant(workdir, device, genic_over=LIGHTCONE_GENIC,
+                         gadget_over=LIGHTCONE_SWITCHES, ngrid=ngrid,
+                         nmesh=nmesh)
+    finally:
+        lightcone.Lightcone.replicas = replicas
+    sim = res["sim"]
+    lc = sim._lightcone
+    rows = np.fromfile(os.path.join(workdir, lc.path),
+                       np.float64).reshape(-1, 4)
+    check(len(rows) > 0 and len(rows) == lc.n_written,
+          f"light cone rows: {len(rows)} in the file, {lc.n_written} counted")
+    d = np.linalg.norm(rows[:, :3], axis=1)
+    lo, hi = lc.get_horizon(sim.atime), lc.get_horizon(sim.time_ic)
+    check(bool(((d >= lo * (1 - 1e-6)) & (d <= hi * (1 + 1e-6))).all()
+               & ((rows[:, 3] > 0) & (rows[:, 3] <= 1)).all()),
+          f"light cone rows outside the shell [{lo}, {hi}]")
+    print(f"light cone (dm-small's IC, BoxSize 500 Mpc/h) to "
+          f"a={sim.atime:.6f}: {res['nsteps']} PM steps in "
+          f"{res['seconds']:.6f} s; {len(rows)} rows written at "
+          f"{d.min() / 1000:.3f}..{d.max() / 1000:.3f} Mpc/h, sample "
+          f"fraction {rows[:, 3].min():.6f}..{rows[:, 3].max():.6f}; "
+          f"replicas straddling the shell per PM step {counts}; "
+          f"walltime Lightcone {res['walltime'].get('Lightcone', 0.0):.6f} s"
+          f", PMgrav {res['walltime'].get('PMgrav', 0.0):.6f} s; kernel "
+          f"launches {res['launches']}", flush=True)
+    return res
+
+
+def snapshot_positions(path):
+    """Type-1 positions of a snapshot in ID order."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    bf = BigFile(path)
+    sp = snap_io.read_species(bf, 1, snap_io.read_header(bf))
+    return sp["pos"][np.argsort(sp["pid"])]
+
+
+def box_diff(a, b, box):
+    """The largest and the 99th percentile of the particles' minimum-image
+    distances, over the box."""
+    import numpy as np
+    d = (a - b + box / 2) % box - box / 2
+    r = np.sqrt(np.sum(d * d, axis=1)) / box
+    return float(r.max()), float(np.percentile(r, 99))
+
+
+def restart_flags_phase(workdir, snapnum, device="cuda", nmesh=None):
+    """RestartFlags 1, 2, 4 and 99 through the port's CLI on the
+    hierarchical dm-small run in workdir (snapshots 0..2 at a = 0.15, 0.2,
+    0.25, and the smoke's own last, snapnum), each in a copy of its
+    output, the four processes at once: flag 2 resumes from PART_001 and
+    flag 1 from the last snapshot Snapshots.txt lists, cut to PART_001;
+    both must reach a = 0.25 and write PART_002 again, whose positions
+    are held to the uninterrupted run's and to each other's (the card's
+    sums in no fixed order make the resumed runs differ).  Flag 4's P(k)
+    of the final snapshot against the in-run P(k) of the same a
+    (FLAG4_PK_RTOL); flag 99 on it (GRAVITY_TEST_LIMITS).  On the CPU
+    the calls run in-process (mpgadget_tpu_torch.main.run_cli).  nmesh:
+    the hierarchical run's, for a smaller rehearsal on the CPU."""
+    import shutil
+    import numpy as np
+    from mpgadget_tpu_torch.main import run_cli as port_cli
+    paramfile = os.path.join(HERE, "examples", "dm-small", "paramfile.gadget")
+    if nmesh is not None:
+        paramfile = paramfile_copy(paramfile, os.path.join(
+            workdir, "paramfile.gadget"), {"Nmesh": nmesh})
+    src = os.path.join(workdir, "output")
+    jobs = {"1": ["1"], "2": ["2", "1"], "4": ["4", str(snapnum)],
+            "99": ["99", str(snapnum)]}
+    dirs = {}
+    for flag in jobs:
+        d = os.path.join(workdir, f"restart{flag}")
+        shutil.copytree(src, os.path.join(d, "output"), ignore=(
+            shutil.ignore_patterns("PIG_*") if flag in ("4", "99")
+            else None))
+        dirs[flag] = d
+    with open(os.path.join(dirs["1"], "output", "Snapshots.txt")) as fh:
+        lines = fh.read().splitlines()
+    with open(os.path.join(dirs["1"], "output", "Snapshots.txt"), "w") as fh:
+        fh.write("\n".join(lines[:2]) + "\n")
+    for flag in ("1", "2"):
+        out = os.path.join(dirs[flag], "output")
+        os.rename(os.path.join(out, "PART_002"), os.path.join(out, "full_002"))
+    a_end = float(lines[-1].split()[1])
+    inrun_name = f"powerspectrum-{a_end:0.4f}.txt"
+    inrun = np.loadtxt(os.path.join(src, inrun_name))
+    t0 = time.perf_counter()
+    logs = {}
+    if device == "cuda":
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        procs = {flag: subprocess.Popen(
+            [sys.executable, "-m", "mpgadget_tpu_torch.main", paramfile,
+             *args], cwd=dirs[flag], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for flag, args in jobs.items()}
+        for flag, p in procs.items():
+            try:
+                logs[flag], _ = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                for q in procs.values():
+                    q.kill()
+                raise SmokeFailure(f"RestartFlag {flag} CLI timed out")
+            check(p.returncode == 0, f"RestartFlag {flag} CLI failed: "
+                  + logs[flag][-2000:])
+    else:
+        import contextlib
+        import io
+        for flag, args in jobs.items():
+            cwd = os.getcwd()
+            os.chdir(dirs[flag])
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    port_cli(paramfile, int(args[0]),
+                             int(args[1]) if len(args) > 1 else None,
+                             device=device)
+            finally:
+                os.chdir(cwd)
+            logs[flag] = buf.getvalue()
+    seconds = time.perf_counter() - t0
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    full = os.path.join(dirs["2"], "output", "full_002")
+    box = snap_io.read_header(BigFile(full)).BoxSize
+    full = snapshot_positions(full)
+    pos = {}
+    for flag in ("1", "2"):
+        out = os.path.join(dirs[flag], "output")
+        check(os.path.isdir(os.path.join(out, "PART_002")),
+              f"RestartFlag {flag} wrote no PART_002")
+        pos[flag] = snapshot_positions(os.path.join(out, "PART_002"))
+    d2 = box_diff(pos["2"], full, box)
+    d1 = box_diff(pos["1"], full, box)
+    d12 = box_diff(pos["1"], pos["2"], box)
+    from mpgadget_tpu_torch.params import create_gadget_parameter_set
+    ps = create_gadget_parameter_set()
+    ps.parse_file(paramfile)
+    k_half_ny = 0.5 * np.pi * ps["Nmesh"] / (box / 1000.0)
+    low = inrun[:, 0] < k_half_ny
+
+    def pk_off(flag):
+        got = np.loadtxt(os.path.join(dirs[flag], "output", inrun_name))
+        check(np.array_equal(got[:, 2], inrun[:, 2]),
+              f"RestartFlag {flag}'s P(k) bins differ from the in-run's")
+        return np.abs(got[:, 1] / inrun[:, 1] - 1)
+
+    r4 = pk_off("4")
+    r2, r1 = pk_off("2")[low].max(), pk_off("1")[low].max()
+    acc = [ln for ln in logs["99"].splitlines()
+           if ln.startswith("Force accuracy")]
+    direct = [ln for ln in logs["99"].splitlines()
+              if ln.startswith("Direct summation")]
+    check(len(acc) == 1 and len(direct) == 1,
+          f"RestartFlag 99 printed {acc} {direct}")
+    stats = {k: float(v) for k, v in
+             (kv.split("=") for kv in acc[0].split(":")[1].split())}
+    print(f"RestartFlags 1, 2, 4, 99 through the CLI on {src}, four "
+          f"processes at once: {seconds:.6f} s; flag 2 (from PART_001) "
+          f"and flag 1 (Snapshots.txt cut to PART_001) reached a = "
+          f"{a_end:g}: PART_002's positions against the uninterrupted "
+          f"run's (largest, 99th percentile) {d2[0]:.3e}, {d2[1]:.3e} / "
+          f"{d1[0]:.3e}, {d1[1]:.3e} of the box, against each other "
+          f"{d12[0]:.3e}, {d12[1]:.3e}; their P(k) at a = {a_end:g} "
+          f"against the uninterrupted run's {r2:.3e} / {r1:.3e} below half "
+          f"the Nyquist k; flag 4 on PART_{snapnum:03d} against the in-run "
+          f"{inrun_name}: largest relative difference {r4[low].max():.3e} "
+          f"below half the Nyquist k ({low.sum()} bins; "
+          f"{r4.max():.3e} over all {len(r4)}); flag 99 on "
+          f"PART_{snapnum:03d}: {acc[0]}; {direct[0]}", flush=True)
+    check(r4[low].max() <= FLAG4_PK_RTOL and max(r1, r2) <= FLAG4_PK_RTOL,
+          f"RestartFlag 4's, 2's and 1's P(k) off the in-run P(k) by "
+          f"{r4[low].max():.3e}, {r2:.3e}, {r1:.3e}")
+    check(max(d1[1], d2[1], d12[1]) <= RESUME_POS_TOL,
+          f"resumed runs' positions off by {d2[1]:.3e}, {d1[1]:.3e}, "
+          f"{d12[1]:.3e} of the box (99th percentile)")
+    check(stats["mean"] < GRAVITY_TEST_LIMITS["mean_rel_err"]
+          and stats["p99"] < GRAVITY_TEST_LIMITS["p99_rel_err"],
+          f"RestartFlag 99 statistics {stats} above {GRAVITY_TEST_LIMITS}")
+    direct_s = float(direct[0].rsplit(",", 1)[1].split()[0])
+    return dict(seconds=seconds, flag2=d2, flag1=d1, flag12=d12,
+                direct_seconds=direct_s,
+                flag2_pk=float(r2), flag1_pk=float(r1),
+                flag4=float(r4[low].max()), flag99=stats)
+
+
+def parity_pk(outdir):
+    """{file name: (k, P, N) rows} of a run's power spectra."""
+    import numpy as np
+    return {f: np.loadtxt(os.path.join(outdir, f), ndmin=2)[:, :3]
+            for f in sorted(os.listdir(outdir))
+            if f.startswith("powerspectrum-")}
+
+
+def pk_diff(a, b):
+    """The largest relative difference of P over the runs' common files;
+    fails unless both hold the same files, mode counts and k."""
+    import numpy as np
+    check(sorted(a) == sorted(b), f"power spectra {sorted(a)} / {sorted(b)}")
+    worst = 0.0
+    for f in a:
+        check(np.array_equal(a[f][:, 2], b[f][:, 2])
+              and np.allclose(a[f][:, 0], b[f][:, 0], rtol=1e-5, atol=0),
+              f"{f}: modes or k differ")
+        worst = max(worst, float(np.abs(a[f][:, 1] / b[f][:, 1] - 1).max()))
+    return worst
+
+
+def parity_phase(workdir, device="cuda"):
+    """The committed reduced dm-small IC (tests/torch_parity/IC, Ngrid 24)
+    run twice on the card with dm-small's paramfile at Nmesh 48 to a =
+    0.25: each run's power spectra and PIGs against the JAX package's
+    (tests/torch_parity/jax_outputs.json, from the same IC on the CPU) and
+    against each other, P within PARITY_PK_RTOL bin by bin, the same
+    group counts, lengths and masses (1e-5)."""
+    import numpy as np
+    with open(os.path.join(PARITY_DIR, "jax_outputs.json")) as fh:
+        jax_out = json.load(fh)
+    want = {f: np.asarray(v)[:, :3] for f, v in jax_out["powerspectra"].items()}
+    runs = []
+    for i in (1, 2):
+        res = dm_variant(os.path.join(workdir, f"parity{i}"), device,
+                         ic=os.path.join(PARITY_DIR, "IC"),
+                         gadget_over={"Nmesh": PARITY_NMESH})
+        res["pk"] = parity_pk(res["out"])
+        res["pigs"] = {}
+        for name in sorted(f for f in os.listdir(res["out"])
+                           if f.startswith("PIG_")):
+            from mpgadget_tpu_torch.io.bigfile import BigFile
+            bf = BigFile(os.path.join(res["out"], name))
+            mass = bf.open("FOFGroups/Mass").read()
+            lbt = bf.open("FOFGroups/LengthByType").read()
+            res["pigs"][name] = (sorted(int(x) for x in lbt.sum(axis=1)),
+                                 np.sort(mass.astype(np.float64)))
+        runs.append(res)
+    spread = pk_diff(runs[0]["pk"], runs[1]["pk"])
+    to_jax = [pk_diff(r["pk"], want) for r in runs]
+    for r in runs:
+        check(sorted(r["pigs"]) == sorted(jax_out["pigs"]),
+              f"PIGs {sorted(r['pigs'])}")
+        for name, w in jax_out["pigs"].items():
+            lengths, mass = r["pigs"][name]
+            check(lengths == w["lengths"] and np.allclose(
+                mass, w["masses"], rtol=1e-5, atol=0),
+                f"{name}: groups {lengths} against the JAX package's "
+                f"{w['lengths']}")
+    print(f"parity (tests/torch_parity/IC, 24^3, Nmesh {PARITY_NMESH}, to "
+          f"a={runs[0]['sim'].atime:.6f}): {len(want)} power spectra, "
+          f"PIGs {[len(v['lengths']) for v in jax_out['pigs'].values()]} "
+          f"groups; two card runs {runs[0]['seconds']:.6f} / "
+          f"{runs[1]['seconds']:.6f} s; P(k) card against card (the "
+          f"run-to-run spread) {spread:.3e}, card against the JAX package "
+          f"on the CPU {to_jax[0]:.3e} / {to_jax[1]:.3e} (rtol "
+          f"{PARITY_PK_RTOL:g})", flush=True)
+    check(spread <= PARITY_PK_RTOL,
+          f"two card runs' P(k) differ by {spread:.3e}")
+    check(max(to_jax) <= PARITY_PK_RTOL,
+          f"the card's P(k) differs from the JAX package's by {max(to_jax)}")
+    return dict(runs=runs, spread=spread, to_jax=to_jax)
+
+
 # -- the gas phase: examples/star-small without its subgrid physics ------
 
 GAS_SWITCHES_OFF = {"CoolingOn": 0, "StarformationOn": 0, "BlackHoleOn": 0,
@@ -3169,6 +3752,17 @@ def run():
         fres = fof_phase(hres["sim"], hres["snapnum"])
         nres = neighbor_phase(fres, l2_ns)
         rres = restart_phase(work, hres["snapnum"], fres["groups"])
+        nu = neutrino_phase(os.path.join(work, "nu"),
+                            os.path.join(work, "output"))
+        rflags = restart_flags_phase(work, hres["snapnum"])
+    with tempfile.TemporaryDirectory() as work:
+        hyb = hybrid_phase(work)
+    with tempfile.TemporaryDirectory() as work:
+        lcone = lightcone_phase(work)
+    with tempfile.TemporaryDirectory() as work:
+        par = parity_phase(work)
+    dm_paths = {"neutrinos": nu, "hybrid": hyb, "lightcone": lcone,
+                "parity_1": par["runs"][0], "parity_2": par["runs"][1]}
     hsteps = hres["step_seconds"]
     print(f"hierarchical dm-small 64^3 Nmesh {NMESH} from the genic IC on "
           f"{card}: {hres['nsteps']} PM steps to a={hres['atime']:.6f} in "
@@ -3257,6 +3851,7 @@ def run():
     k2 = wres[0]                    # the lattice's first tree, LL = 512
     launches = {k: res["launches"][k] + hres["launches"][k]
                 + gas["launches"][k] + lya["launches"][k]
+                + sum(r["launches"][k] for r in dm_paths.values())
                 for k in ("pair", "walk")}
     k3 = nres[0]                    # the final dm-small state's FOF inputs
     print(json.dumps({"kernels": [{
@@ -3267,7 +3862,8 @@ def run():
         "launches_by_path": {"global": res["launches"]["pair"],
                              "hierarchical": hres["launches"]["pair"],
                              "star_small": gas["launches"]["pair"],
-                             "lya": lya["launches"]["pair"]},
+                             "lya": lya["launches"]["pair"]} | {
+            k: r["launches"]["pair"] for k, r in dm_paths.items()},
         "max_abs_err": max([r[wp]["max_abs_err"] for r in kres
                             for wp in (False, True)]
                            + [cres["pair"]["max_abs_err"]]),
@@ -3287,7 +3883,8 @@ def run():
         "launches_by_path": {"global": res["launches"]["walk"],
                              "hierarchical": hres["launches"]["walk"],
                              "star_small": gas["launches"]["walk"],
-                             "lya": lya["launches"]["walk"]},
+                             "lya": lya["launches"]["walk"]} | {
+            k: r["launches"]["walk"] for k, r in dm_paths.items()},
         # over all walk cases, the clustered one's monopoles included
         "max_abs_err": max([r["max_abs_err"] for r in wres]
                            + [cres["walk"]["max_abs_err"]]),
@@ -3309,11 +3906,14 @@ def run():
         "replaces": "mpgadget_tpu/ops/pairs.py:108",
         "launches": (hres["launches"]["neighbors"] + fres["launches"]
                      + gas["launches"]["neighbors"]
-                     + lya["launches"]["neighbors"]),
+                     + lya["launches"]["neighbors"]
+                     + sum(r["launches"]["neighbors"]
+                           for r in dm_paths.values())),
         "launches_by_path": {"hierarchical": hres["launches"]["neighbors"],
                              "fof_final_state": fres["launches"],
                              "star_small": gas["launches"]["neighbors"],
-                             "lya": lya["launches"]["neighbors"]},
+                             "lya": lya["launches"]["neighbors"]} | {
+            k: r["launches"]["neighbors"] for k, r in dm_paths.items()},
         # leaf lists, counts, flags and visits: identical on both sets
         # and in the serial mode
         "max_abs_err": max(r["max_abs_err"] for r in nres),

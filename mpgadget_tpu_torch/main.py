@@ -5,8 +5,8 @@ Usage: python -m mpgadget_tpu_torch.main <paramfile> [RestartFlag [SnapNum]]
 (gadget/main.c:56-68).  RestartFlag: omitted = start from IC; 1 = resume
 from the last snapshot in Snapshots.txt; 2 <num> = restart from snapshot
 num; 3 <num> = FOF halo catalogue (PIG_<num>) of snapshot num; 4 <num> =
-measure power spectrum.  RestartFlag 99 (gravity self-test) is not
-ported yet.
+measure power spectrum; 99 [num] = force-accuracy self-test (the tree
+force against direct summation) of the IC, or of snapshot num.
 """
 
 import os
@@ -204,23 +204,15 @@ def build_simulation(paramfile_or_ps, override=None, snapshot=None,
     return sim, ps
 
 
-def main():
-    if len(sys.argv) < 2:
-        print(__doc__)
-        sys.exit(1)
-    paramfile = sys.argv[1]
-    restart = int(sys.argv[2]) if len(sys.argv) > 2 else 0
-    snapnum = int(sys.argv[3]) if len(sys.argv) > 3 else None
-    if restart == 99:
-        raise NotImplementedError(
-            "RestartFlag 99 is not supported by mpgadget_tpu_torch yet")
+def run_cli(paramfile, restart=0, snapnum=None, device="cuda"):
+    """What ``main`` does for a paramfile and RestartFlag, on ``device``.
+    A resumed run (flags 1 and 2) numbers its snapshots on from the one
+    it started from (the reference's SnapshotFileCount), so that it
+    writes no snapshot over an earlier one."""
     if restart in (2, 3, 4) and snapnum is None:
         raise SystemExit("RestartFlag %d needs a snapshot number" % restart)
-    if not torch.cuda.is_available():
-        raise SystemExit("mpgadget_tpu_torch.main needs a CUDA device")
-
     snapshot = None
-    if restart == 1 or (restart in (2, 3, 4) and snapnum is not None):
+    if restart == 1 or (restart in (2, 3, 4, 99) and snapnum is not None):
         ps = create_gadget_parameter_set()
         ps.parse_file(paramfile)
         outdir = ps["OutputDir"]
@@ -230,16 +222,33 @@ def main():
                 snapnum = int(fh.read().split()[-2])
         snapshot = os.path.join(outdir, f"{base}_{snapnum:03d}")
 
-    sim, ps = build_simulation(paramfile, snapshot=snapshot, device="cuda")
+    sim, ps = build_simulation(paramfile, snapshot=snapshot, device=device)
     if restart == 3:
         sim.run_fof(save=True, label=snapnum)
-        return
+        return sim
+    if restart == 99:
+        sim.run_gravity_test()
+        return sim
     if restart == 4:
         sim.compute_forces()
         D1 = sim.CP.GrowthFactor(sim.atime, 1.0)
         print(sim.last_power.save(sim.cfg.output_dir, sim.atime, D1))
-        return
+        return sim
+    if restart in (1, 2):
+        sim.snapshot_count = snapnum + 1
     sim.run()
+    return sim
+
+
+def main():
+    if len(sys.argv) < 2:
+        print(__doc__)
+        sys.exit(1)
+    restart = int(sys.argv[2]) if len(sys.argv) > 2 else 0
+    snapnum = int(sys.argv[3]) if len(sys.argv) > 3 else None
+    if not torch.cuda.is_available():
+        raise SystemExit("mpgadget_tpu_torch.main needs a CUDA device")
+    run_cli(sys.argv[1], restart, snapnum, device="cuda")
 
 
 if __name__ == "__main__":

@@ -130,8 +130,28 @@ def _power_bins(rho_k, k2, kz, deconv, nmesh, nbins):
     return bsum(w * m2), bsum(w), bsum(w * keff), norm
 
 
+def interp(x, xp, fp):
+    """``jnp.interp`` in float32: linear between the knots xp
+    (increasing), fp[0] below the first and fp[-1] above the last.  XLA
+    contracts the last multiply-add into an FMA: the product of two
+    float32 values is exact in float64, so the float64 sum rounded to
+    float32 gives its bits."""
+    xp = xp.to(torch.float32)
+    fp = fp.to(torch.float32)
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, len(xp) - 1)
+    lo_x, lo_f = xp[i - 1], fp[i - 1]
+    dx = xp[i] - lo_x
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float32).eps))
+    q = (x - lo_x) / torch.where(dx0, 1.0, dx)
+    f = torch.where(dx0, lo_f, (lo_f.double() + q.double()
+                                * (fp[i] - lo_f).double()).float())
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
 def _pm_force_kernel(ipos, weights, nmesh, boxsize, gconst, asmth,
-                     compute_potential=True, nbins=None):
+                     nu_logk=None, nu_fac=None, compute_potential=True,
+                     nbins=None):
     """Core PM computation; returns per-particle accel/potential and the
     raw binned power-spectrum accumulators."""
     device = ipos.device
@@ -141,6 +161,16 @@ def _pm_force_kernel(ipos, weights, nmesh, boxsize, gconst, asmth,
     kx, ky, kz = _kmodes(nmesh, device)
     k2 = kx * kx + ky * ky + kz * kz
     deconv = _deconv((kx, ky, kz), nmesh)
+
+    if nu_logk is not None:
+        # massive-neutrino linear response: multiply modes by the
+        # interpolated 1 + f_nu delta_nu/delta_cdm table, before the power
+        # binning (potential_transfer, gravpm.c:415-436)
+        kmag = torch.sqrt(k2) * float(np.float32(2 * np.pi)
+                                      / np.float32(boxsize))
+        fac_nu = interp(torch.log(torch.clamp(kmag, min=1e-30)),
+                        nu_logk, nu_fac)
+        rho_k = rho_k * torch.where(k2 > 0, fac_nu, 1.0)
 
     if nbins is None:
         nbins = nmesh
@@ -160,15 +190,23 @@ def _pm_force_kernel(ipos, weights, nmesh, boxsize, gconst, asmth,
     return accel, out_pot, pk
 
 
-def pm_force(ipos, weights, cfg: PMConfig, compute_potential: bool = True):
+def pm_force(ipos, weights, cfg: PMConfig, nu_table=None,
+             compute_potential: bool = True):
     """PM long-range force for particles at fixed-point positions.
 
-    Returns (accel f32[N,3] comoving internal, potential f32[N] or None,
-    PowerSpectrum).  weights must be zero for invalid particles.
+    nu_table: optional (logk, fac) arrays for the neutrino linear response
+    multiplier.  Returns (accel f32[N,3] comoving internal, potential
+    f32[N] or None, PowerSpectrum).  weights must be zero for invalid
+    particles.
     """
+    nu_logk, nu_fac = (None, None) if nu_table is None else (
+        torch.as_tensor(np.asarray(nu_table[0], np.float32),
+                        device=ipos.device),
+        torch.as_tensor(np.asarray(nu_table[1], np.float32),
+                        device=ipos.device))
     accel, pot, (p, n, k, norm) = _pm_force_kernel(
         ipos, weights, cfg.nmesh, cfg.boxsize, cfg.G, cfg.asmth,
-        compute_potential)
+        nu_logk, nu_fac, compute_potential)
     ps = _finalize_power(p.cpu().numpy(), n.cpu().numpy(),
                          k.cpu().numpy(), norm, cfg)
     return accel, pot, ps

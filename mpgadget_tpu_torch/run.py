@@ -8,10 +8,16 @@ and StarformationOn the gas source terms (physics/cooling.py, the cooling
 kernel K6; physics/sfr.py: the effective EOS, star particles, quick
 Lyman-alpha conversion; ``sfr.txt``), in-line power spectra, snapshot
 output at sync points and, with SnapshotWithFOF, a friends-of-friends halo
-catalogue (PIG) beside each snapshot (:meth:`Simulation.run_fof`).  The PM
-step is either one global KDK step or, with SplitGravityTimestepsOn,
-sub-cycled over per-particle power-of-two timebins whose short-range and
-hydro forces and gas source terms are computed for the closing set only
+catalogue (PIG) beside each snapshot (:meth:`Simulation.run_fof`).  The
+dark-matter options run too: massive neutrinos in linear response
+(physics/neutrinos_lra.py, a multiplier of the PM modes) and hybrid
+neutrino particles, the past light cone (physics/lightcone.py), lensing
+potential planes (physics/plane.py), OutputEnergyDebug (``energy.txt``
+and the state checks) and the force-accuracy self-test of RestartFlag 99
+(:meth:`Simulation.run_gravity_test`).  The PM step is either one global
+KDK step or, with SplitGravityTimestepsOn, sub-cycled over per-particle
+power-of-two timebins whose short-range and hydro forces and gas source
+terms are computed for the closing set only
 (:meth:`Simulation.step_hierarchical`).  Switches this port does not carry
 yet (winds, black holes, metal return, metal cooling and UV fluctuation
 tables, ...) raise NotImplementedError naming the parameter (see
@@ -212,12 +218,7 @@ def check_supported(cfg: SimConfig, has_gas: bool):
     package (with HydroOn = 0 gas particles are collisionless); the
     cooling tables only when the gas cools."""
     always = (
-        ("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
-        ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
         ("BlackHoleOn", cfg.black_hole_on),
-        ("LightconeOn", cfg.lightcone_on),
-        ("PlaneOutputList", bool(cfg.plane_output_list)),
-        ("OutputEnergyDebug", cfg.output_energy_debug),
     )
     with_gas = (
         ("WindOn", cfg.wind_on),
@@ -287,6 +288,12 @@ class Simulation:
         # Morton-tree force errors between steps; subtracted on output
         self._ipos_offset = np.zeros(3, np.uint32)
         self._nstep_total = 0
+        # neutrino delta_tot history (physics/neutrinos_lra.DeltaTotTable),
+        # made at the first PM step, and a snapshot's saved one
+        self._nu_table_state = None
+        self._nu_restore = None
+        self._lightcone = None      # physics/lightcone.Lightcone
+        self._plane_times = None    # set by _ensure_plane_params
 
     # -- setup ---------------------------------------------------------
 
@@ -370,6 +377,9 @@ class Simulation:
                 spec.name: bf.open(f"4/{spec.name}").read()
                 for spec in blocks_for_type(4)
                 if not spec.wronly and f"4/{spec.name}" in bf})
+        # neutrino delta_tot history (petaio_read_neutrinos analog)
+        if "Neutrino" in bf:
+            sim._nu_restore = snap_io.read_neutrino_state(bf)
         return sim
 
     def _restore_stars(self, blocks):
@@ -416,9 +426,29 @@ class Simulation:
     def compute_forces(self, measure_power=True, tree=True):
         """Long-range PM force (+ short-range tree when enabled)."""
         weights = torch.where(self.pdata.valid, self.pdata.mass, 0.0)
+        # hybrid-nu passive tracers: before NuPartTime type-2 rows neither
+        # source nor receive the PM force (hybrid_nu_gravpm_is_active,
+        # gravpm.c:83-85,469-475)
+        nu_tracer = self.CP.hybrid_nu_tracer(self.atime)
+        if nu_tracer:
+            weights = torch.where(self.pdata.ptype == 2, 0.0, weights)
         self.walltime.start("PMgrav")
-        accel, pot, ps = pm_force(self.pdata.ipos, weights, self.pm_cfg)
+        nu_table = None
+        if self.cfg.massive_nu_lin_resp_on:
+            nu_table = self._neutrino_response(weights)
+        accel, pot, ps = pm_force(self.pdata.ipos, weights, self.pm_cfg,
+                                  nu_table=nu_table)
+        if nu_tracer:
+            accel = torch.where((self.pdata.ptype == 2)[:, None], 0.0,
+                                accel)
         self.walltime.stop("PMgrav")
+        if self.cfg.massive_nu_lin_resp_on:
+            # the modes were scaled by nufac (total matter) but the
+            # zero-mode norm is still the CDM mass squared: rescale so that
+            # the output is the total matter power (gravpm.c:442-447)
+            onu = self.CP.ONu.nopart(self.atime) * self.atime ** 3
+            fac = self.CP.Omega0 / (self.CP.Omega0 - onu)
+            ps.power = ps.power / (fac * fac)
         self.pdata = self.pdata.replace(grav_pm=accel)
         if pot is not None:
             self.pdata = self.pdata.replace(potential=pot)
@@ -432,6 +462,26 @@ class Simulation:
         else:
             self.pdata = self.pdata.replace(
                 grav_accel=torch.zeros_like(self.pdata.grav_accel))
+
+    def _neutrino_response(self, weights):
+        """Per-PM-step neutrino linear-response table (logk, nufac)
+        (compute_neutrino_power, gravpm.c:307-330): a deposit, FFT and
+        binning of its own for delta_cdm, then the host table's step."""
+        from .pm.gravity import measure_power
+        from .physics.neutrinos_lra import DeltaTotTable
+        from .utils import constants as C
+        ps = measure_power(self.pdata.ipos, weights, self.pm_cfg)
+        good = ps.nmodes > 0
+        scale = self.cfg.units.UnitLength_in_cm / C.CM_PER_MPC
+        k_int = ps.k[good] * scale          # internal 1/length
+        delta = np.sqrt(np.maximum(ps.power[good], 0.0))
+        if self._nu_table_state is None:
+            self._nu_table_state = DeltaTotTable(
+                self.CP, k_int, delta, self.atime, self.cfg.units)
+            if self._nu_restore is not None:
+                # snapshot-embedded history (neutrinos_lra.c:379-452)
+                self._nu_table_state.load_state(self._nu_restore)
+        return self._nu_table_state.step(self.atime, delta)
 
     def _make_tree_gravity(self):
         from .gravity.treepm import TreeGravity
@@ -452,23 +502,24 @@ class Simulation:
             # Potential on PM steps, gravshort-tree.c:137)
             with_potential=False)
 
-    def _tree_compute(self, **kw):
+    def _tree_compute(self, pdata=None, **kw):
         self._tree_grav.timer = self.tree_timer
         self.tree_force_calls += 1
-        return self._tree_grav.compute(self.pdata, **kw)
+        return self._tree_grav.compute(
+            self.pdata if pdata is None else pdata, **kw)
 
-    def _tree_compute_retry(self, **kw):
-        """The tree force (TreeGravity.compute with kw) through the
-        restartable walk: capacities double on overflow and the walk runs
-        again (the export-buffer-full retry analog,
-        treewalk.c:801-902)."""
+    def _tree_compute_retry(self, pdata=None, **kw):
+        """The tree force (TreeGravity.compute of pdata, by default the
+        simulation's, with kw) through the restartable walk: capacities
+        double on overflow and the walk runs again (the export-buffer-full
+        retry analog, treewalk.c:801-902)."""
         if self._tree_grav is None:
             self._tree_grav = self._make_tree_gravity()
         for attempt in range(8):
             # a failed (overflowed) attempt must not consume the "BH
             # opening on the first call" state (TreeUseBH=2)
             bh_prev = self._tree_grav._use_bh_now
-            res = self._tree_compute(**kw)
+            res = self._tree_compute(pdata, **kw)
             if not bool(self._tree_grav.last_overflow):
                 return res
             self.tree_retries.append(tuple(
@@ -483,8 +534,13 @@ class Simulation:
     def _compute_tree_forces(self, active=None):
         """Short-range forces for every particle, or (active: bool[N])
         for the blocks holding an active target; inactive rows keep their
-        old grav_accel."""
-        accel = self._tree_compute_retry(target_active=active)
+        old grav_accel.  Before NuPartTime the hybrid neutrino tracers'
+        mass is left out of the tree (force_tree_active_moments,
+        forcetree.c:162)."""
+        pd = self.pdata
+        if self.CP.hybrid_nu_tracer(self.atime):
+            pd = pd.replace(mass=torch.where(pd.ptype == 2, 0.0, pd.mass))
+        accel = self._tree_compute_retry(pd, target_active=active)
         if active is not None:
             accel = torch.where(active[:, None], accel,
                                 self.pdata.grav_accel)
@@ -1006,6 +1062,13 @@ class Simulation:
             ipos=(self.pdata.ipos + delta[None, :]) & MASK32)
         self._ipos_offset = new
 
+    def _unshifted_ipos(self):
+        """Fixed-point positions on the device with the internal random
+        shift removed."""
+        off = torch.as_tensor(self._ipos_offset.astype(np.int64),
+                              device=self.device)
+        return (self.pdata.ipos - off[None, :]) & MASK32
+
     def _output_pos(self, sel=None):
         """Float positions with the internal random shift removed
         (petaio position IO, partmanager.h:79-84)."""
@@ -1194,9 +1257,17 @@ class Simulation:
                 self.step(dti)
             nsteps += 1
             hci.update_longest_step(_time.monotonic() - step_t0)
+            if self.cfg.plane_output_list:
+                self._maybe_write_planes()
+            if self.cfg.lightcone_on:
+                self._run_lightcone(dti)
+            if self.cfg.output_energy_debug:
+                self._check_invariants()
             sp = self.timeline.find_current_sync_point(self.ti_current)
             if sp is not None and sp.write_snapshot:
                 self.write_snapshot()
+                if self.cfg.output_energy_debug:
+                    self.energy_statistics()
                 # BH seeding from the catalogue waits for BlackHoleOn,
                 # which check_supported refuses
                 if sp.write_fof or (self.cfg.snapshot_with_fof
@@ -1225,6 +1296,182 @@ class Simulation:
             if max_steps and nsteps >= max_steps:
                 break
         return nsteps
+
+    def _check_invariants(self):
+        """State sanity checks of OutputEnergyDebug (the reference's DEBUG
+        blocks, timestep.c and exchange.c): finite velocities and entropy,
+        positive masses; an emergency snapshot, then an error, if not."""
+        valid = self.pdata.valid
+        checks = [
+            ("non-finite velocity", torch.isfinite(torch.where(
+                valid[:, None], self.pdata.vel, 0.0)).all()),
+            ("non-positive mass",
+             (torch.where(valid, self.pdata.mass, 1.0) > 0).all())]
+        if self.sph is not None and self._gas_initialized:
+            ent = torch.where(self.gas_mask, self.sph.entropy, 1.0)
+            checks.append(("bad gas entropy",
+                           (torch.isfinite(ent) & (ent > 0)).all()))
+        ok = torch.stack([c for _, c in checks]).cpu().numpy()
+        bad = [name for (name, _), good in zip(checks, ok) if not good]
+        if bad:
+            try:
+                self.write_snapshot(label=999)
+            except Exception:
+                pass
+            raise RuntimeError(
+                f"state invariants violated at a={self.atime:g}: "
+                + ", ".join(bad))
+
+    def _run_lightcone(self, dti):
+        """Append horizon-crossing particles (lightcone_compute,
+        lightcone.c:176-190) once per PM step."""
+        from .physics.lightcone import Lightcone
+        if self._lightcone is None:
+            self._lightcone = Lightcone(
+                self.CP, self.time_ic,
+                self.cfg.units.UnitVelocity_in_cm_per_s,
+                self.cfg.output_dir, self.cfg.boxsize)
+        ddrift = self.tf.drift(self.ti_current - dti, self.ti_current)
+        self.walltime.start("Lightcone")
+        # fixed_to_pos in float64, then float32, as the JAX package
+        pos = (self._unshifted_ipos().to(torch.float64)
+               * (self.cfg.boxsize / 2.0 ** 32)).to(torch.float32)
+        is_dm = self.pdata.valid & (self.pdata.ptype == 1)
+        self._lightcone.compute(self.atime, ddrift, pos, self.pdata.vel,
+                                is_dm, self.pdata.pid)
+        self.walltime.stop("Lightcone")
+
+    def _ensure_plane_params(self):
+        from .physics.plane import PlaneParams
+        if self._plane_times is None:
+            def values(text, conv):
+                return [conv(x) for x in text.replace(",", " ").split()]
+            self._plane_times = sorted(values(self.cfg.plane_output_list,
+                                              float))
+            self._planes_done = set()
+            self._plane_params = PlaneParams(
+                output_times=self._plane_times,
+                resolution=self.cfg.plane_resolution,
+                thickness=self.cfg.plane_thickness,
+                cut_points=values(self.cfg.plane_cut_points, float),
+                normals=values(self.cfg.plane_normals, int),
+                massive_nu_correction=self.cfg.plane_nu_correction,
+                double_out=self.cfg.plane_double_out)
+
+    def _maybe_write_planes(self):
+        """Write lensing potential planes for any plane output times
+        crossed this step (write_plane, plane.c:572)."""
+        from .physics.plane import write_planes
+        self._ensure_plane_params()
+        atime = self.atime
+        for i, t in enumerate(self._plane_times):
+            if i in self._planes_done or t > atime + 1e-9:
+                continue
+            self.walltime.start("Planes")
+            write_planes(self, i, self._plane_params)
+            self.walltime.stop("Planes")
+            self._planes_done.add(i)
+
+    # -- statistics ----------------------------------------------------
+
+    def energy_statistics(self):
+        """energy.txt: kinetic/internal/potential energies per component
+        (energy_statistics, stats.c:389-412), the JAX package's columns
+        and %g format.  The potential is the PM one plus the tree's, from
+        one more tree evaluation."""
+        from .utils import constants as C
+        from .utils.constants import GAMMA_MINUS1
+        atime = self.atime
+        valid = self.pdata.valid.cpu().numpy()
+        ptype = self.pdata.ptype.cpu().numpy()
+        mass = self.pdata.mass.cpu().numpy().astype(np.float64)
+        vel = self.pdata.vel.cpu().numpy().astype(np.float64)
+        pot = self.pdata.potential.cpu().numpy().astype(np.float64)
+        if self.cfg.tree_grav_on and self._tree_grav is not None:
+            # full potential = PM + short-range tree (stats.c:389)
+            _, tree_pot = self._tree_compute_retry(return_potential=True)
+            pot = pot + tree_pot.cpu().numpy().astype(np.float64)
+        ekin_p = 0.5 * mass * (vel ** 2).sum(axis=1) / atime ** 2
+        epot_p = 0.5 * mass * pot
+        eint_p = np.zeros_like(mass)
+        if self.sph is not None:
+            rho = self.sph.density.cpu().numpy().astype(np.float64)
+            u = self.sph.entropy.cpu().numpy().astype(np.float64) \
+                / GAMMA_MINUS1 * np.maximum(rho * atime ** -3,
+                                            1e-30) ** GAMMA_MINUS1
+            eint_p = mass * u
+        temp = 0.0
+        ei = ek = ep = 0.0
+        comp = []
+        for t in range(6):
+            sel = valid & (ptype == t)
+            eic = float(eint_p[sel].sum()) if t == 0 else 0.0
+            epc = float(epot_p[sel].sum())
+            ekc = float(ekin_p[sel].sum())
+            comp.append((eic, epc, ekc, float(mass[sel].sum())))
+            ei += eic
+            ep += epc
+            ek += ekc
+        # mass-weighted mean gas temperature, from u and the electron
+        # abundance through the cooling mean-weight formula
+        gas_sel = valid & (ptype == 0)
+        if self.sph is not None and gas_sel.any():
+            ne = self.sph.ne.cpu().numpy().astype(np.float64)
+            xh = C.HYDROGEN_MASSFRAC
+            nh_frac = 4.0 / (1.0 + 3.0 * xh + 4.0 * xh * ne)
+            uu = self.cfg.units.UnitInternalEnergy_in_cgs
+            temp_p = (GAMMA_MINUS1 * C.PROTONMASS / C.BOLTZMANN
+                      * nh_frac * u * uu)
+            mg = mass[gas_sel].sum()
+            temp = float((mass[gas_sel] * temp_p[gas_sel]).sum()
+                         / max(mg, 1e-300))
+        row = [atime, temp, ei, ep, ek]
+        for t in range(6):
+            row += list(comp[t][:3])
+        row += [comp[t][3] for t in range(6)]
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        with open(os.path.join(self.cfg.output_dir, "energy.txt"),
+                  "a") as fh:
+            fh.write(" ".join(f"{x:g}" for x in row) + "\n")
+        return dict(EnergyInt=ei, EnergyPot=ep, EnergyKin=ek)
+
+    def run_gravity_test(self):
+        """Force-accuracy self-test (RestartFlag 99; runtests.c:50-97): the
+        TreePM short-range force against direct pairwise summation, in
+        blocks of `batch` targets with batch * N near 2^27, so that a
+        block's (batch, N, 3) int64 differences take 3 GiB."""
+        from .gravity.shortrange import direct_shortrange_pairwise
+        self.compute_forces(measure_power=False)
+        tg = self._tree_grav
+        acc_tree = self.pdata.grav_accel.cpu().numpy()
+        rs_inv = 1.0 / (2 * self.cfg.asmth * self.cfg.boxsize
+                        / self.cfg.nmesh)
+        rcut = self.cfg.rcut * self.cfg.asmth * self.cfg.boxsize \
+            / self.cfg.nmesh
+        n = self.pdata.capacity
+        batch = int(min(1024, max(1, (1 << 27) // max(n, 1))))
+        t0 = _time.perf_counter()
+        acc_pair, _ = direct_shortrange_pairwise(
+            self.pdata.ipos, self.pdata.mass, self.pdata.valid,
+            self.cfg.boxsize, float(np.float32(rs_inv)),
+            float(np.float32(rcut)), float(np.float32(1.0 / tg.softening)),
+            with_potential=False, batch=batch)
+        acc_pair = acc_pair.cpu().numpy() * self.CP.GravInternal
+        seconds = _time.perf_counter() - t0
+        valid = self.pdata.valid.cpu().numpy()
+        err = np.linalg.norm(acc_tree - acc_pair, axis=1)[valid]
+        ref = np.sqrt(np.mean(np.linalg.norm(acc_pair, axis=1)[valid]
+                              ** 2))
+        rel = err / (ref + 1e-30)
+        stats = {"mean_rel_err": float(rel.mean()),
+                 "max_rel_err": float(rel.max()),
+                 "p99_rel_err": float(np.percentile(rel, 99))}
+        print(f"Force accuracy: mean={stats['mean_rel_err']:.2e} "
+              f"p99={stats['p99_rel_err']:.2e} "
+              f"max={stats['max_rel_err']:.2e}")
+        print(f"Direct summation: {n} particles in batches of {batch}, "
+              f"{seconds:.6f} s")
+        return stats
 
     # -- FOF -----------------------------------------------------------
 
@@ -1402,6 +1649,8 @@ class Simulation:
             RSDFactor=1.0 / (atime * hubble),
         )
         snap_io.write_header(bf, header)
+        if self._nu_table_state is not None:
+            snap_io.write_neutrino_state(bf, self._nu_table_state.state_dict())
         with open(os.path.join(self.cfg.output_dir, "Snapshots.txt"),
                   "a") as fh:
             fh.write(f"{label:03d} {atime}\n")

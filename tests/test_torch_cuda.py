@@ -644,6 +644,73 @@ def test_hydro_kernel_matches_plain(cuda, ktype, formulation, G, layout):
     assert bool((args[1].n_leaves == 0).any())
 
 
+# K5's dtent against the plain version on a clump's rows: 4x the 5.6e-6 by
+# which the JAX package's dtent differs from the plain version's on the
+# same layout (tests/test_torch_sph.py::
+# test_hydro_dtent_on_a_clump_jax_against_plain); two float32 orders of an
+# ill-conditioned sum may each lie that far from the exact one
+CLUMP_DTENT_TOL = 4 * 5.6e-6
+
+
+def test_hydro_kernel_on_a_clump(cuda):
+    """hydro_force through K5 against its plain version where 16 gas
+    particles lie within 1e-4 of the box of each other, on the layout of
+    the CPU test that measured the JAX package's own difference (an 8^3
+    gas lattice displaced by up to 0.3 cell, 40 non-gas particles, the
+    port's density on the CPU): acc and maxsig within 1e-5 by norm (the
+    card computes K5's inputs, e.g. the sound speeds, in its own last
+    bits, so maxsig is not bit for bit here), dtent within 1e-5 by norm
+    on the other rows and within CLUMP_DTENT_TOL on the clump's."""
+    from mpgadget_tpu_torch.sph.density import DensityParams, sph_density
+    box, ng = 1000.0, 8
+    rng = np.random.RandomState(5)
+    g = np.indices((ng, ng, ng)).reshape(3, -1).T / ng * box
+    pos = np.mod(g + rng.uniform(-0.3, 0.3, g.shape) * box / ng, box)
+    pos = np.concatenate([pos, rng.uniform(0, box, (40, 3))])
+    n = len(pos)
+    gas = np.arange(n) < ng ** 3
+    mass = np.where(gas, 1.5, 7.0).astype(np.float32)
+    vel = (rng.randn(n, 3) * 10).astype(np.float32)
+    entvar = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    hsml = np.full(n, 2 * box / ng, np.float32)
+    clump = np.zeros(n, bool)
+    clump[100:116] = True
+    pos[clump] = np.mod(np.array([0.37, 0.52, 0.61])
+                        + 1e-4 * np.random.RandomState(11).rand(16, 3),
+                        1.0) * box
+    ipos = torch.as_tensor((pos / box * 2.0 ** 32).astype(np.int64)
+                           & 0xFFFFFFFF)
+    t = torch.as_tensor
+    d = sph_density(ipos, t(mass), t(gas), t(hsml), t(vel), t(vel),
+                    t(entvar), DensityParams(eta=1.0), box)
+    cols = [ipos, t(mass), t(gas), d["hsml"], t(vel), t(entvar),
+            d["density"], d["egy_wt_density"], d["div_vel"],
+            d["curl_vel"], d["dhsml_egy_factor"]]
+    par = hydra.HydroParams()
+    before = hydra.LAUNCHES
+    got = hydra.hydro_force(*(c.to(cuda) for c in cols), par, box, 0.2,
+                            3.0, 0.01)
+    torch.cuda.synchronize()
+    assert hydra.LAUNCHES > before
+    ref = hydra.hydro_force(*cols, par, box, 0.2, 3.0, 0.01)
+
+    def rel(k, rows):
+        x = got[k].cpu().double()[rows]
+        y = ref[k].double()[rows]
+        return float((x - y).norm() / y.norm())
+
+    gas_t = t(gas)
+    errs = {"acc": rel("hydro_accel", slice(None)),
+            "maxsig": rel("max_signal_vel", gas_t),
+            "dtent_rest": rel("dt_entropy", t(~clump)),
+            "dtent_clump": rel("dt_entropy", t(clump))}
+    print(f"K5 on the clump layout, by norm: {errs}")
+    assert errs["acc"] <= 1e-5 and errs["maxsig"] <= 1e-5
+    assert errs["dtent_rest"] <= 1e-5
+    err = errs["dtent_clump"]
+    assert err <= CLUMP_DTENT_TOL
+
+
 @pytest.mark.parametrize("which", ["density", "hydro"])
 def test_sph_kernels_match_first_designs(cuda, which):
     """K4 and K5 against their first designs (csrc/sph_density_simple.cu,

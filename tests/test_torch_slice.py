@@ -25,7 +25,7 @@ from mpgadget_tpu.params import (create_genic_parameter_set,
                                  create_gadget_parameter_set as jax_params)
 from mpgadget_tpu_torch.main import build_simulation
 from mpgadget_tpu_torch.params import create_gadget_parameter_set
-from mpgadget_tpu_torch.run import SimConfig, check_supported
+from mpgadget_tpu_torch.run import Simulation, SimConfig, check_supported
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -38,7 +38,7 @@ COPIED = ("utils/constants.py", "utils/unitsystem.py", "utils/paramset.py",
           "params.py", "cosmology.py", "timefac.py", "timeline.py",
           "io/bigfile.py", "io/_native.py", "io/snapshot.py",
           "io/registry.py", "io/__init__.py", "genic/power.py",
-          "genic/thermal.py")
+          "genic/thermal.py", "physics/neutrinos_lra.py", "io/fits.py")
 
 PARAMS = """
 InitCondFile = {ic}
@@ -208,15 +208,44 @@ def test_bad_timestep_error_survives_a_failed_emergency_snapshot(
         tsim.run(verbose=False)
 
 
+# switches the port carries since the dark-matter options were ported
+CARRIED = ("MassiveNuLinRespOn", "LightconeOn", "PlaneOutputList",
+           "OutputEnergyDebug", "HybridNeutrinosOn")
+
+
 @pytest.mark.parametrize("name,value", [
     ("MassiveNuLinRespOn", 1), ("BlackHoleOn", 1),
     ("LightconeOn", 1), ("PlaneOutputList", "0.11"),
-    ("OutputEnergyDebug", 1), ("HybridNeutrinosOn", 1)])
+    ("OutputEnergyDebug", 1), ("HybridNeutrinosOn", 1),
+    ("WindOn", 1), ("MetalReturnOn", 1), ("ExcursionSetReionOn", 1),
+    ("QSOLightupOn", 1), ("MetalCoolFile", "cooling_metal_UVB"),
+    ("UVFluctuationFile", "uvfluc.txt")])
 def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
+    """A switch the port does not carry raises NotImplementedError naming
+    it: BlackHoleOn always, the gas switches with gas, the cooling tables
+    with cooling gas (check_supported of a gas box with CoolingOn; the
+    slice's IC holds no gas).  The five dark-matter switches the port
+    carries build a Simulation on the CPU."""
     ps = _params(create_gadget_parameter_set, ic_path, tmp_path,
                  **{name: value})
+    if name in CARRIED:
+        sim, _ = build_simulation(ps, device="cpu")
+        assert isinstance(sim, Simulation)
+        return
+    if name == "BlackHoleOn":
+        with pytest.raises(NotImplementedError, match=name):
+            build_simulation(ps, device="cpu")
+        return
+    cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
+                    units=None, hydro_on=True, cooling_on=True)
+    field = {"WindOn": "wind_on", "MetalReturnOn": "metal_return_on",
+             "ExcursionSetReionOn": "excursion_set_on",
+             "QSOLightupOn": "qso_lightup_on",
+             "MetalCoolFile": "metal_cool_file",
+             "UVFluctuationFile": "uv_fluctuation_file"}[name]
+    cfg = SimConfig(**{**cfg.__dict__, field: value})
     with pytest.raises(NotImplementedError, match=name):
-        build_simulation(ps, device="cpu")
+        check_supported(cfg, has_gas=True)
 
 
 @pytest.mark.parametrize("name,field", [
@@ -233,9 +262,13 @@ def test_gas_switches_raise_only_with_gas(name, field):
 
 
 def test_restart_flag_99_raises(monkeypatch):
+    """The CLI runs RestartFlag 99 (tests/test_torch_dmopts.py holds the
+    self-test to the JAX package's), on a card only: without one it stops
+    naming the CUDA device instead of falling back to the CPU."""
     from mpgadget_tpu_torch import main as tmain
     monkeypatch.setattr(sys, "argv", ["main", "param.txt", "99"])
-    with pytest.raises(NotImplementedError, match="RestartFlag 99"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
         tmain.main()
 
 

@@ -377,3 +377,51 @@ def test_plain_pair_sums_miss_no_pair(loop):
             a, b = a[np.isfinite(a)], b[np.isfinite(b)]
         assert _rel(a, b) < TOL, k
     assert np.all(got[~valid_s.bool(), :4].numpy() == 0)
+
+
+def test_hydro_dtent_on_a_clump_jax_against_plain(box_inputs, jax_density):
+    """16 gas particles within 1e-4 of the box of each other in the
+    lattice (the layout on which K5's dtent missed 1e-5 on the card): the
+    JAX package's hydro_force and the port's plain version on the same
+    inputs.  Their dtent differs by ~5.6e-6 by norm on the clump's rows
+    against ~2e-7 on the same rows of the plain lattice: the sum is
+    ill-conditioned there, whatever evaluates it.  The cause is the
+    quintic's dW/dq near q = 0, a difference of O(1) terms that leaves
+    O(q): float32 loses ~eps/q of it, ~1e-4 at the clump's q."""
+    ipos, mass, gas, vel, entvar, _ = box_inputs
+    d = jax_density[0]["all"]
+    rng = np.random.RandomState(11)
+    clump = slice(100, 116)
+    pos = np.mod(np.array([0.37, 0.52, 0.61]) + 1e-4 * rng.rand(16, 3), 1.0)
+    ip = ipos.copy()
+    ip[clump] = pos_to_fixed(pos * BOX, BOX)
+    cols = (mass, gas, d["hsml"], vel, entvar, d["density"],
+            d["egy_wt_density"], d["div_vel"], d["curl_vel"],
+            d["dhsml_egy_factor"])
+    diffs = {}
+    for name, p in (("lattice", ipos), ("clump", ip)):
+        want = jhydra.hydro_force(
+            jnp.asarray(p), *(jnp.asarray(c) for c in cols),
+            jhydra.HydroParams(), BOX, ATIME, HUBBLE, DLOGA)
+        got = hydra.hydro_force(_t(p), *(_t(c) for c in cols),
+                                hydra.HydroParams(), BOX, ATIME, HUBBLE,
+                                DLOGA)
+        want = {k: np.asarray(v) for k, v in want.items()}
+        for k in ("hydro_accel", "dt_entropy", "max_signal_vel"):
+            assert _rel(want[k], got[k].numpy()) < TOL, (name, k)
+        diffs[name] = _rel(want["dt_entropy"][clump],
+                           got["dt_entropy"].numpy()[clump])
+    print(f"dtent on the clump's rows, JAX against plain: {diffs}")
+    assert diffs["clump"] > 10 * diffs["lattice"]
+    assert diffs["clump"] < TOL
+    # the mechanism: dW/dq in float32 against float64 at the clump's q
+    # (its pairs' separations over the smoothing length) and at q ~ 0.5
+    q_clump = np.float32(1e-4 * BOX) / d["hsml"][clump].max()
+    for q, lo, hi in ((q_clump, 1e-6, 1e-2), (np.float32(0.5), 0, 1e-6)):
+        u = np.full(8, q, np.float32)
+        one = torch.ones(8)
+        d32 = K.kernel_dwk(torch.as_tensor(u), one, K.QUINTIC).numpy()
+        d64 = K.kernel_dwk(torch.as_tensor(u, dtype=torch.float64),
+                           one.double(), K.QUINTIC).numpy()
+        err = abs(float(d32[0]) - float(d64[0])) / abs(float(d64[0]))
+        assert lo <= err < hi, (q, err)
