@@ -174,7 +174,26 @@ fails the run (non-zero exit, no result line) if it fails:
    (tests/torch_parity/IC, 24^3, Nmesh 48) run twice to a = 0.25, each
    run's P(k) and PIGs against the JAX package's outputs from it
    (tests/torch_parity/jax_outputs.json) and the two runs against each
-   other, within PARITY_PK_RTOL.
+   other, within PARITY_PK_RTOL;
+23. star-small as it ships: examples/star-small/paramfile.genic through
+   the genic CLI (phase 9's Eisenstein-Hu cut), paramfile.gadget with
+   TreeCoolFile empty (the absent TREECOOL_fg_june11), Simulation.run()
+   to a = 0.2 with cooling, star formation, ofjt10 winds, metal return
+   and black holes (seeded from each PIG): the six kernels' launches,
+   "walltime" by layer, stars, BHs, wind kicks (0: hierarchical steps
+   compute no dispersion), the total mass against the IC's (MASS_TOL),
+   each snapshot's star and BH blocks and each PIG read back, K3's and
+   ops/pairs.pair_reduce's card time by caller (SUBGRID_CALLERS), and
+   RestartFlag 3 through the CLI on the last snapshot;
+24. winds and black holes on global steps: phase 23's snapshot at a =
+   0.15 resumed through the CLI's body (RestartFlag 2) with
+   GLOBAL_SWITCHES (SplitGravityTimestepsOn 0, the seeding and star
+   formation thresholds lowered, Generations 64, outputs at a = 0.151
+   and 0.154) for at most GLOBAL_STEPS global steps: wind kicks,
+   decoupled rows without hydro force, a BH seeded that accretes,
+   swallowing and mergers counted, BH-Details-R0 and the last
+   snapshot's BH blocks read back (from_snapshot), and the card time by
+   caller as in phase 23.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -3571,10 +3590,454 @@ def cooling_phase(lres):
     return dict(cases=cases, rate=rate, thresh=thresh)
 
 
-def sph_entry(name, which, gas, lya, case, big):
+
+# -- phases 23-24: star-small as it ships (winds, metal return, black holes)
+
+# the absent TREECOOL_fg_june11: no UV background (the cut lya carries)
+STAR_SMALL_SWITCHES = {"TreeCoolFile": ""}
+STAR_SMALL_STEPS = None   # PM steps of phase 23 (None: to TimeMax; not cut)
+MASS_TOL = 1e-5           # the total mass against the IC's, relative
+# phase 24: global steps from phase 23's snapshot at a = 0.15 (RestartFlag
+# 2), where ofjt10's dispersion is computed; its cuts: the seeding
+# thresholds lowered so that the first FOF after the restart (at a = 0.151)
+# seeds a BH in every halo; star formation's density threshold lowered
+# (CritOverDensity 1, CritPhysDensity 1e-3 cm^-3: star-small's own forms
+# 3 stars by a = 0.15 and none on 19 global steps after it) and
+# Generations 64 (star-small's 4: new stars 16 times as often, each a
+# 64th of a mean gas particle), so that stars spawn on the steps the phase
+# runs; an output at a = 0.151 and one at TimeMax; the depth
+# (GLOBAL_STEPS)
+GLOBAL_SWITCHES = {"SplitGravityTimestepsOn": 0, "MinFoFMassForNewSeed": 0,
+                   "MinMStarForNewSeed": -1, "CritOverDensity": 1,
+                   "CritPhysDensity": 1e-3, "Generations": 64,
+                   "OutputList": "0.151,0.154", "TimeMax": 0.154}
+GLOBAL_STEPS = 30         # at most this many global steps (the depth cut)
+# the callers of the subgrid passes' walks (K3) and pair sums, as
+# ops/pairs.spanned names them
+SUBGRID_CALLERS = ("vdisp", "wind weight", "wind kick", "metal count",
+                   "metal spread", "BH sums", "BH dynfric", "BH vdisp",
+                   "swallow", "minpot")
+
+
+def subgrid_spans(device):
+    """Start timing the subgrid passes (ops/pairs.SPANS) on the card."""
+    from mpgadget_tpu_torch.ops import pairs
+    pairs.SPANS = {} if device == "cuda" else None
+
+
+def read_spans(device):
+    """The subgrid passes' card time by caller: {caller: {"K3": (ms,
+    calls), "pair_reduce": (ms, calls)}}; timing stops."""
+    from mpgadget_tpu_torch.ops import pairs
+    if pairs.SPANS is None:
+        return {}
+    spans = pairs.span_ms()
+    pairs.SPANS = None
+    out = {}
+    for (caller, kind), v in spans.items():
+        out.setdefault(caller, {})[kind] = v
+    return out
+
+
+def print_spans(what, spans, card):
+    for caller in SUBGRID_CALLERS:
+        s = spans.get(caller)
+        if not s:
+            continue
+        k3, pr = s.get("K3", (0.0, 0)), s.get("pair_reduce", (0.0, 0))
+        print(f"{what} {caller}: pair_reduce {pr[0]:.6f} ms in {pr[1]} "
+              f"calls, K3 {k3[0]:.6f} ms in {k3[1]} searches (CUDA events "
+              f"around each call, the host's gaps inside) on {card}",
+              flush=True)
+
+
+def total_mass(sim):
+    pd = sim.pdata
+    return float(pd.mass[pd.valid].double().sum())
+
+
+def check_bh_blocks(name, bf, hdr):
+    """A snapshot's or PIG's type-5 blocks read back: every registered
+    block with one row per BH, finite."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.registry import blocks_for_type
+    n5 = int(hdr.TotNumPart[5]) if hdr is not None else int(np.asarray(
+        bf.open("Header").attrs["NumPartInGroupTotal"])[5])
+    for spec in blocks_for_type(5):
+        if n5 == 0:
+            break
+        v = np.asarray(bf.open(f"5/{spec.name}").read(), np.float64)
+        check(v.shape[0] == n5 and np.isfinite(v).all(),
+              f"{name}: 5/{spec.name} does not read back")
+    return n5
+
+
+def read_bh_details(out):
+    """BlackholeDetails/BH-Details-R0: float64 records of 12 (ID, a, BH
+    mass, mdot, density, position, mass, Mtrack, progenitors, kinetic
+    energy); None where no BH was ever stepped."""
+    import numpy as np
+    path = os.path.join(out, "BlackholeDetails", "BH-Details-R0")
+    if not os.path.exists(path):
+        return None
+    rec = np.fromfile(path, np.float64)
+    check(rec.size % 12 == 0, "BH-Details-R0 is not whole records")
+    rec = rec.reshape(-1, 12)
+    check(bool(np.isfinite(rec).all() & (rec[:, 2] > 0).all()),
+          "BH-Details-R0 records not finite or a BH mass not positive")
+    return rec
+
+
+def star_small_phase(workdir, device="cuda", max_steps=STAR_SMALL_STEPS,
+                     ngrid=None, nmesh=None):
+    """Phase 23: examples/star-small as it ships, its subgrid physics on:
+    genic (GENIC_OVERRIDE) through the CLI, then paramfile.gadget with
+    STAR_SMALL_SWITCHES written into a copy -> build_simulation ->
+    Simulation.run() (hierarchical; cooling, star formation, ofjt10 winds,
+    metal return and black holes; a snapshot and a PIG at each output, BHs
+    seeded from each catalogue) -> write_snapshot, the six kernels' launch
+    counts reset just before and read just after, the subgrid passes'
+    K3 and pair_reduce card time by caller.  Checks: stars formed; the
+    total mass kept; the gas state finite; each snapshot's star and BH
+    blocks and each PIG read back; blackholes.txt and BH-Details-R0
+    read back where BHs were stepped.  Returns the measurements."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.physics import cooling
+    from mpgadget_tpu_torch.sph import density, hydra
+
+    over = dict(GENIC_OVERRIDE)
+    if ngrid is not None:           # a smaller rehearsal on the CPU
+        over["Ngrid"] = ngrid
+    _, ngas, genic_s = gas_genic(workdir, "star-small", over, device)
+    gover = dict(STAR_SMALL_SWITCHES)
+    if nmesh is not None:
+        gover["Nmesh"] = nmesh
+    paramfile = paramfile_copy(
+        os.path.join(HERE, "examples", "star-small", "paramfile.gadget"),
+        os.path.join(workdir, "paramfile.gadget"), gover)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        sim, _ = build_simulation(paramfile, device=device)
+        c = sim.cfg
+        check(c.hydro_on and c.cooling_on and c.starformation_on
+              and c.wind_on and c.wind_model == 6 and c.metal_return_on
+              and c.black_hole_on and c.split_gravity_timesteps
+              and c.snapshot_with_fof and not c.treecool_file,
+              "star-small's paramfile.gadget no longer sets HydroOn, "
+              "CoolingOn, StarformationOn, WindOn (ofjt10), MetalReturnOn, "
+              "BlackHoleOn, SplitGravityTimestepsOn and SnapshotWithFOF")
+        out = os.path.abspath(c.output_dir)
+        m_ic = total_mass(sim)
+        step_seconds = []
+        run_step = sim.step_hierarchical
+
+        def timed_step(dti):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_sub = run_step(dti)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - t0)
+            return n_sub
+
+        sim.step_hierarchical = timed_step
+        mods = {"pair": pk, "walk": tw, "neighbors": pairs,
+                "density": density, "hydro": hydra, "cooling": cooling}
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        subgrid_spans(device)
+        t0 = time.perf_counter()
+        nsteps = sim.run(max_steps=max_steps, verbose=False)
+        snap = os.path.abspath(sim.write_snapshot())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        run_seconds = time.perf_counter() - t0
+        spans = read_spans(device)
+        launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    finally:
+        os.chdir(cwd)
+
+    check(nsteps == max_steps or sim.ti_current == sim.timeline.ti_end,
+          f"star-small ran {nsteps} PM steps to a={sim.atime}")
+    if device == "cuda":
+        check(min(launches.values()) > 0, f"a kernel of the star-small "
+              f"path was not launched: {launches}")
+    pd = sim.pdata
+    gas = sim.gas_mask
+    stars = pd.valid & (pd.ptype == 4)
+    bhs = pd.valid & (pd.ptype == 5)
+    sph = sim.sph
+    check(bool(torch.isfinite(pd.vel[pd.valid]).all()
+               & torch.isfinite(sph.entropy[gas]).all()
+               & (sph.entropy[gas] > 0).all()),
+          "star-small gas state not finite or entropy not positive")
+    check(int(stars.sum()) > 0, "star-small formed no stars")
+    m_end = total_mass(sim)
+    mass_err = m_end / m_ic - 1
+    check(abs(mass_err) < MASS_TOL, f"star-small total mass {m_end!r} "
+          f"against the IC's {m_ic!r}: {mass_err:+.3e}")
+    # each snapshot's star and BH blocks, each PIG
+    snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+    per_snap = {}
+    for name in snaps:
+        bf = BigFile(os.path.join(out, name))
+        hdr = snap_io.read_header(bf)
+        n4 = int(hdr.TotNumPart[4])
+        for block in ("StarFormationTime", "Metallicity", "Metals",
+                      "TotalMassReturned", "StarVelDisp"):
+            if n4:
+                v = np.asarray(bf.open(f"4/{block}").read(), np.float64)
+                check(v.shape[0] == n4 and np.isfinite(v).all(),
+                      f"{name}: 4/{block} does not read back")
+        n5 = check_bh_blocks(name, bf, hdr)
+        per_snap[name] = (round(float(hdr.Time), 6), n4, n5)
+    pigs = sorted(f for f in os.listdir(out) if f.startswith("PIG_"))
+    check(len(pigs) >= 1, f"star-small PIGs written: {pigs}")
+    pig_groups = {}
+    for name in pigs:
+        ng, bins, last = pig_check(os.path.join(out, name),
+                                   sim.cfg.fof_min_group_length)
+        n5 = check_bh_blocks(name, BigFile(os.path.join(out, name)), None)
+        pig_groups[name] = (ng, n5)
+    bh_lines = []
+    if os.path.exists(os.path.join(out, "blackholes.txt")):
+        with open(os.path.join(out, "blackholes.txt")) as fh:
+            bh_lines = fh.read().splitlines()
+        check(all(len(ln.split()) == 5 for ln in bh_lines),
+              "blackholes.txt not 5 columns")
+    details = read_bh_details(out)
+    with open(os.path.join(out, "sfr.txt")) as fh:
+        sfr_lines = fh.read().splitlines()
+    wt = dict(sim.walltime.totals)
+    return dict(nsteps=nsteps, atime=sim.atime, launches=launches,
+                step_seconds=step_seconds, run_seconds=run_seconds,
+                genic_seconds=genic_s, walltime=wt, sim=sim, spans=spans,
+                ngas=ngas, nstars=int(stars.sum()), nbh=int(bhs.sum()),
+                seeded=list(sim.bh_seeded), wind_kicks=sim.wind_kicks,
+                swallowed=sim.bh_swallowed, mergers=sim.bh_mergers,
+                bh_lines=len(bh_lines), details=0 if details is None
+                else len(details), sfr_lines=len(sfr_lines),
+                m_ic=m_ic, m_end=m_end, mass_err=mass_err,
+                snapshots=per_snap, pig_groups=pig_groups,
+                paramfile=paramfile, out=out,
+                snapnum=int(os.path.basename(snap).split("_")[-1]))
+
+
+def global_subgrid_phase(workdir, star, device="cuda", max_steps=GLOBAL_STEPS,
+                         nmesh=None):
+    """Phase 24: winds and black holes on global steps.  Phase 23's
+    snapshot at a = 0.15, copied into workdir, resumed through the CLI's
+    body (main.run_cli, RestartFlag 2) with GLOBAL_SWITCHES written into a
+    copy of phase 23's paramfile (at most max_steps global steps: the
+    depth cut), the kernels' launch counts and the subgrid passes' card
+    time read around it.  Checks: wind kicks, and every decoupled gas row
+    without hydro force at each hydro call; at least one BH seeded, every
+    BH with mdot > 0 after its steps; BH-Details-R0 read back; the last
+    snapshot's BH blocks read back by from_snapshot.  Returns the
+    measurements."""
+    import shutil
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch import main as tmain
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io.registry import blocks_for_type
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.physics import cooling
+    from mpgadget_tpu_torch.run import Simulation
+    from mpgadget_tpu_torch.sph import density, hydra
+
+    src = [n for n, v in star["snapshots"].items() if abs(v[0] - 0.15) < 1e-6]
+    check(len(src) == 1, f"phase 23 wrote no snapshot at a = 0.15: "
+          f"{star['snapshots']}")
+    snapnum = int(src[0].split("_")[-1])
+    os.makedirs(os.path.join(workdir, "output"), exist_ok=True)
+    shutil.copytree(os.path.join(star["out"], src[0]),
+                    os.path.join(workdir, "output", src[0]))
+    gover = dict(GLOBAL_SWITCHES)
+    if nmesh is not None:
+        gover["Nmesh"] = nmesh
+    paramfile = paramfile_copy(star["paramfile"],
+                               os.path.join(workdir, "paramfile.gadget"),
+                               gover)
+    real_run, real_hydro = Simulation.run, Simulation.compute_hydro
+    real_step = Simulation.step
+    hydro_checks = []
+    per_step = []       # (seconds, new stars, wind kicks, BHs)
+
+    def run(self, max_steps=None, verbose=True):
+        return real_run(self, max_steps=GLOBAL_STEPS if max_steps is None
+                        else max_steps, verbose=verbose)
+
+    def step(self, dti):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n4 = int((self.pdata.valid & (self.pdata.ptype == 4)).sum())
+        kicks = self.wind_kicks
+        real_step(self, dti)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        per_step.append((
+            time.perf_counter() - t0,
+            int((self.pdata.valid & (self.pdata.ptype == 4)).sum()) - n4,
+            self.wind_kicks - kicks,
+            int((self.pdata.valid & (self.pdata.ptype == 5)).sum())))
+
+    def compute_hydro(self, *a, **k):
+        real_hydro(self, *a, **k)
+        if self.cfg.wind_on and self._gas_initialized:
+            dec = self.gas_mask & (self.sph.delay_time > 0)
+            acc = self.sph.hydro_accel[dec]
+            hydro_checks.append((int(dec.sum()),
+                                 float(acc.abs().max()) if acc.numel()
+                                 else 0.0))
+
+    mods = {"pair": pk, "walk": tw, "neighbors": pairs,
+            "density": density, "hydro": hydra, "cooling": cooling}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    Simulation.run, Simulation.compute_hydro = run, compute_hydro
+    Simulation.step = step
+    subgrid_spans(device)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    t0 = time.perf_counter()
+    try:
+        sim = tmain.run_cli(paramfile, 2, snapnum, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        Simulation.run, Simulation.compute_hydro = real_run, real_hydro
+        Simulation.step = real_step
+        print("phase 24 per global step (seconds, new stars, wind kicks, "
+              f"BHs): {per_step}", flush=True)
+    seconds = time.perf_counter() - t0
+    spans = read_spans(device)
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    out = os.path.join(workdir, "output")
+    nsteps = sim._nstep_total
+    check(not sim.cfg.split_gravity_timesteps, "phase 24 ran hierarchical")
+    check(sim.wind_kicks > 0, f"no wind kick on global steps "
+          f"({sim.wind_kicks})")
+    bad = [h for h in hydro_checks if h[1] != 0.0]
+    check(any(h[0] > 0 for h in hydro_checks) and not bad,
+          f"decoupled gas rows with hydro force (rows, max |a|): {bad}; "
+          f"per hydro call {hydro_checks}")
+    check(sum(sim.bh_seeded) > 0, f"no BH seeded: {sim.bh_seeded}")
+    bh = (sim.pdata.valid & (sim.pdata.ptype == 5)).cpu().numpy()
+    mdot = sim.bh.mdot.cpu().numpy()[bh]
+    check(bh.sum() > 0 and bool((mdot > 0).any()),
+          f"no BH accretes: mdot {mdot}")
+    details = read_bh_details(out)
+    if details is None:
+        details = np.zeros((0, 12))
+    # every BH seeded before the last step has its records (the last
+    # output's FOF seeds BHs that no step has seen yet)
+    stepped = bh & (sim.bh.formation_time.cpu().numpy() < sim.atime * (
+        1 - 1e-6))
+    pids = set(sim.pdata.pid.cpu().numpy()[stepped].tolist())
+    check(len(details) > 0 and len(pids) > 0 and pids <= set(
+        details[:, 0].astype(np.int64).tolist()),
+        f"BH-Details-R0 not written or lacks a BH: {len(details)} records")
+    snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+    last = os.path.join(out, snaps[-1])
+    bf = BigFile(last)
+    hdr = snap_io.read_header(bf)
+    n5 = check_bh_blocks(snaps[-1], bf, hdr)
+    check(n5 > 0, f"{snaps[-1]} holds no BH")
+    cfgk = {"starformation_on": True, "black_hole_on": True,
+            "part_alloc_factor": sim.cfg.part_alloc_factor,
+            "nmesh": sim.cfg.nmesh, "output_dir": out,
+            "timeline": sim.timeline}
+    back = Simulation.from_snapshot(last, cfgk, device=device)
+    rows = (back.pdata.valid & (back.pdata.ptype == 5)).cpu().numpy()
+    for spec in blocks_for_type(5) if n5 else ():
+        want = bf.open(f"5/{spec.name}").read()
+        got = getattr(back.bh, spec.field).cpu().numpy()[rows]
+        check(np.array_equal(got.astype(spec.dtype).reshape(want.shape),
+                             want), f"{snaps[-1]}: 5/{spec.name} not "
+              f"restored by from_snapshot")
+    wt = dict(sim.walltime.totals)
+    return dict(nsteps=nsteps, atime=sim.atime, seconds=seconds,
+                per_step=per_step, launches=launches, spans=spans,
+                walltime=wt,
+                wind_kicks=sim.wind_kicks, seeded=list(sim.bh_seeded),
+                swallowed=sim.bh_swallowed, mergers=sim.bh_mergers,
+                nbh=int(bh.sum()), mdot=mdot.tolist(),
+                details=len(details), decoupled=max(h[0] for h in
+                                                   hydro_checks),
+                snapshot=snaps[-1], snapnum=snapnum)
+
+
+def report_star_small(star, srres, card):
+    """Phase 23's printout."""
+    sst = star["step_seconds"]
+    wt = star["walltime"]
+    layers = ("SPH/Density", "SPH/Hydro", "Cooling/SFR", "Winds",
+              "MetalReturn", "BH", "FOF")
+    print(f"phase 23, star-small as it ships (2 x {star['ngas']} particles; "
+          f"cuts {GENIC_OVERRIDE} in genic and {STAR_SMALL_SWITCHES} in the "
+          f"run) on {card}: {star['nsteps']} PM steps to "
+          f"a={star['atime']:.6f} in {sum(sst):.6f} s of steps "
+          f"({star['run_seconds']:.6f} s with the gas set-up, the first "
+          f"forces and the last snapshot); walltime "
+          + ", ".join(f"{k} {wt.get(k, 0.0):.6f}" for k in layers)
+          + f" s (all layers: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(wt.items()))
+          + f"); kernel launches {star['launches']}", flush=True)
+    print(f"phase 23: stars {star['nstars']}, wind kicks "
+          f"{star['wind_kicks']} (hierarchical steps compute no dispersion, "
+          f"as in the JAX package: ROADMAP.md §3 item 9), BHs seeded at "
+          f"each FOF {star['seeded']}, BHs {star['nbh']}, gas swallowed "
+          f"{star['swallowed']}, mergers {star['mergers']}, blackholes.txt "
+          f"lines {star['bh_lines']}, BH-Details-R0 records "
+          f"{star['details']}, sfr.txt lines {star['sfr_lines']}; total "
+          f"mass {star['m_end']:.9g} against the IC's {star['m_ic']:.9g} "
+          f"({star['mass_err']:+.3e}, swallowed gas in the BHs); snapshots "
+          f"(a, stars, BHs) {star['snapshots']}; PIGs (groups, BHs) "
+          f"{star['pig_groups']}; RestartFlag 3 {srres['seconds']:.6f} s",
+          flush=True)
+    print_spans("phase 23", star["spans"], card)
+
+
+def report_global(glob, card):
+    """Phase 24's printout."""
+    layers = ("SPH/Density", "SPH/Hydro", "Cooling/SFR", "Winds",
+              "MetalReturn", "BH", "FOF")
+    gw = glob["walltime"]
+    print(f"phase 24, global steps from phase 23's PART_"
+          f"{glob['snapnum']:03d} (RestartFlag 2, cuts {GLOBAL_SWITCHES}, at "
+          f"most {GLOBAL_STEPS} steps) on {card}: {glob['nsteps']} global "
+          f"steps to a={glob['atime']:.6f} in {glob['seconds']:.6f} s (the "
+          f"restart included); walltime "
+          + ", ".join(f"{k} {gw.get(k, 0.0):.6f}" for k in layers)
+          + f" s; wind kicks {glob['wind_kicks']}, decoupled gas rows at "
+          f"most {glob['decoupled']} (zero hydro force), BHs seeded "
+          f"{glob['seeded']}, BHs {glob['nbh']} with mdot {glob['mdot']}, "
+          f"gas swallowed {glob['swallowed']}, mergers {glob['mergers']}, "
+          f"BH-Details-R0 records {glob['details']}; {glob['snapshot']}'s BH "
+          f"blocks read back by from_snapshot; kernel launches "
+          f"{glob['launches']}", flush=True)
+    print_spans("phase 24", glob["spans"], card)
+
+
+def sph_entry(name, which, gas, lya, case, big, star, glob):
     """The kernels line's entry of K4 or K5: times at the star-small run's
-    final state, the bigger IC beside them; launches in the star-small and
-    lya runs."""
+    final state, the bigger IC beside them; launches in the star-small
+    (without and with its subgrid physics), lya and phase 24 runs."""
     src = {"density": ("sph_density.cu", "mpgadget_tpu/sph/density.py:52"),
            "hydro": ("sph_hydro.cu", "mpgadget_tpu/sph/hydra.py:45")}[which]
     keys = ("ms", "simple_ms", "plain_ms", "bound_ms", "bound_by", "pairs",
@@ -3583,9 +4046,12 @@ def sph_entry(name, which, gas, lya, case, big):
         "name": name, "route": "cuda",
         "source": f"mpgadget_tpu_torch/csrc/{src[0]}",
         "replaces": "mpgadget_tpu/ops/pairs.py:355", "pair_function": src[1],
-        "launches": gas["launches"][which] + lya["launches"][which],
+        "launches": (gas["launches"][which] + lya["launches"][which]
+                     + star["launches"][which] + glob["launches"][which]),
         "launches_by_path": {"star_small": gas["launches"][which],
-                             "lya": lya["launches"][which]},
+                             "lya": lya["launches"][which],
+                             "star_small_full": star["launches"][which],
+                             "subgrid_global": glob["launches"][which]},
         "density_solves": gas["n_solves"],
         "bisection_passes": sum(gas["passes"]),
         "max_abs_err": max(case["max_abs_err"], big["max_abs_err"]),
@@ -3602,10 +4068,10 @@ def sph_entry(name, which, gas, lya, case, big):
         "library_ms": None}
 
 
-def cooling_entry(lya, k6):
+def cooling_entry(lya, k6, star, glob):
     """The kernels line's entry of K6: times on lya's final gas state, the
     closing subset, float64 and the net rate beside them, each with the
-    first design's."""
+    first design's; launches in lya, star-small and phase 24."""
     keys = ("ms", "simple_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "full_work_bound_ms", "ops", "rows", "exits")
     case = k6["cases"]["all gas"]
@@ -3615,8 +4081,12 @@ def cooling_entry(lya, k6):
         "replaces": "mpgadget_tpu/physics/cooling.py:584",
         "loops": ["mpgadget_tpu/physics/cooling.py:462 (get_equilib_ne)",
                   "mpgadget_tpu/physics/cooling.py:584 (do_cooling)"],
-        "launches": lya["launches"]["cooling"],
-        "launches_by_path": {"lya": lya["launches"]["cooling"]},
+        "launches": (lya["launches"]["cooling"]
+                     + star["launches"]["cooling"]
+                     + glob["launches"]["cooling"]),
+        "launches_by_path": {"lya": lya["launches"]["cooling"],
+                             "star_small_full": star["launches"]["cooling"],
+                             "subgrid_global": glob["launches"]["cooling"]},
         "max_abs_err": max(c["max_abs_err"] for c in k6["cases"].values()),
         "max_rel_err": max(c["rel_u"] for c in k6["cases"].values()),
         "rows": case["rows"], "operations_per_row": case["ops"],
@@ -3846,12 +4316,29 @@ def run():
           f"{lrres['groups']} groups holding {lya_pig} stars", flush=True)
     print(f"lya sfr.txt last line: {lya['sfr_last']}", flush=True)
 
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        star = star_small_phase(work)
+        srres = restart_phase(work, star["snapnum"], "not run",
+                              paramfile=star["paramfile"])
+        t23 = time.perf_counter() - t0
+        report_star_small(star, srres, card)
+        t0 = time.perf_counter()
+        glob = global_subgrid_phase(os.path.join(work, "global"), star)
+        t24 = time.perf_counter() - t0
+    report_global(glob, card)
+    print(f"phases 23-24: {t23:.3f} s and {t24:.3f} s of the smoke",
+          flush=True)
+    new = {"star_small_full": star["launches"],
+           "subgrid_global": glob["launches"]}
+
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096
     k2 = wres[0]                    # the lattice's first tree, LL = 512
     launches = {k: res["launches"][k] + hres["launches"][k]
                 + gas["launches"][k] + lya["launches"][k]
                 + sum(r["launches"][k] for r in dm_paths.values())
+                + sum(r[k] for r in new.values())
                 for k in ("pair", "walk")}
     k3 = nres[0]                    # the final dm-small state's FOF inputs
     print(json.dumps({"kernels": [{
@@ -3863,7 +4350,8 @@ def run():
                              "hierarchical": hres["launches"]["pair"],
                              "star_small": gas["launches"]["pair"],
                              "lya": lya["launches"]["pair"]} | {
-            k: r["launches"]["pair"] for k, r in dm_paths.items()},
+            k: r["launches"]["pair"] for k, r in dm_paths.items()} | {
+            k: r["pair"] for k, r in new.items()},
         "max_abs_err": max([r[wp]["max_abs_err"] for r in kres
                             for wp in (False, True)]
                            + [cres["pair"]["max_abs_err"]]),
@@ -3884,7 +4372,8 @@ def run():
                              "hierarchical": hres["launches"]["walk"],
                              "star_small": gas["launches"]["walk"],
                              "lya": lya["launches"]["walk"]} | {
-            k: r["launches"]["walk"] for k, r in dm_paths.items()},
+            k: r["launches"]["walk"] for k, r in dm_paths.items()} | {
+            k: r["walk"] for k, r in new.items()},
         # over all walk cases, the clustered one's monopoles included
         "max_abs_err": max([r["max_abs_err"] for r in wres]
                            + [cres["walk"]["max_abs_err"]]),
@@ -3908,12 +4397,14 @@ def run():
                      + gas["launches"]["neighbors"]
                      + lya["launches"]["neighbors"]
                      + sum(r["launches"]["neighbors"]
-                           for r in dm_paths.values())),
+                           for r in dm_paths.values())
+                     + sum(r["neighbors"] for r in new.values())),
         "launches_by_path": {"hierarchical": hres["launches"]["neighbors"],
                              "fof_final_state": fres["launches"],
                              "star_small": gas["launches"]["neighbors"],
                              "lya": lya["launches"]["neighbors"]} | {
-            k: r["launches"]["neighbors"] for k, r in dm_paths.items()},
+            k: r["launches"]["neighbors"] for k, r in dm_paths.items()} | {
+            k: r["neighbors"] for k, r in new.items()},
         # leaf lists, counts, flags and visits: identical on both sets
         # and in the serial mode
         "max_abs_err": max(r["max_abs_err"] for r in nres),
@@ -3931,10 +4422,12 @@ def run():
         "kernel_split_ms": k3["split_ms"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": None}] + [sph_entry(name, which, gas, lya, gk, big[key])
+        "library_ms": None}] + [sph_entry(name, which, gas, lya, gk, big[key],
+                                          star, glob)
                                 for name, which, gk, key in (
             ("sph_density_pairs", "density", gk4, "k4"),
-            ("sph_hydro_pairs", "hydro", gk5, "k5"))] + [cooling_entry(lya, k6)]}))
+            ("sph_hydro_pairs", "hydro", gk5, "k5"))]
+        + [cooling_entry(lya, k6, star, glob)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -46,6 +46,41 @@ PAIR_SLOTS_PER_BATCH = 1 << 23
 LAUNCHES = 0                    # K3 launches (not plain calls)
 STACK_CAP = 64                  # K3's stack entries per target group
 _fn = None
+# card time of the subgrid passes' walks and pair sums: None (off), or a
+# dict (caller, "K3" | "pair_reduce") -> [(start, end) CUDA events]
+SPANS = None
+
+
+def spanned(caller, kind, fn, *args, **kw):
+    """fn(*args, **kw), between two CUDA events kept in SPANS under
+    (caller, kind) when SPANS is a dict (the smoke's timing of K3 and
+    pair_reduce by caller); a plain call otherwise."""
+    if SPANS is None:
+        return fn(*args, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args, **kw)
+    end.record()
+    SPANS.setdefault((caller, kind), []).append((start, end))
+    return out
+
+
+def span_ms():
+    """SPANS summed: (caller, kind) -> (milliseconds, calls)."""
+    torch.cuda.synchronize()
+    return {k: (sum(s.elapsed_time(e) for s, e in v), len(v))
+            for k, v in SPANS.items()}
+
+
+def leaf_eval_cap(tree, leaf_eval_max):
+    """Sources to read per listed leaf in pair_reduce: leaf_eval_max (16,
+    the tree's leaf_max), or more where a leaf at the deepest level holds
+    more (the JAX package reads the first leaf_eval_max only)."""
+    real = torch.arange(tree.capacity, device=tree.pcount.device) \
+        < tree.n_nodes
+    most = int(torch.where(tree.is_leaf & real, tree.pcount, 0).max())
+    return max(leaf_eval_max, most)
 
 
 def _wrap(d):

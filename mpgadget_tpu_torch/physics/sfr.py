@@ -204,7 +204,9 @@ def cooling_and_starformation(par: SFRParams, cr, cunits, rng_key, *,
     rate = torch.where(on_eeqos, rate, 0.0)
     sm = rate * dtime
     p = sm / torch.clamp(mass, min=1e-30)
-    frac = 1 - torch.exp(-p)
+    # 1 - exp(-p) without the float32 cancellation at small p (the JAX
+    # package computes it in float64: its dtime is float64)
+    frac = -torch.expm1(-p)
     dM = mass * frac
     sfr = torch.where(dtime > 0, dM / dtime, rate) \
         * par.UnitSfr_in_solar_per_year
@@ -268,15 +270,17 @@ def id_uniform(key, pid):
 
 
 def spawn_stars(pdata, sph, make_star, convert, star_mass, atime,
-                stars=None):
+                stars=None, vdisp=None):
     """Create star particles (make_particle_star + slots_split_particle
     analog): whole conversions flip ptype in place; partial ones claim the
     free (invalid) rows in index order for the new star and reduce the gas
     mass.  stars: optional StarData (aligned); new star rows get the
-    source gas's density and metallicity and formation_time = atime.
+    source gas's density and metallicity, formation_time = atime and,
+    with vdisp (the halo wind model's DM velocity dispersion per row),
+    the source row's dispersion.
 
     Returns (pdata, sph, stars, n_spawned, overflow, new_star_rows), as the
-    JAX package's spawn_stars (without its winds-only vdisp)."""
+    JAX package's spawn_stars."""
     n = pdata.capacity
     dev = pdata.device
     ptype = torch.where(convert, 4, pdata.ptype)
@@ -332,7 +336,9 @@ def spawn_stars(pdata, sph, make_star, convert, star_mass, atime,
             total_mass_returned=fill(stars.total_mass_returned,
                                      torch.zeros_like(star_mass)),
             last_enrichment_myr=fill(stars.last_enrichment_myr,
-                                     torch.zeros_like(star_mass)))
+                                     torch.zeros_like(star_mass)),
+            vdisp=(fill(stars.vdisp, torch.where(make_star, vdisp, 0.0))
+                   if vdisp is not None else stars.vdisp))
     # rows that ARE new stars after the scatters
     new_star_rows = convert.clone()
     new_star_rows[to] = True

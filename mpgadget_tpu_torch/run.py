@@ -1,14 +1,20 @@
 """Simulation driver: begrun/run analog (libgadget/run.c), PyTorch port of
-the TreePM, SPH, cooling and star formation parts of mpgadget_tpu/run.py.
+the TreePM, SPH and galaxy-formation parts of mpgadget_tpu/run.py.
 
 One device, a power-of-two quantized PM timestep, KDK integration with
 exact FLRW factors, TreePM forces, with HydroOn the SPH density and hydro
 force loops (sph/density.py, sph/hydra.py) for the gas, with CoolingOn
 and StarformationOn the gas source terms (physics/cooling.py, the cooling
 kernel K6; physics/sfr.py: the effective EOS, star particles, quick
-Lyman-alpha conversion; ``sfr.txt``), in-line power spectra, snapshot
-output at sync points and, with SnapshotWithFOF, a friends-of-friends halo
-catalogue (PIG) beside each snapshot (:meth:`Simulation.run_fof`).  The
+Lyman-alpha conversion; ``sfr.txt``), with WindOn galactic winds
+(physics/winds.py: the subgrid kicks, or the kicks of new stars' gas
+neighbours scaled by the DM velocity dispersion), with MetalReturnOn the
+stars' mass and metal return (physics/metal_return.py), with BlackHoleOn
+black holes (physics/blackhole.py: Bondi accretion, swallowing, feedback,
+mergers, FOF seeding; ``blackholes.txt`` and BlackholeDetails), in-line
+power spectra, snapshot output at sync points and, with SnapshotWithFOF, a
+friends-of-friends halo catalogue (PIG) beside each snapshot
+(:meth:`Simulation.run_fof`).  The
 dark-matter options run too: massive neutrinos in linear response
 (physics/neutrinos_lra.py, a multiplier of the PM modes) and hybrid
 neutrino particles, the past light cone (physics/lightcone.py), lensing
@@ -18,9 +24,10 @@ and the state checks) and the force-accuracy self-test of RestartFlag 99
 KDK step or, with SplitGravityTimestepsOn, sub-cycled over per-particle
 power-of-two timebins whose short-range and hydro forces and gas source
 terms are computed for the closing set only
-(:meth:`Simulation.step_hierarchical`).  Switches this port does not carry
-yet (winds, black holes, metal return, metal cooling and UV fluctuation
-tables, ...) raise NotImplementedError naming the parameter (see
+(:meth:`Simulation.step_hierarchical`); black holes and metal return then
+run once per PM step.  The switches this port does not carry yet (the
+metal cooling and UV fluctuation tables, excursion-set reionization and
+QSO lightup) raise NotImplementedError naming the parameter (see
 :func:`check_supported`); none is silently ignored.
 """
 
@@ -37,7 +44,7 @@ from .timeline import Timeline, get_timestep_bin
 from .timefac import ExactTimeFactors
 from .timestep import (TimestepParams, assign_particle_bins,
                        get_long_range_timestep_dloga, get_pm_timestep_ti)
-from .particles import ParticleData, fixed_to_pos
+from .particles import ParticleData, fixed_to_pos, pos_to_fixed
 from .pm import pm_force, PMConfig
 from .integrate import drift, kick, MASK32
 from .io.bigfile import BigFile
@@ -217,12 +224,7 @@ def check_supported(cfg: SimConfig, has_gas: bool):
     Gas-only switches matter only when gas is present, as in the JAX
     package (with HydroOn = 0 gas particles are collisionless); the
     cooling tables only when the gas cools."""
-    always = (
-        ("BlackHoleOn", cfg.black_hole_on),
-    )
     with_gas = (
-        ("WindOn", cfg.wind_on),
-        ("MetalReturnOn", cfg.metal_return_on),
         ("ExcursionSetReionOn", cfg.excursion_set_on),
         ("QSOLightupOn", cfg.qso_lightup_on),
     )
@@ -231,12 +233,15 @@ def check_supported(cfg: SimConfig, has_gas: bool):
         ("MetalCoolFile", bool(cfg.metal_cool_file)),
         ("UVFluctuationFile", bool(cfg.uv_fluctuation_file)),
     )
-    for name, on in always + (with_gas if has_gas else ()) \
+    for name, on in (with_gas if has_gas else ()) \
             + (with_cooling if has_gas and cools else ()):
         if on:
             raise NotImplementedError(
-                f"{name} is not supported by mpgadget_tpu_torch yet "
-                "(TreePM with SPH, cooling and star formation)")
+                f"{name} is not supported by mpgadget_tpu_torch yet (it "
+                "carries TreePM with SPH, cooling and star formation, "
+                "winds, metal return and black holes; the metal cooling "
+                "and UV fluctuation tables, excursion-set reionization and "
+                "QSO lightup come with the rest of slice 3b-ii)")
 
 
 class Simulation:
@@ -265,8 +270,15 @@ class Simulation:
         # _restore_gas when gas is present and HydroOn
         self.sph = None
         self.stars = None           # physics/stars.StarData, once stars exist
+        self.bh = None              # physics/blackhole.BhData, once BHs exist
         self._cooling = None        # set up lazily by _init_cooling
         self._sfr = None            # and _init_sfr
+        self._winds = None          # physics/winds.WindParams (WindOn)
+        # the halo wind model's DM velocity dispersion per row, computed on
+        # global steps (set to zeros by _init_sfr, as in the JAX package)
+        self._vdisp = None
+        self._age_table = None      # metal return (MetalReturnOn)
+        self._star_hsml = None
         self._gas_initialized = False
         self._gas_restore = None
         self._min_egy_spec = 0.0
@@ -293,6 +305,12 @@ class Simulation:
         self._nu_table_state = None
         self._nu_restore = None
         self._lightcone = None      # physics/lightcone.Lightcone
+        # counts the smoke and the tests read: gas rows kicked by winds,
+        # gas swallowed by BHs, BH mergers, BHs seeded at each FOF
+        self.wind_kicks = 0
+        self.bh_swallowed = 0
+        self.bh_mergers = 0
+        self.bh_seeded = []
         self._plane_times = None    # set by _ensure_plane_params
 
     # -- setup ---------------------------------------------------------
@@ -302,10 +320,6 @@ class Simulation:
         """Read an IC/snapshot bigfile (petaio_read_snapshot analog)."""
         bf = BigFile(path)
         header = snap_io.read_header(bf)
-        if int(header.TotNumPart[5]) > 0:
-            raise NotImplementedError(
-                "snapshots with black holes (type 5) are not supported by "
-                "mpgadget_tpu_torch yet")
         pos_all, vel_all, mass_all, type_all, id_all = [], [], [], [], []
         for ptype in range(6):
             sp = snap_io.read_species(bf, ptype, header)
@@ -319,11 +333,12 @@ class Simulation:
             id_all.append(sp["pid"].astype(np.int64))
         pos = np.concatenate(pos_all)
         n_read = len(pos)
-        # over-allocate rows for star spawning (PartAllocFactor;
-        # slots_reserve analog), rounded up to a multiple of 128 as in the
-        # JAX package
+        # over-allocate rows for star spawning and BH seeding
+        # (PartAllocFactor; slots_reserve analog), rounded up to a multiple
+        # of 128 as in the JAX package
         alloc = float(cfg_kwargs.get("part_alloc_factor", 1.5))
-        if not cfg_kwargs.get("starformation_on"):
+        if not (cfg_kwargs.get("starformation_on")
+                or cfg_kwargs.get("black_hole_on")):
             alloc = 1.0     # nothing spawns: no padding needed
         capacity = int(np.ceil(max(1.0, alloc) * n_read / 128)) * 128
         pdata = ParticleData.from_numpy(
@@ -370,30 +385,33 @@ class Simulation:
                 if "0/" + spec.name in bf:
                     sim._gas_restore[spec.field] = \
                         bf.open("0/" + spec.name).read()
-        # star slot state via the declarative registry (petaio.c:1040-1069)
+        # star and BH slot state via the declarative registry
+        # (petaio.c:1040-1069)
         from .io.registry import blocks_for_type
-        if int(header.TotNumPart[4]) > 0:
-            sim._restore_stars({
-                spec.name: bf.open(f"4/{spec.name}").read()
-                for spec in blocks_for_type(4)
-                if not spec.wronly and f"4/{spec.name}" in bf})
+        for t in (4, 5):
+            if int(header.TotNumPart[t]) > 0:
+                sim._restore_slot_state(t, {
+                    spec.name: bf.open(f"{t}/{spec.name}").read()
+                    for spec in blocks_for_type(t)
+                    if not spec.wronly and f"{t}/{spec.name}" in bf})
         # neutrino delta_tot history (petaio_read_neutrinos analog)
         if "Neutrino" in bf:
             sim._nu_restore = snap_io.read_neutrino_state(bf)
         return sim
 
-    def _restore_stars(self, blocks):
-        """Scatter the registry's star blocks (name -> array, in snapshot
-        order) into an aligned StarData (_restore_slot_state's type-4
-        part)."""
+    def _restore_slot_state(self, t, blocks):
+        """Scatter the registry's star (t = 4) or BH (t = 5) blocks (name ->
+        array, in snapshot order) into an aligned StarData or BhData."""
         from .io.registry import blocks_for_type
+        from .physics.blackhole import BhData
         from .physics.stars import StarData
-        rows = (self.pdata.valid & (self.pdata.ptype == 4)).cpu().numpy()
+        rows = (self.pdata.valid & (self.pdata.ptype == t)).cpu().numpy()
         if not blocks or not rows.any():
             return
-        holder = StarData.zeros(self.pdata.capacity, self.device)
+        holder = (StarData if t == 4 else BhData).zeros(
+            self.pdata.capacity, self.device)
         updates = {}
-        for spec in blocks_for_type(4):
+        for spec in blocks_for_type(t):
             arr = blocks.get(spec.name)
             if arr is None:
                 continue
@@ -401,7 +419,16 @@ class Simulation:
             full[rows] = np.asarray(arr).reshape(
                 (-1,) + full.shape[1:]).astype(full.dtype)
             updates[spec.field] = torch.as_tensor(full, device=self.device)
-        self.stars = holder.replace(**updates)
+        if t == 5 and "bh_mass" not in updates:
+            # never leave restored BHs with zero subgrid mass: Bondi mdot ~
+            # bh_mass^2 would stay 0 forever
+            m = np.zeros(self.pdata.capacity, np.float32)
+            m[rows] = self.cfg.bh_seed_mass
+            updates["bh_mass"] = torch.as_tensor(m, device=self.device)
+        if t == 4:
+            self.stars = holder.replace(**updates)
+        else:
+            self.bh = holder.replace(**updates)
 
     def _compute_omegas(self):
         """Density parameter per particle type, from total masses."""
@@ -591,11 +618,14 @@ class Simulation:
         self.sph = SphData.zeros(n, dev)
         gas = self.gas_mask
         atime = self.atime
-        # initial hsml guess from the mean gas separation (types 0 and 5
-        # in the reference; this port has no black holes)
+        # initial hsml guess from the mean gas separation; BHs from the IC
+        # get the same seed kernel (init.c:461-524 sets Hsml for types 0
+        # and 5: a zero BH kernel would leave the accretion sums empty)
         ngas = float(gas.sum())
         mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(ngas))
-        hsml0 = torch.where(gas, float(np.float32(2.0 * mean_sep)), 0.0)
+        is_bh = self.pdata.valid & (self.pdata.ptype == 5)
+        hsml0 = torch.where(gas | is_bh, float(np.float32(2.0 * mean_sep)),
+                            0.0)
         self.pdata = self.pdata.replace(hsml=hsml0)
         # u_init from InitGasTemp (init.c:488-501)
         init_temp = self.cfg.init_gas_temp
@@ -747,11 +777,17 @@ class Simulation:
             sph.div_vel, sph.curl_vel, sph.dhsml_egy_factor, hp,
             self.cfg.boxsize, atime, hubble, dloga)
         self.walltime.stop("SPH/Hydro")
-        # the wind-decoupled branch waits for WindOn, which
-        # check_supported refuses
+        hydro_accel = res["hydro_accel"]
+        dt_entropy = res["dt_entropy"]
+        if self.cfg.wind_on and self._gas_initialized:
+            # decoupled wind particles feel no hydro force
+            # (winds_decoupled_hydro, winds.c:113-136)
+            dec = sph.delay_time > 0
+            hydro_accel = torch.where(dec[:, None], 0.0, hydro_accel)
+            dt_entropy = torch.where(dec, 0.0, dt_entropy)
         self.sph = sph.replace(
-            hydro_accel=merge(res["hydro_accel"], sph.hydro_accel),
-            dt_entropy=merge(res["dt_entropy"], sph.dt_entropy),
+            hydro_accel=merge(hydro_accel, sph.hydro_accel),
+            dt_entropy=merge(dt_entropy, sph.dt_entropy),
             max_signal_vel=merge(res["max_signal_vel"],
                                  sph.max_signal_vel))
 
@@ -844,6 +880,27 @@ class Simulation:
         self._sfr = init_sfr(par, self.CP, self.cfg.units, self._cooling,
                              self._cooling_units, avg_bar,
                              device=self.device)
+        if self.cfg.wind_on:
+            from .physics.winds import WindParams, init_winds
+            wp = WindParams(
+                model=self.cfg.wind_model,
+                efficiency=self.cfg.wind_efficiency,
+                energy_fraction=self.cfg.wind_energy_fraction,
+                sigma0=self.cfg.wind_sigma0,
+                speed_factor=self.cfg.wind_speed_factor,
+                free_travel_length=self.cfg.wind_free_travel_length,
+                free_travel_dens_fac=self.cfg.wind_free_travel_dens_fac,
+                min_wind_velocity=self.cfg.min_wind_velocity,
+                thermal_factor=self.cfg.wind_thermal_factor,
+                max_free_travel_time=self.cfg.max_wind_free_travel_time)
+            self._winds = init_winds(
+                wp, self._sfr.FactorSN, self._sfr.EgySpecSN,
+                self._sfr.PhysDensThresh, self.cfg.units.UnitTime_in_s)
+            # as the JAX package: zeros, also when the first global step
+            # has just computed the dispersion (it is used from the next)
+            self._vdisp = torch.zeros(self.pdata.capacity,
+                                      dtype=torch.float32,
+                                      device=self.device)
 
     def apply_cooling_sfr(self, dloga, active=None):
         """cooling_and_starformation (sfr_eff.c:187): the effective EOS and
@@ -851,8 +908,11 @@ class Simulation:
         the new stars and a line of ``sfr.txt``.  dloga may be per particle
         (hierarchical stepping applies the source terms to each closing
         bin over its own interval, timestep.c:298 + run.c:374-520);
-        ``active`` restricts the update to the closing set.  The winds
-        branches wait for WindOn, which check_supported refuses."""
+        ``active`` restricts the update to the closing set.  With WindOn
+        the subgrid model kicks the star-forming gas itself before the
+        new stars spawn; the other models kick the new stars' gas
+        neighbours after (winds_and_feedback, winds.c:299-345); then the
+        decoupling timers advance."""
         from .physics import sfr as sfrmod
         from .physics.cooling import do_cooling
         from .utils import threefry
@@ -882,6 +942,21 @@ class Simulation:
             torch.where(gas, out["sfr"], sph.sfr)
         self.sph = sph.replace(entropy=out["entropy"], ne=out["ne"],
                                sfr=sfr_new, metallicity=out["metallicity"])
+        from .physics import winds as windmod
+        wkey = threefry.fold_in(key, 77)
+        subgrid = bool(self.cfg.wind_model & windmod.WIND_SUBGRID)
+        if self.cfg.wind_on and subgrid:
+            vdisp = self._vdisp if self._vdisp is not None else \
+                torch.zeros_like(self.pdata.mass)
+            vel_new, ent_new, delay_new, _ = windmod.winds_subgrid(
+                self._winds, wkey, sm=out["sm"], mass=self.pdata.mass,
+                pid=self.pdata.pid, vdisp=vdisp, vel=self.pdata.vel,
+                entropy=self.sph.entropy, density=self.sph.density,
+                delay_time=self.sph.delay_time, eligible=out["on_eeqos"],
+                atime=atime)
+            self.pdata = self.pdata.replace(vel=vel_new)
+            self.sph = self.sph.replace(entropy=ent_new,
+                                        delay_time=delay_new)
         # sfr.txt's sums, gathered before spawn_stars changes masses
         # (sfr_eff.c:319-364), read from the device in one transfer
         on_sf, make = out["on_eeqos"], out["make_star"]
@@ -899,18 +974,43 @@ class Simulation:
         sum_dtime, mass_formed, total_sfr, total_sm = (
             float(sums[i]) for i in (0, 2, 4, 5))
         n_sf, nstar = int(sums[1]), int(sums[3])
+        new_star = None
         if nstar > 0:
             if self.stars is None:
                 from .physics.stars import StarData
                 self.stars = StarData.zeros(self.pdata.capacity, self.device)
-            self.pdata, self.sph, self.stars, _, ovf, _ = \
+            self.pdata, self.sph, self.stars, _, ovf, new_star = \
                 sfrmod.spawn_stars(self.pdata, self.sph, make,
                                    out["convert"], out["star_mass"], atime,
-                                   stars=self.stars)
+                                   stars=self.stars, vdisp=self._vdisp)
             if ovf:
                 raise RuntimeError("particle capacity exhausted while "
                                    "spawning stars; raise PartAllocFactor")
         self.walltime.stop("Cooling/SFR")
+        if self.cfg.wind_on and not subgrid and new_star is not None:
+            self.walltime.start("Winds")
+            vel_new, ent_new, delay_new, kicked = \
+                windmod.winds_via_neighbors(
+                    self._winds, wkey, ipos=self.pdata.ipos,
+                    mass=self.pdata.mass, hsml=self.pdata.hsml,
+                    pid=self.pdata.pid, vel=self.pdata.vel,
+                    entropy=self.sph.entropy, density=self.sph.density,
+                    delay_time=self.sph.delay_time, is_gas=self.gas_mask,
+                    new_star=new_star, star_vdisp=self.stars.vdisp,
+                    boxsize=self.cfg.boxsize, atime=atime)
+            self.pdata = self.pdata.replace(vel=vel_new)
+            self.sph = self.sph.replace(entropy=ent_new,
+                                        delay_time=delay_new)
+            self.wind_kicks += int(kicked.sum())
+            self.walltime.stop("Winds")
+        if self.cfg.wind_on:
+            # advance the decoupling timers (winds_evolve)
+            dt = dloga / hubble if not isinstance(dloga, torch.Tensor) \
+                else (dloga / hubble).to(torch.float32)
+            self.sph = self.sph.replace(
+                delay_time=windmod.winds_decouple_update(
+                    self._winds, self.sph.delay_time, self.sph.density, dt,
+                    atime))
         # sfr.txt in the reference's 8-column layout (write_sfr,
         # sfr_eff.c:381): a, total_sm (expected mass formed, internal),
         # totsfrrate (Msun/yr), the rate total_sm implies over the mean
@@ -935,6 +1035,356 @@ class Simulation:
             self.apply_cooling_sfr(dloga, active)
         elif self.cfg.cooling_on:
             self.apply_cooling(dloga, active)
+
+    def _compute_vdisp(self):
+        """The halo wind model's DM velocity dispersion around the gas, on
+        global steps (run.c:646-647; the JAX package computes it only in
+        Simulation.step)."""
+        from .physics.winds import dm_velocity_dispersion
+        npart = float(self.pdata.num_valid)
+        mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(npart))
+        self.walltime.start("Winds")
+        self._vdisp = dm_velocity_dispersion(
+            self.pdata.ipos, self.pdata.vel, self.pdata.mass,
+            self.pdata.valid & (self.pdata.ptype == 1), self.gas_mask,
+            self.cfg.boxsize, mean_sep)
+        self.walltime.stop("Winds")
+
+    # -- metal return and black holes ------------------------------------
+
+    def apply_metal_return(self, dloga):
+        """Stellar mass & metal return to the neighbour gas (metal_return(),
+        metal_return.c:423-500)."""
+        from .physics import metal_return as mrmod
+        is_star = self.pdata.valid & (self.pdata.ptype == 4)
+        if self.sph is None or self.stars is None or not bool(is_star.any()):
+            return
+        atime1 = self.atime
+        atime0 = float(np.exp(np.log(atime1) - dloga))
+        if self._age_table is None:
+            self._age_table = mrmod.AgeTable(
+                self.CP.hubble_function, self.cfg.units,
+                self.CP.HubbleParam, device=self.device)
+            self._mr_params = mrmod.MetalReturnParams(
+                sn1a_n0=self.cfg.metals_sn1a_n0,
+                sph_weighting=self.cfg.metals_sph_weighting,
+                max_ngb_deviation=self.cfg.metals_max_ngb_deviation)
+            self._star_hsml = torch.where(is_star, self.pdata.hsml, 0.0)
+        # seed the star hsml from the particle hsml (gas-inherited) or the
+        # mean spacing where zero
+        npart = float(self.pdata.num_valid)
+        mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(npart))
+        sh = torch.where(self._star_hsml > 0, self._star_hsml,
+                         torch.where(self.pdata.hsml > 0, self.pdata.hsml,
+                                     float(np.float32(2.0 * mean_sep))))
+        self.walltime.start("MetalReturn")
+        out = mrmod.metal_return_step(
+            self.pdata.ipos, self.pdata.mass, self.pdata.hsml,
+            self.sph.density, self.gas_mask, is_star, sh, self.stars,
+            self.sph.metals, atime0, atime1, self._age_table,
+            self.cfg.boxsize, self._mr_params, self.CP.HubbleParam)
+        self.walltime.stop("MetalReturn")
+        gas = self.gas_mask
+        self.pdata = self.pdata.replace(mass=torch.where(
+            gas, out["gas_mass"], out["star_mass"].to(torch.float32)))
+        zmet = torch.sum(out["gas_metals"][:, 2:], dim=1)
+        self.sph = self.sph.replace(
+            metals=out["gas_metals"],
+            metallicity=torch.where(gas, zmet, self.sph.metallicity))
+        self.stars = self.stars.replace(
+            total_mass_returned=out["total_mass_returned"].to(
+                torch.float32),
+            last_enrichment_myr=out["last_enrichment_myr"])
+        self._star_hsml = out["star_hsml"]
+
+    def _bh_params(self):
+        from .physics.blackhole import BHParams
+        return BHParams(
+            accretion_factor=self.cfg.bh_accretion_factor,
+            eddington_factor=self.cfg.bh_eddington_factor,
+            feedback_factor=self.cfg.bh_feedback_factor,
+            seed_mass=self.cfg.bh_seed_mass,
+            ngb_factor=self.cfg.bh_ngb_factor,
+            min_fof_mass_for_seed=self.cfg.min_fof_mass_for_seed,
+            min_mstar_for_seed=self.cfg.min_mstar_for_seed,
+            kinetic_on=self.cfg.bh_kinetic_on,
+            merge_grav_bound=self.cfg.bh_merge_grav_bound,
+            dynfric_method=self.cfg.bh_dynfric_method,
+            df_boost=self.cfg.bh_df_boost,
+            df_bmax=self.cfg.bh_df_bmax,
+            ke_eddington_thr_factor=self.cfg.bhke_eddington_thr_factor,
+            ke_eddington_m_factor=self.cfg.bhke_eddington_m_factor,
+            ke_eddington_m_pivot=self.cfg.bhke_eddington_m_pivot,
+            ke_eddington_m_index=self.cfg.bhke_eddington_m_index,
+            ke_eff_rho_factor=self.cfg.bhke_eff_rho_factor,
+            ke_eff_cap=self.cfg.bhke_eff_cap,
+            ke_inj_energy_thr=self.cfg.bhke_inj_energy_thr,
+            ke_sfr_crit_overdensity=self.cfg.crit_overdensity,
+            seed_bh_dyn_mass=self.cfg.seed_bh_dyn_mass,
+            reposition_enabled=self.cfg.bh_reposition)
+
+    def apply_blackholes(self, dloga):
+        """BH accretion, swallowing, feedback, mergers and repositioning
+        (blackhole(), blackhole.c:216-360), when any BH exists; a line of
+        ``blackholes.txt`` (a, BHs, total BH mass, total mdot, gas
+        swallowed) and, with WriteBlackHoleDetails, the BHs' records."""
+        from .physics import blackhole as bhmod
+        from .physics.winds import dm_velocity_dispersion
+        from .utils import threefry
+        is_bh = self.pdata.valid & (self.pdata.ptype == 5)
+        nbh = int(is_bh.sum())
+        if nbh == 0:
+            return
+        self._ensure_bh()
+        par = self._bh_params()
+        gas = self.gas_mask
+        atime = self.atime
+        hubble = self.CP.hubble_function(atime)
+        dtime = dloga / hubble
+        pd = self.pdata
+        box = self.cfg.boxsize
+        ktype = self.cfg.density_kernel_type
+        self.walltime.start("BH")
+        # dynamical friction environment (bhdynfric.c)
+        if par.dynfric_method > 0:
+            src = pd.valid & (pd.ptype == 4)
+            if par.dynfric_method > 1:
+                src = src | (pd.valid & (pd.ptype == 1))
+            if par.dynfric_method > 2:
+                src = src | gas
+            dfs = bhmod.bh_dynfric_sums(pd.ipos, pd.mass, pd.hsml, pd.vel,
+                                        is_bh, src, box, kernel_type=ktype)
+            df_acc = bhmod.dynfric_accel(
+                dfs["rho"], dfs["vel"], dfs["rmsvel"], pd.mass, pd.vel,
+                atime, self.CP.GravInternal, bmax=par.df_bmax,
+                boost=par.df_boost)
+            self.bh = self.bh.replace(df_accel=torch.where(
+                is_bh[:, None], df_acc, 0.0).to(torch.float32))
+        if par.kinetic_on:
+            # 1D DM velocity dispersion around the BHs within each BH's own
+            # Hsml (veldisp.c:60-76)
+            vd = dm_velocity_dispersion(
+                pd.ipos, pd.vel, pd.mass, pd.valid & (pd.ptype == 1), is_bh,
+                box, 0.0, radius_per_particle=torch.where(is_bh, pd.hsml,
+                                                          0.0))
+            self.bh = self.bh.replace(vdisp=torch.where(is_bh, vd, 0.0))
+        sums = bhmod.bh_neighbor_sums(pd.ipos, pd.mass, pd.hsml, pd.vel,
+                                      self.sph.entropy, is_bh, gas, box,
+                                      kernel_type=ktype)
+        self.bh = self.bh.replace(bh_density=sums["rho"])
+        gasvel = torch.stack([sums["vx"], sums["vy"], sums["vz"]], dim=-1)
+        mdot, dm = bhmod.bondi_accretion(
+            par, self.bh.bh_mass, self.bh.bh_density, sums["ent"], gasvel,
+            pd.vel, atime, self.CP.GravInternal,
+            self.cfg.units.UnitTime_in_s, self.CP.HubbleParam, dtime)
+        self.bh = self.bh.replace(
+            mdot=torch.where(is_bh, mdot, 0.0),
+            bh_mass=torch.where(is_bh, self.bh.bh_mass + dm,
+                                self.bh.bh_mass))
+        ke_energy = keflag = None
+        if par.kinetic_on:
+            rho_crit_b = self.CP.OmegaBaryon * 3 * self.CP.Hubble ** 2 \
+                / (8 * np.pi * self.CP.GravInternal)
+            ke_energy, keflag = bhmod.kinetic_update(
+                par, self.bh.bh_mass, self.bh.mdot, self.bh.bh_density,
+                self.bh.vdisp, sums["mgas"], self.bh.kinetic_energy, dtime,
+                self.cfg.units.UnitTime_in_s, self.CP.HubbleParam,
+                rho_crit_b, self.cfg.units.UnitVelocity_in_cm_per_s)
+        key = threefry.prng_key(
+            (self.cfg.random_seed + self.ti_current + 5) % (2 ** 31))
+        swallowed, ent_new, bhrow, kick = bhmod.swallow_and_feedback(
+            par, key, ipos=pd.ipos, mass=pd.mass, hsml=pd.hsml,
+            entropy=self.sph.entropy, density=self.sph.density,
+            is_bh=is_bh, is_gas=gas, pid=pd.pid, bh_mass=self.bh.bh_mass,
+            mdot=self.bh.mdot, bh_density=self.bh.bh_density,
+            fbweight=sums["fbweight"], boxsize=box, atime=atime,
+            dtime=dtime, unit_velocity=self.cfg.units.UnitVelocity_in_cm_per_s,
+            uu_in_cgs=self.cfg.units.UnitInternalEnergy_in_cgs,
+            kernel_type=ktype, ke_energy=ke_energy, keflag=keflag,
+            mtrack=self.bh.mtrack)
+        self.sph = self.sph.replace(entropy=ent_new)
+        if par.kinetic_on:
+            self.pdata = self.pdata.replace(vel=self.pdata.vel + kick)
+            # reset the released energy (blackhole.c:986-989)
+            self.bh = self.bh.replace(kinetic_energy=torch.where(
+                keflag == 2, 0.0, ke_energy))
+        # swallowing on the device: swallowed mass and momentum summed by
+        # swallower row, then routed through Mtrack
+        # (blackhole_feedback_postprocess, blackhole.c:960-978)
+        nsw = int(swallowed.sum())
+        if nsw > 0:
+            n = self.pdata.capacity
+            m = self.pdata.mass
+            v = self.pdata.vel
+            rows = torch.where(swallowed, bhrow, n)
+            acc_mass = torch.zeros(n + 1, dtype=torch.float32,
+                                   device=self.device)
+            acc_mass.index_add_(0, rows, torch.where(swallowed, m, 0.0))
+            acc_mom = torch.zeros((n + 1, 3), dtype=torch.float32,
+                                  device=self.device)
+            acc_mom.index_add_(0, rows, torch.where(
+                swallowed[:, None], m[:, None] * v, 0.0))
+            new_mass, new_mtrack, new_vel = bhmod.apply_mtrack_accretion(
+                m, self.bh.mtrack, acc_mass[:n], acc_mom[:n], v, is_bh,
+                par.seed_bh_dyn_mass)
+            self.pdata = self.pdata.replace(
+                mass=new_mass, vel=new_vel,
+                valid=self.pdata.valid & ~swallowed)
+            self.bh = self.bh.replace(mtrack=new_mtrack)
+        self.bh_swallowed += nsw
+        # BH-BH mergers (blackhole.c:495-560), on the host
+        if nbh > 1:
+            self._bh_mergers(par, atime)
+        # minimum-potential repositioning (blackhole_minpot_ngbiter,
+        # bhdynfric.c:199-231 + the drift.c:32-49 jump, applied here at the
+        # end of the BH step)
+        if par.reposition_enabled:
+            self._bh_reposition()
+        self.walltime.stop("BH")
+        # the sums over the BHs at the step's start, mergers included
+        tot = torch.stack([self.bh.mdot.sum(),
+                           torch.where(is_bh, self.bh.bh_mass, 0.0).sum()])
+        mdot_tot, mbh_tot = (float(x) for x in tot.cpu().numpy())
+        with open(os.path.join(self.cfg.output_dir, "blackholes.txt"),
+                  "a") as fh:
+            fh.write(f"{atime:g} {nbh} {mbh_tot:g} {mdot_tot:g} {nsw}\n")
+        if self.cfg.write_bh_details:
+            self._write_bh_details(atime)
+
+    def _bh_mergers(self, par, atime):
+        """Merge bound BH pairs closer than twice the softening; the
+        swallower takes the mass, momentum, subgrid mass and progenitors
+        (np.add.at on the host, as the JAX package)."""
+        from .physics import blackhole as bhmod
+        pd = self.pdata
+        host = {k: getattr(pd, k).cpu().numpy()
+                for k in ("ipos", "vel", "grav_accel", "grav_pm", "pid",
+                          "valid", "ptype", "mass")}
+        soft = self.cfg.gravity_softening * self._dm_mean_sep()
+        merge = bhmod.bh_mergers(
+            par, pos=fixed_to_pos(host["ipos"], self.cfg.boxsize),
+            vel=host["vel"],
+            accel=host["grav_accel"] + host["grav_pm"],
+            df_accel=self.bh.df_accel.cpu().numpy(), pid=host["pid"],
+            is_bh=host["valid"] & (host["ptype"] == 5),
+            boxsize=self.cfg.boxsize, atime=atime, softening=soft)
+        swr, tor = merge["swallowed"], merge["swallower"]
+        if not len(swr):
+            return
+        m = host["mass"].copy()
+        v = host["vel"].copy()
+        bhm = self.bh.bh_mass.cpu().numpy().copy()
+        progs = self.bh.count_progs.cpu().numpy().copy()
+        # a swallowed BH still in its Mtrack regime donates its tracked
+        # mass, not the fixed dynamical seed mass (blackhole.c:795-798)
+        othermass = m[swr]
+        if par.seed_bh_dyn_mass > 0:
+            mtk = self.bh.mtrack.cpu().numpy()
+            othermass = np.where(mtk[swr] < par.seed_bh_dyn_mass, mtk[swr],
+                                 othermass)
+        mom = m[:, None] * v
+        np.add.at(mom, tor, othermass[:, None] * v[swr])
+        np.add.at(m, tor, othermass)
+        np.add.at(bhm, tor, bhm[swr])
+        np.add.at(progs, tor, progs[swr] + 1)
+        v = np.where((m > 0)[:, None], mom / np.maximum(m, 1e-30)[:, None],
+                     v)
+        valid = host["valid"].copy()
+        valid[swr] = False
+        dev = self.device
+        self.pdata = self.pdata.replace(
+            mass=torch.as_tensor(m, dtype=torch.float32, device=dev),
+            vel=torch.as_tensor(v, dtype=torch.float32, device=dev),
+            valid=torch.as_tensor(valid, device=dev))
+        self.bh = self.bh.replace(
+            bh_mass=torch.as_tensor(bhm, dtype=torch.float32, device=dev),
+            count_progs=torch.as_tensor(progs, dtype=torch.int32,
+                                        device=dev))
+        self.bh_mergers += len(swr)
+
+    def _bh_reposition(self):
+        """Move each BH to its kernel's minimum-potential neighbour: the
+        total potential (PM plus one tree evaluation with the potential,
+        gravshort-tree.c:137), then bhmod.bh_minpot."""
+        from .physics import blackhole as bhmod
+        pd = self.pdata
+        is_bh = pd.valid & (pd.ptype == 5)
+        srcs = pd.valid & ((pd.ptype == 0) | (pd.ptype == 1)
+                           | (pd.ptype == 4) | (pd.ptype == 5))
+        pot_tot = pd.potential
+        if self.cfg.tree_grav_on and self._tree_grav is not None:
+            _, tree_pot = self._tree_compute_retry(return_potential=True)
+            pot_tot = pot_tot + tree_pot
+        mp_pos, _, found = bhmod.bh_minpot(pd.ipos, pd.hsml, pot_tot,
+                                           pd.vel, srcs, is_bh,
+                                           self.cfg.boxsize)
+        # stored in the offset-free output frame (as Position and the FOF
+        # MassCenterPosition), so that the snapshot block agrees with
+        # Position across the per-step offset re-randomization
+        off = torch.as_tensor(self._ipos_offset.astype(np.float64)
+                              * 2.0 ** -32 * self.cfg.boxsize,
+                              dtype=torch.float32, device=self.device)
+        mp_out = torch.remainder(mp_pos - off[None, :],
+                                 float(np.float32(self.cfg.boxsize)))
+        self.bh = self.bh.replace(min_pot_pos=torch.where(
+            found[:, None], mp_out, self.bh.min_pot_pos))
+        ip_new = torch.as_tensor(
+            pos_to_fixed(mp_pos.cpu().numpy(), self.cfg.boxsize).astype(
+                np.int64), device=self.device)
+        self.pdata = self.pdata.replace(
+            ipos=torch.where(found[:, None], ip_new, pd.ipos))
+
+    def _write_bh_details(self, atime):
+        """Per-step per-BH detail records (bhinfo.c:1-204 analog): float64
+        rows of 12 (ID, a, BH mass, mdot, density, position, mass, Mtrack,
+        progenitors, kinetic energy) appended to
+        BlackholeDetails/BH-Details-R0 (layout: tools/read_bh_details.py)."""
+        pd = self.pdata
+        rows = np.flatnonzero((pd.valid & (pd.ptype == 5)).cpu().numpy())
+        if rows.size == 0:
+            return
+        rec = np.zeros((rows.size, 12), np.float64)
+        rec[:, 0] = pd.pid.cpu().numpy()[rows]
+        rec[:, 1] = atime
+        for col, arr in ((2, self.bh.bh_mass), (3, self.bh.mdot),
+                         (4, self.bh.bh_density), (8, pd.mass),
+                         (9, self.bh.mtrack), (10, self.bh.count_progs),
+                         (11, self.bh.kinetic_energy)):
+            rec[:, col] = arr.cpu().numpy()[rows]
+        rec[:, 5:8] = self._output_pos()[rows]
+        d = os.path.join(self.cfg.output_dir, "BlackholeDetails")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "BH-Details-R0"), "ab") as fh:
+            fh.write(rec.tobytes())
+
+    def _ensure_bh(self):
+        """Create BhData on first use, and give IC black holes (type-5 rows
+        without a BlackholeMass block, which is optional on read) the seed
+        subgrid mass and their mass as Mtrack: Bondi mdot ~ Mbh^2 would
+        otherwise stay zero forever."""
+        from .physics.blackhole import BhData
+        if self.bh is None:
+            self.bh = BhData.zeros(self.pdata.capacity, self.device)
+        fix = self.pdata.valid & (self.pdata.ptype == 5) \
+            & (self.bh.bh_mass <= 0)
+        if bool(fix.any()):
+            self.bh = self.bh.replace(
+                bh_mass=torch.where(fix, float(np.float32(
+                    self.cfg.bh_seed_mass)), self.bh.bh_mass),
+                mtrack=torch.where(fix, self.pdata.mass, self.bh.mtrack))
+
+    def seed_black_holes_from_fof(self, cat):
+        """FOF seeding (fof_seed): the densest gas particle of each halo
+        above MinFoFMassForNewSeed and MinMStarForNewSeed that holds no BH
+        becomes one.  Returns the number seeded."""
+        from .physics import blackhole as bhmod
+        if self.bh is None:
+            self.bh = bhmod.BhData.zeros(self.pdata.capacity, self.device)
+        self.pdata, self.bh, nseeded = bhmod.seed_black_holes(
+            self._bh_params(), cat, self.pdata, self.bh, self.sph,
+            self.atime)
+        self.bh_seeded.append(nseeded)
+        return nseeded
 
     def find_hydro_timestep_dloga(self):
         """Courant + Hsml-change criteria (timestep.c:1075-1090)."""
@@ -1093,12 +1543,26 @@ class Simulation:
         self.ti_current = t1
         # Forces at t1: hydro first (run.c:466-489), then gravity
         if self.has_gas and self.cfg.hydro_on:
+            # the halo wind model's DM velocity dispersion, on PM steps as
+            # in the reference (run.c:646-647)
+            if self.cfg.wind_on and self._gas_initialized \
+                    and self.cfg.wind_model & 4:
+                self._compute_vdisp()
             self.compute_hydro(self.timeline.dloga_from_dti(dti, t0))
         self.compute_forces()
         self.force_evals += self.pdata.num_valid
         # K: half kick with forces at t1
         self._apply_half_kick(th, t1)
-        self._source_terms(self.timeline.dloga_from_dti(dti, t0))
+        # Strang-split source terms (run.c:586-604): black holes, then
+        # cooling and star formation, then metal return
+        dloga = self.timeline.dloga_from_dti(dti, t0)
+        if self.has_gas and self._gas_initialized \
+                and self.cfg.black_hole_on:
+            self.apply_blackholes(dloga)
+        self._source_terms(dloga)
+        if self.has_gas and self._gas_initialized \
+                and self.cfg.metal_return_on:
+            self.apply_metal_return(dloga)
 
     def step_hierarchical(self, dti_pm: int):
         """One PM interval with per-particle timebin sub-cycling
@@ -1200,6 +1664,16 @@ class Simulation:
         # long-range force refresh + closing PM kick at the sync point
         self.compute_forces(tree=False)
         self._apply_pm_half_kick(mid, t_end)
+        # cooling and star formation ran per closing bin in the loop; black
+        # holes and metal return run once per PM interval, as in the JAX
+        # package (the reference restricts them to the active BHs and
+        # stars instead, blackhole.c:216)
+        if self.has_gas and self._gas_initialized:
+            dloga = self.timeline.dloga_from_dti(dti_pm, t0)
+            if self.cfg.black_hole_on:
+                self.apply_blackholes(dloga)
+            if self.cfg.metal_return_on:
+                self.apply_metal_return(dloga)
         log["n_sub"] = n_sub
         self.step_log.append(log)
         return n_sub
@@ -1268,11 +1742,11 @@ class Simulation:
                 self.write_snapshot()
                 if self.cfg.output_energy_debug:
                     self.energy_statistics()
-                # BH seeding from the catalogue waits for BlackHoleOn,
-                # which check_supported refuses
                 if sp.write_fof or (self.cfg.snapshot_with_fof
                                     and sp.write_snapshot):
-                    self.run_fof()
+                    cat = self.run_fof()
+                    if self.cfg.black_hole_on:
+                        self.seed_black_holes_from_fof(cat)
             if self.last_power is not None:
                 D1 = self.CP.GrowthFactor(self.atime, 1.0)
                 self.last_power.save(self.cfg.output_dir, self.atime, D1)
@@ -1574,13 +2048,14 @@ class Simulation:
     def _species_extra_blocks(self, t, sel, atime):
         """Type-specific blocks for a boolean selection sel, driven by the
         declarative registry (petaio.c:992-1078 analog), plus the derived
-        InternalEnergy block of the gas.  The holders on this path are
-        the base particles, with gas the SPH state, with stars StarData."""
+        InternalEnergy block of the gas.  The holders are the base
+        particles, with gas the SPH state, with stars StarData, with black
+        holes BhData."""
         from .io.registry import blocks_for_type
         from .utils.constants import GAMMA_MINUS1
         extra = {}
         holders = {"pdata": self.pdata, "sph": self.sph,
-                   "stars": self.stars}
+                   "stars": self.stars, "bh": self.bh}
         for spec in blocks_for_type(t):
             holder = holders.get(spec.holder)
             if holder is None:

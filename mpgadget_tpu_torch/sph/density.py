@@ -230,6 +230,13 @@ def group_targets(tree, nodes, n, group_max):
     return tidx, offg[None, :] < tpc[:, None]
 
 
+def group_radius(tree, nodes, r_sorted, group_max):
+    """Each group's search radius: the largest r_sorted (box units, sorted
+    order) among its targets."""
+    tidx, tm = group_targets(tree, nodes, r_sorted.shape[0], group_max)
+    return torch.where(tm, r_sorted[tidx], 0.0).max(dim=1).values
+
+
 def sph_density(ipos, mass, valid_gas, hsml, vel, velpred, entvarpred,
                 par: DensityParams, boxsize, update_hsml=True,
                 do_egy_density=True, target_mask=None):

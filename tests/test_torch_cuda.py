@@ -412,6 +412,49 @@ def test_neighbor_kernel_matches_plain(cuda, kind, symmetric, LL, stack_cap):
             st["serial"][g]), g
 
 
+def test_neighbor_kernel_on_the_bh_feedback_search(cuda):
+    """K3 on the black holes' swallow and feedback search
+    (physics/blackhole.swallow_and_feedback): a symmetric walk of the gas
+    groups with radius 0 through a node hmax built from the BHs' hsml
+    only, against its plain version on the same tensors: identical leaf
+    lists, counts, flags and visits, and the lists reach the BHs."""
+    rng = np.random.RandomState(17)
+    n, nbh = 8192, 12
+    c = rng.uniform(0, 1, (nbh, 3))
+    pos = np.concatenate([c, np.mod(c[rng.randint(nbh, size=n // 2)]
+                                    + 0.02 * rng.randn(n // 2, 3), 1),
+                          rng.uniform(0, 1, (n - n // 2 - nbh, 3))])
+    ipos = torch.as_tensor(np.minimum((pos * 2.0 ** 32).astype(np.int64),
+                                      2 ** 32 - 1), device=cuda)
+    is_bh = torch.arange(n, device=cuda) < nbh
+    include = is_bh | (torch.rand(n, device=cuda) > 0.05)
+    hsml = torch.where(is_bh, torch.as_tensor(
+        rng.uniform(0.005, 0.03, n), dtype=torch.float32, device=cuda), 0.0)
+    mass = torch.ones(n, device=cuda)
+    perm, inv, pos_box, _, tree, (nodes, gc, gh) = density.sorted_tree(
+        ipos, mass, include, 32)
+    leaf_ids, n_leaves, _ = pairs.compact_leaves(tree, n + 256)
+    hm = pairs.node_hmax(tree, leaf_ids, n_leaves,
+                         torch.where(is_bh[perm], hsml[perm], 0.0))
+    zero = torch.zeros(nodes.shape[0], device=cuda)
+    before = pairs.LAUNCHES
+    got = pairs.find_neighbors(tree, nodes, gc, gh, zero, hm, 64,
+                               symmetric=True)
+    assert pairs.LAUNCHES == before + 1
+    ref = pairs.find_neighbors_reference(tree, nodes, gc, gh, zero, hm, 64,
+                                         symmetric=True)
+    for name in ("leaf_idx", "n_leaves", "overflow", "visits"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    listed = got.leaf_idx[got.n_leaves[:, None] > torch.arange(
+        64, device=cuda)[None, :]].long()
+    assert not bool(got.overflow.any()) and listed.numel() > 0
+    # the listed leaves hold every BH
+    ps, pc = tree.pstart[listed], tree.pcount[listed]
+    bh_rows = torch.nonzero(is_bh[perm]).flatten()
+    assert bool(((bh_rows[:, None] >= ps[None, :])
+                 & (bh_rows[:, None] < (ps + pc)[None, :])).any(1).all())
+
+
 def test_neighbor_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     tree, (nodes, gc, gh, _, _, _), hmax = neighbor_inputs("uniform", cuda,
                                                            n=2048)

@@ -208,9 +208,12 @@ def test_bad_timestep_error_survives_a_failed_emergency_snapshot(
         tsim.run(verbose=False)
 
 
-# switches the port carries since the dark-matter options were ported
+# switches the port carries since the dark-matter options were ported, and
+# BlackHoleOn since black holes were
 CARRIED = ("MassiveNuLinRespOn", "LightconeOn", "PlaneOutputList",
-           "OutputEnergyDebug", "HybridNeutrinosOn")
+           "OutputEnergyDebug", "HybridNeutrinosOn", "BlackHoleOn")
+# gas switches the port carries since winds and metal return were ported
+GAS_CARRIED = ("WindOn", "MetalReturnOn")
 
 
 @pytest.mark.parametrize("name,value", [
@@ -222,19 +225,16 @@ CARRIED = ("MassiveNuLinRespOn", "LightconeOn", "PlaneOutputList",
     ("UVFluctuationFile", "uvfluc.txt")])
 def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
     """A switch the port does not carry raises NotImplementedError naming
-    it: BlackHoleOn always, the gas switches with gas, the cooling tables
-    with cooling gas (check_supported of a gas box with CoolingOn; the
-    slice's IC holds no gas).  The five dark-matter switches the port
-    carries build a Simulation on the CPU."""
+    it: the gas switches with gas, the cooling tables with cooling gas
+    (check_supported of a gas box with CoolingOn; the slice's IC holds no
+    gas).  The five dark-matter switches and BlackHoleOn, which the port
+    carries, build a Simulation on the CPU; WindOn and MetalReturnOn, which
+    it carries too, pass check_supported with cooling gas."""
     ps = _params(create_gadget_parameter_set, ic_path, tmp_path,
                  **{name: value})
     if name in CARRIED:
         sim, _ = build_simulation(ps, device="cpu")
         assert isinstance(sim, Simulation)
-        return
-    if name == "BlackHoleOn":
-        with pytest.raises(NotImplementedError, match=name):
-            build_simulation(ps, device="cpu")
         return
     cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
                     units=None, hydro_on=True, cooling_on=True)
@@ -244,6 +244,9 @@ def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
              "MetalCoolFile": "metal_cool_file",
              "UVFluctuationFile": "uv_fluctuation_file"}[name]
     cfg = SimConfig(**{**cfg.__dict__, field: value})
+    if name in GAS_CARRIED:
+        check_supported(cfg, has_gas=True)
+        return
     with pytest.raises(NotImplementedError, match=name):
         check_supported(cfg, has_gas=True)
 
@@ -253,10 +256,15 @@ def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
     ("QSOLightupOn", "qso_lightup_on"),
     ("WindOn", "wind_on"), ("MetalReturnOn", "metal_return_on")])
 def test_gas_switches_raise_only_with_gas(name, field):
+    """The gas switches the port does not carry raise only with gas; WindOn
+    and MetalReturnOn, which it carries, pass with and without gas."""
     cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
                     units=None, hydro_on=False, split_gravity_timesteps=False)
     cfg = SimConfig(**{**cfg.__dict__, field: True})
     check_supported(cfg, has_gas=False)
+    if name in GAS_CARRIED:
+        check_supported(cfg, has_gas=True)
+        return
     with pytest.raises(NotImplementedError, match=name):
         check_supported(cfg, has_gas=True)
 
@@ -280,6 +288,10 @@ def test_port_imports_no_jax():
             "mpgadget_tpu_torch.sph.hydra, mpgadget_tpu_torch.sph.state; "
             "import mpgadget_tpu_torch.genic.main, "
             "mpgadget_tpu_torch.genic.glass; "
+            "import mpgadget_tpu_torch.physics.winds, "
+            "mpgadget_tpu_torch.physics.blackhole, "
+            "mpgadget_tpu_torch.physics.metal_return, "
+            "mpgadget_tpu_torch.physics.yield_tables; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mpgadget_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
