@@ -193,7 +193,34 @@ fails the run (non-zero exit, no result line) if it fails:
    decoupled rows without hydro force, a BH seeded that accretes,
    swallowing and mergers counted, BH-Details-R0 and the last
    snapshot's BH blocks read back (from_snapshot), and the card time by
-   caller as in phase 23.
+   caller as in phase 23;
+25. travis as it ships: examples/travis/paramfile.genic through the genic
+   CLI (phase 9's Eisenstein-Hu cut: 24^3 gas + 24^3 DM, 128 kpc/h, z =
+   99), paramfile.gadget with MetalCoolFile pointing at a stand-in table
+   the smoke writes from a closed form (write_metal_table: the absent
+   cooling_metal_UVB) and TreeCoolFile empty (the absent
+   TREECOOL_fg_june11), Simulation.run() to a = 0.015 with cooling and
+   the metal table, star formation, ofjt10 winds, metal return, black
+   holes and FOF: every kernel launched, the gas's metallicity fed to K6,
+   the total mass kept, the snapshots and PIGs read back;
+26. reionization on star-small: phase 23's snapshot at a = 0.15 resumed
+   through the CLI's body (RestartFlag 2, hierarchical as shipped) to a =
+   0.185 (REION_TIME_MAX, the depth cut) with the metal table, a z_reion
+   grid (UVFluctuationFile), the excursion set (epoch z 6 to 5) and QSO
+   lightup on, each reading a
+   stand-in the smoke writes (write_reion_inputs: a TreeCool table, the
+   metal table, a z_reion grid at Nmesh 8 with a late patch at z_re 4.5,
+   a HeII history from z 5.6 to 4), QSOMinMass/QSOMaxMass bracketing the
+   PIG's largest halo and 1000 kpc/h bubbles (cuts, printed): the UVBG
+   updates and their xHI, gas rows with J21 > 0 and zreion set, the late
+   patch's rows without UV rates between the epoch's end and z = 4.5 and
+   with them after, HeIII-ionized rows each inside a placed bubble, gas
+   with metallicity > 0, the mass against the snapshot's, J21,
+   ZReionized and HeIIIIonized read back from the last snapshot, the
+   "UVBG" and "HeIII" seconds; then K6 with its per-row inputs on that
+   run's last cooling call (per-row UV rates, metallicity, the metal
+   table) against its plain version, and with them off bit for bit its
+   first design, both timed (reion_cooling_case).
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -2985,13 +3012,17 @@ COOL_CLOSE_TRANSC = 9
 ROWS_PER_WARP = 8     # csrc/cooling.cu: 4 lanes a row
 
 
-def cooling_work(bisect):
+def cooling_work(bisect, metal=False):
     """(operations, transcendentals) per particle of one K6 call at the
     full trip counts (every iteration run, the first design's work):
-    do_cooling's bisection when bisect, else one net rate."""
+    do_cooling's bisection when bisect, else one net rate; with metal, the
+    metal table's lookup in every net rate (COOL_METAL_OPS)."""
     from mpgadget_tpu_torch.physics.cooling import BISECT_ITERS, NE_ITERS
     ops = NE_ITERS * (2 * COOL_NE_OPS + COOL_STEFF_OPS) + 4 + COOL_TAIL_OPS
     trans = NE_ITERS * 2 * COOL_NE_TRANSC + COOL_TAIL_TRANSC
+    if metal:
+        ops += COOL_METAL_OPS
+        trans += COOL_METAL_TRANSC
     if bisect:
         return (BISECT_ITERS * (ops + COOL_BISECT_OPS) + 10,
                 BISECT_ITERS * trans)
@@ -3198,18 +3229,33 @@ def simple_cooling(call):
 
     lib = kernels.load("cooling_simple")
     fns = {}
-    for name, n_ptr in (("do_cooling", 7), ("heatingcooling_rate", 6)):
+    for name, n_io in cooling.N_PTRS.items():
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{suffix}")
             fn.restype = ctypes.c_int
-            fn.argtypes = cooling._kernel(f"{name}_{suffix}", n_ptr).argtypes
-            fns[f"{name}_{suffix}"] = fn
+            fn.argtypes = [ctypes.c_void_p] * (n_io + 1) + [ctypes.c_int64] \
+                + [ctypes.c_void_p] * 3
+            fns[f"{name}_{suffix}"] = first_design_call(fn, n_io)
     real, launches = cooling._fns, cooling.LAUNCHES
     cooling._fns = fns
     try:
         return call()
     finally:
         cooling._fns, cooling.LAUNCHES = real, launches
+
+
+def first_design_call(fn, n_io):
+    """The first design's entry point fn as the wrapper calls K6's: its
+    optional per-row inputs (which the first design does not take) must be
+    null and are dropped."""
+    from mpgadget_tpu_torch.physics import cooling
+
+    def call(*args):
+        extra = args[n_io:n_io + cooling.N_EXTRA]
+        check(all(x is None for x in extra), "the first design of K6 takes "
+              "no per-row UV rates, metallicity or metal table")
+        return fn(*args[:n_io], *args[n_io + cooling.N_EXTRA:])
+    return call
 
 
 def same_bits(a, b):
@@ -3232,17 +3278,20 @@ def cooling_designs(name, kern, launch, outs, reps):
             simple_cooling(lambda: graph_ms(launch, reps)))
 
 
-def cooling_launch(name, rows, args, ins, outs):
+def cooling_launch(name, rows, args, ins, outs, extra=None):
     """A call of K6's entry point `name` alone (physics.cooling._launch)
-    on these inputs, rows checked once here and outputs made once: what
-    cooling_designs times."""
+    on these inputs (extra: its optional per-row inputs, kernel_extra's),
+    rows checked once here and outputs made once: what cooling_designs
+    times."""
     from mpgadget_tpu_torch.physics import cooling
     n = ins[0].shape[0]
     rows = cooling._as_rows(rows, n, ins[0].device)
     n_rows = n if rows is None else rows.shape[0]
     ins = [x.contiguous() for x in ins]
     outs = [x.clone() for x in outs]
-    return lambda: cooling._launch(name, n_rows, rows, args, ins, outs)
+    extra = extra or (None,) * cooling.N_EXTRA
+    return lambda: cooling._launch(name, n_rows, rows, args, ins, outs,
+                                   extra)
 
 
 def same_elems(a, b):
@@ -3332,18 +3381,24 @@ def exits_summary(name, steps, its, evals, taken):
     return res
 
 
-def cooling_exits(name, cr, redshift, uvbg, ins, rows, min_egy, units):
+def cooling_exits(name, cr, redshift, uvbg, ins, rows, min_egy, units,
+                  metallicity=None):
     """Where K6's loops stop on these do_cooling inputs, row by row, and
     the work that leaves: the plain step functions (physics/cooling.py)
     run to the caps on the card, the bisection stopped where (u_lo, u_hi,
     ne) repeats one of the last BISECT_PERIOD states, each of its rates as
-    steffensen_exits.  Returns the census and, per row, the operations
-    and transcendentals K6 makes (COOL_* counts)."""
+    steffensen_exits.  uvbg's rates may be per row; with a metallicity
+    (and the metal table) each net rate adds its lookup.  Returns the
+    census and, per row, the operations and transcendentals K6 makes
+    (COOL_* counts)."""
     import torch
     from mpgadget_tpu_torch.physics import cooling
 
     u, rho, dt, ne = [x[rows] for x in ins]
-    br = cooling.cooling_bracket(u, rho, dt, min_egy, units)
+    uvbg = cooling.uvbg_rows(uvbg, rows)
+    metal = metallicity is not None and cr.metal_table is not None
+    br = cooling.cooling_bracket(u, rho, dt, min_egy, units,
+                                 metallicity[rows] if metal else None)
     nh = br.rho_cgs * (1 - cr.helium)
     states = [(br.u_lo, br.u_hi, ne)]
     its, evs = [], []
@@ -3361,9 +3416,10 @@ def cooling_exits(name, cr, redshift, uvbg, ins, rows, min_egy, units):
         < steps[:, None]
     its, evs = torch.stack(its, 1), torch.stack(evs, 1)
     per_step = evs * COOL_NE_OPS + its * COOL_STEFF_OPS + 4 \
-        + COOL_CLOSE_OPS + COOL_BISECT_OPS
+        + COOL_CLOSE_OPS + COOL_BISECT_OPS + (COOL_METAL_OPS if metal else 0)
     ops = (per_step * taken).sum(1) + 10
-    trans = ((evs * COOL_NE_TRANSC + COOL_CLOSE_TRANSC) * taken).sum(1)
+    trans = ((evs * COOL_NE_TRANSC + COOL_CLOSE_TRANSC
+              + (COOL_METAL_TRANSC if metal else 0)) * taken).sum(1)
     res = exits_summary(name, steps, its, (evs * taken).sum(1), taken)
     return res, ops, trans
 
@@ -3380,12 +3436,13 @@ def rate_exits(name, cr, uvbg, dens, u, ne, rows):
     return res, ops, evs * COOL_NE_TRANSC + COOL_CLOSE_TRANSC
 
 
-def k6_bounds(nrows, ops, trans, esize, n_io, full):
+def k6_bounds(nrows, ops, trans, esize, n_io, full, extra_bytes=0):
     """K6's bound from the operations its exits leave on these rows (ops,
     trans: per row) and, for comparing designs, from the full trip counts
-    (full: cooling_work's pair)."""
+    (full: cooling_work's pair); n_io values of esize bytes a row and its
+    index, and extra_bytes read once (the metal table)."""
     peak = FP64_OPS_PER_S if esize == 8 else FP32_OPS_PER_S
-    nbytes = nrows * (n_io * esize + 8)
+    nbytes = nrows * (n_io * esize + 8) + extra_bytes
     bms, by = bound(int(ops.sum()), nbytes, peak)
     full_ms, _ = bound(nrows * full[0], nbytes, peak)
     return dict(bound_ms=bms, bound_by=by, full_work_bound_ms=full_ms,
@@ -4034,7 +4091,611 @@ def report_global(glob, card):
     print_spans("phase 24", glob["spans"], card)
 
 
-def sph_entry(name, which, gas, lya, case, big, star, glob):
+# -- phases 25-26: travis as it ships, and reionization on star-small -------
+
+# phase 25 runs travis to its TimeMax; its cuts beyond the spectrum
+# (travis_phase's): the absent cooling_metal_UVB (the stand-in of
+# write_metal_table in its place) and TREECOOL_fg_june11 (no UV background,
+# as lya and star-small run).
+# phase 26: phase 23's snapshot at a = 0.15 resumed (RestartFlag 2,
+# hierarchical as shipped) to REION_TIME_MAX with the four switches on,
+# each reading a stand-in the smoke writes from a closed form; the
+# excursion epoch z 6 to 5 ends inside the run, and the late patch of the
+# z_reion grid switches on at REION_ZRE_LATE (a = 0.1818); QSOMinMass and
+# QSOMaxMass bracket the largest halo of the snapshot's PIG
+# (REION_QSO_BRACKET) and the bubbles are REION_BUBBLE kpc/h (the 20 Mpc/h
+# default covers the 5 Mpc/h box).  The depth cut: star-small ends at
+# a = 0.2; 0.185 keeps the smoke within its time beside phase 23's run to
+# 0.2 (a FOF at every PM step of the HeII epoch: 285 s to 0.2 and 192 s to
+# 0.19 on an NVIDIA H100 80GB HBM3, 700 W), with the late patch lit from
+# a = 0.1818
+REION_TIME_MAX = 0.185
+REION_ZRE_EARLY = 20.0
+REION_ZRE_LATE = 4.5
+REION_ZRE_TOL = 1e-3
+REION_BUBBLE = 1000.0
+REION_QSO_BRACKET = (0.5, 2.0)
+REION_SWITCHES = {"ExcursionSetReionOn": 1, "ExcursionSetZStart": 6,
+                  "ExcursionSetZStop": 5, "QSOLightupOn": 1,
+                  "QSOMeanBubble": REION_BUBBLE,
+                  # star-small's outputs to the depth cut
+                  "TimeMax": REION_TIME_MAX,
+                  "OutputList": f"0.125,0.15,{REION_TIME_MAX}"}
+# the HeII history (z, XHeIII, LMFP heating erg/s/cm^3): z 5.6 to 4, below
+# the finish fraction at its end (no flash ionization)
+REION_HEII = ((5.6, 0.0, 0.0), (4.8, 0.3, 1e-33), (4.0, 0.6, 2e-33))
+# K6 with its per-row inputs (the metal lookup in closing(): the two log10
+# of its coordinates (2 logs, 2 scalings, 2 maxima, 2 roundings), per axis
+# the scaled coordinate, its two clamps, the corner cell's conversion and
+# two clamps and the weight (8 a coordinate), per corner the weight's two
+# products, its three selects and the index (5), the load and the sum (12
+# a corner), then Z times the rate and the subtraction; 2 of them logs)
+COOL_METAL_OPS = 8 + 3 * 8 + 8 * 12 + 2
+COOL_METAL_TRANSC = 2
+
+
+def write_metal_table(path):
+    """A Cloudy-layout metal cooling table from a closed form (the absent
+    cooling_metal_UVB): 1e-23 (1 + z) exp(-(log nH + 2)^2) exp(-(log T -
+    5)^2) erg cm^3/s on z 0..10 (6 bins), log nH -6..3 (10), log T 2..9
+    (15), as tests/test_torch_reion.py writes it."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    z = np.linspace(0.0, 10.0, 6)
+    lognh = np.linspace(-6.0, 3.0, 10)
+    logt = np.linspace(2.0, 9.0, 15)
+    zz, nn, tt = np.meshgrid(z, lognh, logt, indexing="ij")
+    tab = 1e-23 * (1 + zz) * np.exp(-(nn + 2) ** 2) * np.exp(-(tt - 5) ** 2)
+    bf = BigFile(path, create=True)
+    bf.create_from_array("MetallicityInSolar_bins", np.array([0.0]))
+    bf.create_from_array("Redshift_bins", z)
+    bf.create_from_array("HydrogenNumberDensity_bins", lognh)
+    bf.create_from_array("Temperature_bins", logt)
+    bf.create_from_array("NetCoolingRate", tab.ravel())
+    return path
+
+
+def write_reion_inputs(workdir, box_mpc):
+    """Phase 26's stand-ins in workdir: the metal table; a TreeCool table,
+    Gamma_X = 10^(-12 - X - lz / 2), Qdot_X = 10^(-24 - X - lz / 2) (X = 0,
+    1, 2 for HI, HeI, HeII) at lz = log10(1 + z) in 0 .. 1.2, so that the UV
+    background is not zero; a z_reion grid at Nmesh 8 for the box, z_re =
+    REION_ZRE_LATE on x >= box / 2 and REION_ZRE_EARLY elsewhere; the HeII
+    history REION_HEII (alpha_q 1.7, Emax 150 eV).  Returns their paths."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    paths = {"MetalCoolFile": write_metal_table(
+        os.path.join(workdir, "metalcool"))}
+    lz = np.linspace(0.0, 1.2, 25)
+    cols = [lz] + [10 ** (-12 - c - lz / 2) for c in range(3)] \
+        + [10 ** (-24 - c - lz / 2) for c in range(3)]
+    paths["TreeCoolFile"] = os.path.join(workdir, "TREECOOL")
+    with open(paths["TreeCoolFile"], "w") as fh:
+        for row in np.stack(cols, axis=1):
+            fh.write(" ".join(f"{x:.6e}" for x in row) + "\n")
+    tab = np.full((8, 8, 8), REION_ZRE_EARLY)
+    tab[4:] = REION_ZRE_LATE
+    paths["UVFluctuationFile"] = os.path.join(workdir, "zreion")
+    bf = BigFile(paths["UVFluctuationFile"], create=True)
+    blk = bf.create_from_array("Zreion_Table", tab.ravel())
+    blk.attrs["Nmesh"] = np.asarray([8], "<u8")
+    blk.attrs["BoxSize"] = np.asarray([box_mpc], "<f8")
+    blk.attrs["Redshift"] = np.asarray([7.0], "<f8")
+    paths["ReionHistFile"] = os.path.join(workdir, "heii.txt")
+    with open(paths["ReionHistFile"], "w") as fh:
+        fh.write("1.7\n150.0\n")
+        for z, x, lm in REION_HEII:
+            fh.write(f"{z} {x} {lm}\n")
+    return paths
+
+
+def kernel_modules():
+    """The six kernels' modules, by the name their launch counts go by."""
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.physics import cooling
+    from mpgadget_tpu_torch.sph import density, hydra
+    return {"pair": pk, "walk": tw, "neighbors": pairs, "density": density,
+            "hydro": hydra, "cooling": cooling}
+
+
+def travis_phase(workdir, device="cuda", ngrid=None, nmesh=None):
+    """Phase 25: examples/travis as it ships: genic (GENIC_OVERRIDE) through
+    the CLI, then paramfile.gadget with its MetalCoolFile pointing at the
+    stand-in table and TreeCoolFile empty -> build_simulation ->
+    Simulation.run() (hierarchical; cooling with the metal table, star
+    formation, ofjt10 winds, metal return, black holes, FOF at each output)
+    -> write_snapshot, the six kernels' launch counts reset just before and
+    read just after.  Checks: every kernel launched, the metal table read
+    and the gas's metallicity fed to K6 (CoolingSpy), the total mass kept,
+    the gas state finite, each snapshot and PIG read back.  Returns the
+    measurements."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.main import build_simulation
+
+    over = dict(GENIC_OVERRIDE)
+    if ngrid is not None:           # a smaller rehearsal on the CPU
+        over["Ngrid"] = ngrid
+    _, ngas, genic_s = gas_genic(workdir, "travis", over, device)
+    cuts = {"MetalCoolFile": write_metal_table(
+        os.path.join(workdir, "metalcool")), "TreeCoolFile": ""}
+    gover = dict(cuts)
+    if nmesh is not None:
+        gover["Nmesh"] = nmesh
+    paramfile = paramfile_copy(
+        os.path.join(HERE, "examples", "travis", "paramfile.gadget"),
+        os.path.join(workdir, "paramfile.gadget"), gover)
+    mods = kernel_modules()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        sim, _ = build_simulation(paramfile, device=device)
+        c = sim.cfg
+        check(c.hydro_on and c.cooling_on and c.starformation_on
+              and c.wind_on and c.metal_return_on and c.black_hole_on
+              and c.split_gravity_timesteps and c.snapshot_with_fof
+              and c.metal_cool_file, "travis's paramfile.gadget no longer "
+              "sets HydroOn, CoolingOn, StarformationOn, WindOn, "
+              "MetalReturnOn, BlackHoleOn, SplitGravityTimestepsOn, "
+              "SnapshotWithFOF and MetalCoolFile")
+        out = os.path.abspath(c.output_dir)
+        m_ic = total_mass(sim)
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with CoolingSpy() as spy:
+            nsteps = sim.run(verbose=False)
+            sim.write_snapshot()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    finally:
+        os.chdir(cwd)
+    check(sim.ti_current == sim.timeline.ti_end,
+          f"travis ran {nsteps} PM steps to a={sim.atime}")
+    if device == "cuda":
+        check(min(launches.values()) > 0, f"a kernel of the travis path "
+              f"was not launched: {launches}")
+    check(sim._cooling.metal_table is not None and spy.calls > 0
+          and spy.last is not None
+          and spy.last[1].get("metallicity") is not None,
+          "travis's cooling ran without the metal table or metallicity")
+    pd, sph, gas = sim.pdata, sim.sph, sim.gas_mask
+    check(bool(torch.isfinite(pd.vel[pd.valid]).all()
+               & torch.isfinite(sph.entropy[gas]).all()
+               & (sph.entropy[gas] > 0).all()),
+          "travis gas state not finite or entropy not positive")
+    m_end = total_mass(sim)
+    mass_err = m_end / m_ic - 1
+    check(abs(mass_err) < MASS_TOL, f"travis total mass {m_end!r} against "
+          f"the IC's {m_ic!r}: {mass_err:+.3e}")
+    snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+    per_snap = {}
+    for name in snaps:
+        bf = BigFile(os.path.join(out, name))
+        hdr = snap_io.read_header(bf)
+        n0 = int(hdr.TotNumPart[0])
+        for block in ("Metallicity", "ElectronAbundance", "InternalEnergy"):
+            v = np.asarray(bf.open(f"0/{block}").read(), np.float64)
+            check(v.shape[0] == n0 and np.isfinite(v).all(),
+                  f"{name}: 0/{block} does not read back")
+        per_snap[name] = (round(float(hdr.Time), 6), n0,
+                          int(hdr.TotNumPart[4]), check_bh_blocks(
+                              name, bf, hdr))
+    check(len(snaps) >= 3, f"travis snapshots: {snaps}")
+    pigs = {}
+    for name in sorted(f for f in os.listdir(out) if f.startswith("PIG_")):
+        ng, _, _ = pig_check(os.path.join(out, name),
+                             sim.cfg.fof_min_group_length)
+        pigs[name] = ng
+    check(len(pigs) >= 1, "travis wrote no PIG")
+    zmet = sph.metallicity[gas]
+    return dict(nsteps=nsteps, atime=sim.atime, seconds=seconds,
+                genic_seconds=genic_s, launches=launches, ngas=ngas,
+                walltime=dict(sim.walltime.totals), cuts=cuts,
+                nstars=int((pd.valid & (pd.ptype == 4)).sum()),
+                nbh=int((pd.valid & (pd.ptype == 5)).sum()),
+                seeded=list(sim.bh_seeded), wind_kicks=sim.wind_kicks,
+                cooling_calls=spy.calls, metal_gas=int((zmet > 0).sum()),
+                m_ic=m_ic, m_end=m_end, mass_err=mass_err,
+                snapshots=per_snap, pigs=pigs)
+
+
+class UvSpy:
+    """Wraps Simulation._source_setup: per call, the redshift and where the
+    per-row UV rates come from (the excursion set's J21, the z_reion grid's
+    gating, or the global scalars), and for the rows of the z_reion grid's
+    late patch (zreion within REION_ZRE_TOL of REION_ZRE_LATE: the float32
+    interpolation's weights sum to 1 within an ulp) how many see a zero
+    and a nonzero HI rate."""
+
+    def __init__(self):
+        from mpgadget_tpu_torch.run import Simulation
+        self.cls = Simulation
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        real = self.real = self.cls._source_setup
+        spy = self
+
+        def setup(sim, active):
+            res = real(sim, active)
+            gas, _, z, _, uvbg = res
+            uvf = sim._uvf
+            if uvf is not None and isinstance(uvbg.gJH0, torch.Tensor):
+                late = gas & ((uvf.zreion(sim.pdata.ipos) - REION_ZRE_LATE)
+                              .abs() < REION_ZRE_TOL)
+                j21 = sim.cfg.excursion_set_zstop <= z \
+                    <= sim.cfg.excursion_set_zstart
+                on = uvbg.gJH0 > 0
+                n = torch.stack([late.sum(), (late & on).sum()]).cpu()
+                spy.calls.append((z, "J21" if j21 else "z_reion",
+                                  int(n[0]) - int(n[1]), int(n[1])))
+            return res
+
+        self.cls._source_setup = setup
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._source_setup = self.real
+        return False
+
+
+class BubbleSpy:
+    """Wraps physics.qso_lightup._ionize_bubble: per bubble its centre and
+    radius (box units) and the pid and float64 minimum-image distance of
+    each row it ionized."""
+
+    def __init__(self):
+        from mpgadget_tpu_torch.physics import qso_lightup
+        self.mod = qso_lightup
+        self.bubbles = []
+        self.pid = None
+
+    def __enter__(self):
+        import numpy as np
+        real = self.real = self.mod._ionize_bubble
+        spy = self
+
+        def ionize(ipos, is_gas, ionized, *a):
+            out = real(ipos, is_gas, ionized, *a)
+            center, radius = a[2], a[3]
+            new = (out[0] & ~ionized).cpu().numpy()
+            d = ipos.cpu().numpy()[new] / 2.0 ** 32 \
+                - center.cpu().numpy().astype(np.float64)
+            d -= np.round(d)
+            spy.bubbles.append((center.cpu().numpy(), float(radius),
+                                spy.pid()[new], np.sqrt((d ** 2).sum(1))))
+            return out
+
+        self.mod._ionize_bubble = ionize
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ionize_bubble = self.real
+        return False
+
+
+def reion_phase(workdir, star, device="cuda"):
+    """Phase 26: reionization on star-small.  Phase 23's snapshot at a =
+    0.15, copied into workdir, resumed through the CLI's body (RestartFlag
+    2, hierarchical as shipped) to REION_TIME_MAX with the metal cooling
+    table, the z_reion grid, the excursion set (REION_SWITCHES: its epoch
+    z 6 to 5 ends inside the run) and QSO lightup on, each reading a stand-in
+    (write_reion_inputs); QSOMinMass and QSOMaxMass bracket the largest
+    halo of the snapshot's PIG.  The kernels' launch counts are read around
+    it, the cooling calls' UV rates (UvSpy), the bubbles (BubbleSpy) and
+    the last cooling call (CoolingSpy, K6's case on this gas).  Checks: the
+    excursion set updated, gas with J21 > 0 and zreion set; the late patch
+    dark on every call between the end of the epoch and z_re, lit on every
+    call after; HeIII-ionized rows, each ionized inside a placed bubble;
+    gas with metallicity > 0; the mass against the snapshot's; the last
+    snapshot's J21, ZReionized and HeIIIIonized restored by from_snapshot.
+    Returns the measurements."""
+    import shutil
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch import main as tmain
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.run import Simulation
+
+    # the run's output at a = 0.15, beside its PIG
+    src = [n for n, v in star["snapshots"].items() if abs(v[0] - 0.15) < 1e-6]
+    check(len(src) == 1, f"phase 23 wrote no snapshot at a = 0.15: "
+          f"{star['snapshots']}")
+    snapnum = int(src[0].split("_")[-1])
+    os.makedirs(os.path.join(workdir, "output"), exist_ok=True)
+    shutil.copytree(os.path.join(star["out"], src[0]),
+                    os.path.join(workdir, "output", src[0]))
+    snap_bf = BigFile(os.path.join(workdir, "output", src[0]))
+    hdr = snap_io.read_header(snap_bf)
+    m_snap = sum(float(snap_io.read_species(snap_bf, t, hdr)["mass"].astype(
+        np.float64).sum()) for t in range(6) if int(hdr.TotNumPart[t]))
+    pig = os.path.join(star["out"], f"PIG_{snapnum:03d}")
+    masses = np.asarray(BigFile(pig).open("FOFGroups/Mass").read(),
+                        np.float64)
+    check(masses.size > 0, f"phase 23's PIG_{snapnum:03d} holds no halo")
+    largest = float(masses.max()) if masses.size else 0.0
+    qso = {"QSOMinMass": REION_QSO_BRACKET[0] * largest,
+           "QSOMaxMass": REION_QSO_BRACKET[1] * largest}
+    inputs = write_reion_inputs(workdir, hdr.BoxSize * hdr.UnitLength_in_cm
+                                / 3.085678e24)
+    gover = dict(REION_SWITCHES, **inputs, **qso)
+    paramfile = paramfile_copy(star["paramfile"],
+                               os.path.join(workdir, "paramfile.gadget"),
+                               gover)
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    t0 = time.perf_counter()
+    holder = {}
+    real_run = Simulation.run
+
+    def run(self, max_steps=None, verbose=True):
+        holder["sim"] = self
+        return real_run(self, max_steps=max_steps, verbose=False)
+
+    Simulation.run = run
+    try:
+        with CoolingSpy() as spy, UvSpy() as uv, BubbleSpy() as bub:
+            bub.pid = lambda: holder["sim"].pdata.pid.cpu().numpy()
+            sim = tmain.run_cli(paramfile, 2, snapnum, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        Simulation.run = real_run
+    seconds = time.perf_counter() - t0
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    out = os.path.join(workdir, "output")
+    check(sim.ti_current == sim.timeline.ti_end,
+          f"phase 26 stopped at a={sim.atime}")
+    if device == "cuda":
+        check(min(launches.values()) > 0, f"a kernel of the reionization "
+              f"path was not launched: {launches}")
+    gas = sim.gas_mask
+    sph = sim.sph
+    cnt = torch.stack([
+        (gas & (sph.local_j21 > 0)).sum(), (gas & (sph.zreion >= 0)).sum(),
+        (gas & (sph.he_iii_ionized > 0)).sum(),
+        (gas & (sph.metallicity > 0)).sum(), gas.sum()]).cpu().tolist()
+    n_j21, n_zre, n_heiii, n_metal, ngas = cnt
+    check(len(sim.uvbg_updates) > 0, "the excursion set never updated")
+    check(n_j21 > 0 and n_zre > 0, f"no gas row with J21 > 0 ({n_j21}) or "
+          f"zreion set ({n_zre})")
+    zstop = sim.cfg.excursion_set_zstop
+    dark = [c for c in uv.calls if c[1] == "z_reion"
+            and REION_ZRE_LATE + REION_ZRE_TOL < c[0] < zstop]
+    lit = [c for c in uv.calls if c[1] == "z_reion"
+           and c[0] < REION_ZRE_LATE - REION_ZRE_TOL]
+    check(any(c[1] == "J21" for c in uv.calls) and dark and lit,
+          f"the cooling calls did not cover the J21 epoch, the dark late "
+          f"patch and its switching on: {len(uv.calls)} calls")
+    # (a substep's call may update no late-patch row)
+    check(all(c[3] == 0 for c in dark) and sum(c[2] for c in dark) > 0
+          and all(c[2] == 0 for c in lit) and sum(c[3] for c in lit) > 0,
+          "late-patch rows: UV rates not zero before z_re or not nonzero "
+          f"after: dark {dark[:3]}..., lit {lit[:3]}...")
+    check(n_heiii > 0 and sum(n for _, n in sim.qso_bubbles) > 0,
+          f"no HeIII-ionized gas ({n_heiii}) or no bubble")
+    hit = {}
+    for center, radius, pids, dist in bub.bubbles:
+        out_of = dist[dist >= radius * (1 + 1e-5)]
+        check(out_of.size == 0, f"rows ionized at {out_of} from a bubble's "
+              f"centre, radius {radius}")
+        hit.update(dict.fromkeys(pids.tolist()))
+    ion_pid = sim.pdata.pid[gas & (sph.he_iii_ionized > 0)].cpu().numpy()
+    check(set(ion_pid.tolist()) <= set(hit), "a HeIII-ionized row that no "
+          "bubble ionized")
+    check(n_metal > 0, "no gas with metallicity > 0")
+    m_end = total_mass(sim)
+    mass_err = m_end / m_snap - 1
+    check(abs(mass_err) < MASS_TOL, f"phase 26 total mass {m_end!r} "
+          f"against the snapshot's {m_snap!r}: {mass_err:+.3e}")
+    snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+    last = os.path.join(out, snaps[-1])
+    bf = BigFile(last)
+    check(abs(float(snap_io.read_header(bf).Time) - sim.atime) < 1e-6,
+          f"{snaps[-1]} is not the final state")
+    back = Simulation.from_snapshot(last, {
+        "starformation_on": True, "black_hole_on": True,
+        "part_alloc_factor": sim.cfg.part_alloc_factor,
+        "nmesh": sim.cfg.nmesh, "output_dir": out,
+        "timeline": sim.timeline}, device=device)
+    back._restore_gas()
+    rows = back.gas_mask
+    # the run's rows of the snapshot's gas, by ID (the FOF after the last
+    # snapshot may have turned gas rows into BHs)
+    pid = sim.pdata.pid.cpu().numpy()
+    order = np.argsort(pid)
+    at = order[np.searchsorted(pid[order], bf.open("0/ID").read().astype(
+        pid.dtype))]
+    blocks = {}
+    for name, field in (("J21", "local_j21"), ("ZReionized", "zreion"),
+                        ("HeIIIIonized", "he_iii_ionized")):
+        want = bf.open(f"0/{name}").read()
+        got = getattr(back.sph, field)[rows].cpu().numpy()
+        mine = getattr(sph, field).cpu().numpy()[at]
+        check(np.array_equal(got.astype(want.dtype), want)
+              and np.array_equal(mine.astype(want.dtype), want),
+              f"{snaps[-1]}: 0/{name} not the final state or not restored")
+        blocks[name] = int((want > 0).sum())
+    wt = dict(sim.walltime.totals)
+    return dict(seconds=seconds, nsteps=sim._nstep_total, atime=sim.atime,
+                launches=launches, walltime=wt, spy=spy, sim=sim,
+                updates=list(sim.uvbg_updates), n_j21=n_j21, n_zre=n_zre,
+                n_heiii=n_heiii, n_metal=n_metal, ngas=ngas,
+                bubbles=len(bub.bubbles), qso=qso, inputs=inputs,
+                dark=len(dark), lit=len(lit),
+                j21_calls=sum(c[1] == "J21" for c in uv.calls),
+                m_snap=m_snap, m_end=m_end, mass_err=mass_err,
+                blocks=blocks, snapshot=snaps[-1], snapnum=snapnum)
+
+
+def report_travis(trav, card):
+    wt = trav["walltime"]
+    layers = ("SPH/Density", "SPH/Hydro", "Cooling/SFR", "Winds",
+              "MetalReturn", "BH", "FOF")
+    print(f"phase 25, travis as it ships (2 x {trav['ngas']} particles; cuts "
+          f"{GENIC_OVERRIDE} in genic and {trav['cuts']} in the run: the "
+          f"stand-in metal table in place of the absent cooling_metal_UVB, "
+          f"no TREECOOL_fg_june11) on {card}: {trav['nsteps']} PM steps to "
+          f"a={trav['atime']:.6f} in {trav['seconds']:.6f} s (genic "
+          f"{trav['genic_seconds']:.6f} s); walltime "
+          + ", ".join(f"{k} {wt.get(k, 0.0):.6f}" for k in layers)
+          + f" s; stars {trav['nstars']}, BHs {trav['nbh']} (seeded "
+          f"{trav['seeded']}), wind kicks {trav['wind_kicks']}, cooling calls "
+          f"{trav['cooling_calls']}, gas rows with metallicity > 0 "
+          f"{trav['metal_gas']}; total mass {trav['m_end']:.9g} against the "
+          f"IC's {trav['m_ic']:.9g} ({trav['mass_err']:+.3e}); snapshots (a, "
+          f"gas, stars, BHs) {trav['snapshots']}; PIGs (groups) "
+          f"{trav['pigs']}; kernel launches {trav['launches']}", flush=True)
+
+
+def report_reion(reion, card):
+    wt = reion["walltime"]
+    layers = ("SPH/Density", "SPH/Hydro", "Cooling/SFR", "UVBG", "HeIII",
+              "Winds", "MetalReturn", "BH", "FOF")
+    print(f"phase 26, reionization on star-small from phase 23's PART_"
+          f"{reion['snapnum']:03d} (RestartFlag 2, hierarchical; switches "
+          f"{REION_SWITCHES}; stand-ins {sorted(reion['inputs'])} written "
+          f"from closed forms: z_reion {REION_ZRE_EARLY} / {REION_ZRE_LATE}, "
+          f"HeII history {REION_HEII}; cuts: QSOMinMass/QSOMaxMass "
+          f"{REION_QSO_BRACKET} times the PIG's largest halo = "
+          f"{reion['qso']}, QSOMeanBubble {REION_BUBBLE}) on {card}: "
+          f"{reion['nsteps']} PM steps to a={reion['atime']:.6f} in "
+          f"{reion['seconds']:.6f} s (the restart included); walltime "
+          + ", ".join(f"{k} {wt.get(k, 0.0):.6f}" for k in layers)
+          + f" s; kernel launches {reion['launches']}", flush=True)
+    print(f"phase 26: UVBG updates (z, volume xHI, mass xHI) "
+          f"{reion['updates']}; gas rows {reion['ngas']}: J21 > 0 "
+          f"{reion['n_j21']}, zreion set {reion['n_zre']}, HeIII-ionized "
+          f"{reion['n_heiii']} (each inside one of {reion['bubbles']} "
+          f"bubbles), metallicity > 0 {reion['n_metal']}; cooling calls on "
+          f"J21 rates {reion['j21_calls']}, with the late patch dark "
+          f"{reion['dark']} and lit {reion['lit']}; total mass "
+          f"{reion['m_end']:.9g} against the snapshot's "
+          f"{reion['m_snap']:.9g} ({reion['mass_err']:+.3e}); "
+          f"{reion['snapshot']}'s blocks read back by from_snapshot (rows > "
+          f"0) {reion['blocks']}", flush=True)
+
+
+def reion_cooling_case(reion, reps=5):
+    """K6 with its per-row inputs on phase 26's final gas: the inputs of the
+    run's last cooling call (per-row UV rates gated by the z_reion grid,
+    per-row metallicity, the metal table) over every gas row, against its
+    plain version (COOL_TOL), two launches bit-identical; the same rows
+    with the tables off (the global scalar rates, no metallicity) bit for
+    bit the first design's, and with per-row rates equal to the scalars
+    and a zero metallicity bit for bit that; both timed (CUDA graph
+    replays), the exits and the bound with the lookup counted
+    (cooling_exits, COOL_METAL_OPS)."""
+    import torch
+    from mpgadget_tpu_torch.physics import cooling
+    sim, spy = reion["sim"], reion["spy"]
+    check(spy.last is not None, "phase 26 made no cooling call to keep")
+    a, kw = spy.last[0], spy.last[1]
+    cr, redshift, u, rho, dt, uvbg, ne, min_egy, units = a
+    zmet = kw.get("metallicity")
+    check(cooling.per_row(uvbg) and zmet is not None
+          and cr.metal_table is not None,
+          "phase 26's last cooling call had no per-row rates, metallicity "
+          "or metal table")
+    gas = torch.nonzero(sim.gas_mask).flatten()
+    ins = [u, rho, dt, ne]
+
+    def kern(uv=uvbg, z=zmet):
+        return cooling.do_cooling(cr, redshift, *ins[:3], uv, ins[3],
+                                  min_egy, units, rows=gas, metallicity=z)
+
+    u1, n1 = kern()
+    u2, n2 = kern()
+    check(same_bits(u1, u2) and same_bits(n1, n2),
+          "K6 with per-row inputs: two launches differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ur, nr = cooling.do_cooling_reference(
+        cr, redshift, *[x[gas] for x in ins[:3]],
+        cooling.uvbg_rows(uvbg, gas), ins[3][gas], min_egy, units,
+        metallicity=zmet[gas])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    uk, nk = u1[gas].double(), n1[gas].double()
+    urd, nrd = ur.double(), nr.double()
+    rel_u = float(((uk - urd).abs() / urd.abs().clamp(min=1e-300)).max())
+    err_n = (nk - nrd).abs()
+    check(rel_u <= COOL_TOL["u"] and bool((err_n <= COOL_TOL["ne_abs"]
+                                           + COOL_TOL["ne_rel"]
+                                           * nrd.abs()).all()),
+          f"K6 with per-row inputs: u_new rel {rel_u:.3e}, ne abs "
+          f"{float(err_n.max()):.3e} against the plain version")
+    # the tables off: the global scalars, no metallicity; then per-row
+    # rates equal to the scalars and a zero metallicity
+    glob = sim._treecool.get_global_uvbg(redshift)
+    off = cooling.do_cooling(cr, redshift, *ins[:3], glob, ins[3], min_egy,
+                             units, rows=gas)
+    simple = simple_cooling(lambda: cooling.do_cooling(
+        cr, redshift, *ins[:3], glob, ins[3], min_egy, units, rows=gas))
+    check(all(same_bits(x, y) for x, y in zip(off, simple)),
+          "K6 with the tables off differs from its first design in some bit")
+    n = u.shape[0]
+    uniform = cooling.UVBG(**{k: torch.full((n,), float(
+        torch.tensor(getattr(glob, k), dtype=u.dtype)), dtype=u.dtype,
+        device=u.device) for k in cooling.UV_RATES},
+        self_shield_dens=glob.self_shield_dens)
+    same = kern(uniform, torch.zeros_like(zmet))
+    check(all(same_bits(x, y) for x, y in zip(same, off)),
+          "K6 with per-row rates equal to the scalars and zero metallicity "
+          "differs from K6 without them in some bit")
+    args = cooling.kernel_args(cr, redshift, uvbg, min_egy, units)
+    on_launch = cooling_launch("do_cooling", gas, args, ins, [u, ne],
+                               cooling.kernel_extra(cr, uvbg, zmet, u))
+    off_launch = cooling_launch(
+        "do_cooling", gas, cooling.kernel_args(cr, redshift, glob, min_egy,
+                                               units), ins, [u, ne])
+    ms_on, ms_off = graph_ms(on_launch, reps), graph_ms(off_launch, reps)
+    exits, ops, trans = cooling_exits(
+        "phase 26 final state, per-row inputs", cr, redshift, uvbg, ins,
+        gas, min_egy, units, metallicity=zmet)
+    steps = exits["bisection_steps"]
+    nrows = int(gas.shape[0])
+    nbytes_table = cr.metal_table.table.numel() * 4
+    # the lookup runs once a bisection step (the net rate's closing terms):
+    # in ops and in the full work; u, rho, dt, ne in, u, ne out, six rates
+    # and the metallicity a row, all 4 bytes
+    b = k6_bounds(nrows, ops, trans, 4, 6 + 6 + 1,
+                  cooling_work(True, metal=True), nbytes_table)
+    print(f"K6 do_cooling with per-row UV rates, metallicity and the metal "
+          f"table, phase 26 final state ({nrows} gas rows, z={redshift:.4f}):"
+          f" {ms_on:.6f} ms (CUDA graph replays, mean of {reps}) against "
+          f"{ms_off:.6f} ms with the tables off (global scalars, no "
+          f"metallicity) on the same rows; plain {plain_ms:.6f} ms (one "
+          f"call); bound {b['bound_ms']:.6f} ms ({b['bound_by']}: "
+          f"{b['ops']:.1f} operations a row the exits leave, the lookup "
+          f"{COOL_METAL_OPS} a bisection step, 13 values a row read and "
+          f"written, the {nbytes_table}-byte table through the read-only "
+          f"cache), {100 * b['bound_ms'] / ms_on:.2f}% of it; u_new rel err "
+          f"{rel_u:.3e}, ne/nh max abs err {float(err_n.max()):.3e}; tables "
+          f"off bit for bit the first design; uniform rates and zero "
+          f"metallicity bit for bit the tables off; bisection steps "
+          f"{steps}", flush=True)
+    return dict(ms=ms_on, ms_tables_off=ms_off, plain_ms=plain_ms,
+                rows=nrows, rel_u=rel_u,
+                max_abs_err=float((uk - urd).abs().max()),
+                ne_abs_err=float(err_n.max()), exits=exits,
+                table_bytes=nbytes_table, **b)
+
+
+def sph_entry(name, which, gas, lya, case, big, new):
     """The kernels line's entry of K4 or K5: times at the star-small run's
     final state, the bigger IC beside them; launches in the star-small
     (without and with its subgrid physics), lya and phase 24 runs."""
@@ -4047,11 +4708,10 @@ def sph_entry(name, which, gas, lya, case, big, star, glob):
         "source": f"mpgadget_tpu_torch/csrc/{src[0]}",
         "replaces": "mpgadget_tpu/ops/pairs.py:355", "pair_function": src[1],
         "launches": (gas["launches"][which] + lya["launches"][which]
-                     + star["launches"][which] + glob["launches"][which]),
+                     + sum(r[which] for r in new.values())),
         "launches_by_path": {"star_small": gas["launches"][which],
-                             "lya": lya["launches"][which],
-                             "star_small_full": star["launches"][which],
-                             "subgrid_global": glob["launches"][which]},
+                             "lya": lya["launches"][which]} | {
+            k: r[which] for k, r in new.items()},
         "density_solves": gas["n_solves"],
         "bisection_passes": sum(gas["passes"]),
         "max_abs_err": max(case["max_abs_err"], big["max_abs_err"]),
@@ -4068,7 +4728,7 @@ def sph_entry(name, which, gas, lya, case, big, star, glob):
         "library_ms": None}
 
 
-def cooling_entry(lya, k6, star, glob):
+def cooling_entry(lya, k6, new, k6r):
     """The kernels line's entry of K6: times on lya's final gas state, the
     closing subset, float64 and the net rate beside them, each with the
     first design's; launches in lya, star-small and phase 24."""
@@ -4082,13 +4742,13 @@ def cooling_entry(lya, k6, star, glob):
         "loops": ["mpgadget_tpu/physics/cooling.py:462 (get_equilib_ne)",
                   "mpgadget_tpu/physics/cooling.py:584 (do_cooling)"],
         "launches": (lya["launches"]["cooling"]
-                     + star["launches"]["cooling"]
-                     + glob["launches"]["cooling"]),
-        "launches_by_path": {"lya": lya["launches"]["cooling"],
-                             "star_small_full": star["launches"]["cooling"],
-                             "subgrid_global": glob["launches"]["cooling"]},
-        "max_abs_err": max(c["max_abs_err"] for c in k6["cases"].values()),
-        "max_rel_err": max(c["rel_u"] for c in k6["cases"].values()),
+                     + sum(r["cooling"] for r in new.values())),
+        "launches_by_path": {"lya": lya["launches"]["cooling"]} | {
+            k: r["cooling"] for k, r in new.items()},
+        "max_abs_err": max([c["max_abs_err"] for c in k6["cases"].values()]
+                           + [k6r["max_abs_err"]]),
+        "max_rel_err": max([c["rel_u"] for c in k6["cases"].values()]
+                           + [k6r["rel_u"]]),
         "rows": case["rows"], "operations_per_row": case["ops"],
         "transcendentals_per_row": case["transcendentals"],
         "full_work_operations_per_row": case["full_work_ops"],
@@ -4099,6 +4759,12 @@ def cooling_entry(lya, k6, star, glob):
         "float64": {k: k6["cases"]["all gas f64"][k] for k in keys},
         "heatingcooling_rate": {k: k6["rate"][k] for k in keys},
         "init_sfr_float64": {k: k6["thresh"][k] for k in keys},
+        # phase 26's final gas with per-row UV rates, metallicity and the
+        # metal table, and the same rows with them off
+        "per_row_inputs": {k: k6r[k] for k in (
+            "ms", "ms_tables_off", "plain_ms", "bound_ms", "bound_by",
+            "full_work_bound_ms", "ops", "rows", "rel_u", "table_bytes",
+            "exits")},
         "simple_source": "mpgadget_tpu_torch/csrc/cooling_simple.cu",
         "simple_ms": case["simple_ms"], "bound_share": case["bound_share"],
         "ms": case["ms"], "plain_ms": case["plain_ms"],
@@ -4326,11 +4992,22 @@ def run():
         t0 = time.perf_counter()
         glob = global_subgrid_phase(os.path.join(work, "global"), star)
         t24 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reion = reion_phase(os.path.join(work, "reion"), star)
+        t26 = time.perf_counter() - t0
+        k6r = reion_cooling_case(reion)
     report_global(glob, card)
-    print(f"phases 23-24: {t23:.3f} s and {t24:.3f} s of the smoke",
-          flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        trav = travis_phase(work)
+        t25 = time.perf_counter() - t0
+    report_travis(trav, card)
+    report_reion(reion, card)
+    print(f"phases 23-26: {t23:.3f} s, {t24:.3f} s, {t25:.3f} s and "
+          f"{t26:.3f} s of the smoke", flush=True)
     new = {"star_small_full": star["launches"],
-           "subgrid_global": glob["launches"]}
+           "subgrid_global": glob["launches"], "travis": trav["launches"],
+           "reion": reion["launches"]}
 
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096
@@ -4423,11 +5100,11 @@ def run():
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": None}] + [sph_entry(name, which, gas, lya, gk, big[key],
-                                          star, glob)
+                                          new)
                                 for name, which, gk, key in (
             ("sph_density_pairs", "density", gk4, "k4"),
             ("sph_hydro_pairs", "hydro", gk5, "k5"))]
-        + [cooling_entry(lya, k6, star, glob)]}))
+        + [cooling_entry(lya, k6, new, k6r)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -57,6 +57,24 @@
 // Templated on the scalar type: float in the run, double for init_sfr's
 // one-particle threshold.  Change the arithmetic here, in
 // cooling_simple.cu and in physics/cooling.py together.
+//
+// Two optional per-row inputs (null: off), which the first design does not
+// take:
+// * the six UV rates of each row (patchy reionization gates them row by
+//   row, the excursion set derives them from each row's J21), in the rows'
+//   type, in place of the scalars of CoolArgs; they enter the photo-rates
+//   of every network evaluation and the heating of the net rate;
+// * the metallicity of each row (float) with a Cloudy metal cooling table
+//   (float, on the device): the net rate loses Z times the table's rate at
+//   (z, log10 nH, log10 T), an 8-corner trilinear lookup with edge clamps
+//   done in float whatever the rows' type, as the JAX package does
+//   (physics/cooling.py:MetalCoolingTable).  Only the net rate sees it: the
+//   Steffensen loop for ne does not, and a bisection step stays a function
+//   of (u_lo, u_hi, ne) alone, so the exits stay exact.  The table is small
+//   and read through the read-only cache, by every lane of a row alike.
+// The kernels are instantiated twice, on EXT: a launch with neither input
+// runs the EXT = false code, which reads the scalars where the first
+// design does and has no branch on the optional inputs.
 
 #include <cstddef>
 #include <cstdint>
@@ -99,10 +117,14 @@ struct CoolArgs {
     double rcb_z3;        // rho_crit_baryon * (1 + z) ** 3
     double he_thresh, he_amp, he_exp;
     double dens_cgs, uu, tt, min_u;
+    // the metal cooling table's grid, float values: the redshift, the first
+    // bin, the bin width and the last index of each axis
+    double met_z, met_min[3], met_step[3], met_top[3];
     int recomb, cooling, self_shield, helium_heat;
+    int met_dims[3];
 };
-constexpr int N_DOUBLES = 22;
-constexpr int N_INTS = 4;
+constexpr int N_DOUBLES = 32;
+constexpr int N_INTS = 7;
 
 __device__ __forceinline__ float Sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double Sqrt(double x) { return sqrt(x); }
@@ -129,6 +151,64 @@ __device__ __forceinline__ bool same(float x, float y) {
 __device__ __forceinline__ bool same(double x, double y) {
     return x == y && __double_as_longlong(x) == __double_as_longlong(y);
 }
+
+// A row's UV rates: the per-row array's, or CoolArgs' scalars rounded to T.
+template <typename T> struct Uv { T gJH0, gJHe0, gJHep, epsH0, epsHe0, epsHep; };
+
+template <typename T>
+__device__ __forceinline__ Uv<T> uv_of(const CoolArgs& a, const T* uv,
+                                       int64_t p) {
+    if (uv) {
+        const T* r = uv + 6 * p;
+        return {r[0], r[1], r[2], r[3], r[4], r[5]};
+    }
+    return {T(a.gJH0), T(a.gJHe0), T(a.gJHep), T(a.epsH0), T(a.epsHe0),
+            T(a.epsHep)};
+}
+
+// One UV rate: the row's with EXT, else CoolArgs' scalar rounded to T.
+template <bool EXT, typename T>
+__device__ __forceinline__ T uv_rate(T row, double scalar) {
+    return EXT ? row : T(scalar);
+}
+
+// The metal table's net cooling rate at (z, lnh, lt) in float
+// (MetalCoolingTable.__call__): f clamped to [0, dims - 1], its corner cell
+// to [0, dims - 2], the corners summed in the order 0..7 (z the slowest
+// bit), each weight the product of three in axis order.
+__device__ float metal_rate(const CoolArgs& a, const float* __restrict__ tab,
+                            float lnh, float lt) {
+    const float x[3] = {float(a.met_z), lnh, lt};
+    int i0[3];
+    float w[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        float f = (x[k] - float(a.met_min[k])) / float(a.met_step[k]);
+        f = Min(Max(f, 0.0f), float(a.met_top[k]));
+        int i = (int)f;
+        i0[k] = i < 0 ? 0 : (i > a.met_dims[k] - 2 ? a.met_dims[k] - 2 : i);
+        w[k] = f - float(i0[k]);
+    }
+    float out = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        const int b0 = (c >> 2) & 1, b1 = (c >> 1) & 1, b2 = c & 1;
+        float wt = (b0 ? w[0] : 1.0f - w[0]) * (b1 ? w[1] : 1.0f - w[1]);
+        wt = wt * (b2 ? w[2] : 1.0f - w[2]);
+        int64_t idx = ((int64_t)(i0[0] + b0) * a.met_dims[1] + (i0[1] + b1))
+                          * a.met_dims[2] + (i0[2] + b2);
+        out = out + wt * __ldg(tab + idx);
+    }
+    return out;
+}
+
+// What a row brings besides its density and energy: its UV rates, and its
+// metallicity with the metal table (tab null: no metal term).
+template <typename T> struct RowIn {
+    Uv<T> uv;
+    float z_met;
+    const float* tab;
+};
 
 // ---- the lanes of a row ----------------------------------------------------
 
@@ -360,9 +440,9 @@ template <typename T> struct Eval {
     T aHp, aHep, aD, aHepp, gH0, gHe0, gHep;   // alphaHep, alphad apart
 };
 
-template <typename T>
-__device__ Eval<T> evaluate(const CoolArgs& a, const Lane<T>& L, T nh,
-                            T ienergy, T ne) {
+template <typename T, bool EXT>
+__device__ Eval<T> evaluate(const CoolArgs& a, const Lane<T>& L,
+                            const Uv<T>& uv, T nh, T ienergy, T ne) {
     Eval<T> e;
     e.xe = ne / nh;
     T temp = temp_internal(a, e.xe, ienergy);
@@ -391,12 +471,17 @@ __device__ Eval<T> evaluate(const CoolArgs& a, const Lane<T>& L, T nh,
     const T tiny = T(1e-50);   // 0 in float, as in the JAX package's f32
     T safe_ne = Max(ne, tiny);
     bool has_ne = ne > tiny;
-    T photoH = has_ne ? T(a.gJH0) / safe_ne * photofac : T(0);
+    T photoH = has_ne ? uv_rate<EXT>(uv.gJH0, a.gJH0) / safe_ne * photofac
+                      : T(0);
     e.nH0 = e.aHp / (e.aHp + e.gH0 + photoH);
     e.nHp = Max(T(1) - e.nH0, T(0));
     T aHep = e.aD + e.aHep;
-    T gHe0 = e.gHe0 + (has_ne ? T(a.gJHe0) / safe_ne * photofac : T(0));
-    T gHep = e.gHep + (has_ne ? T(a.gJHep) / safe_ne * photofac : T(0));
+    T gHe0 = e.gHe0 + (has_ne ? uv_rate<EXT>(uv.gJHe0, a.gJHe0) / safe_ne
+                                    * photofac
+                              : T(0));
+    T gHep = e.gHep + (has_ne ? uv_rate<EXT>(uv.gJHep, a.gJHep) / safe_ne
+                                    * photofac
+                              : T(0));
     if (gHe0 > tiny) {
         T mg = Max(gHe0, tiny);
         e.nHep = nh / (T(1) + aHep / mg + gHep / e.aHepp);
@@ -417,8 +502,8 @@ __device__ T ne_of(const CoolArgs& a, T nh, const Eval<T>& e) {
 }
 
 // net heating - cooling in erg/s/g from the evaluation at the equilibrium
-template <typename T>
-__device__ T closing(const CoolArgs& a, const Lane<T>& L,
+template <typename T, bool EXT>
+__device__ T closing(const CoolArgs& a, const Lane<T>& L, const RowIn<T>& in,
                      const Eval<T>& e, T nh, T density) {
     T temp = e.temp, nebynh = e.xe;
     T nHe0 = e.nHe0 * T(a.yy) / nh;
@@ -456,14 +541,21 @@ __device__ T closing(const CoolArgs& a, const Lane<T>& L,
                : nebynh * (cff * (e.nHp + nHep) + T(4) * cff * nHepp);
     T cmptn = nebynh * (T(a.cmptn) * (temp - T(a.tcmb))) / nh;
     T lambda = collis + recomb + ff + cmptn;
-    T heat = (e.nH0 * T(a.epsH0) + nHe0 * T(a.epsHe0) + nHep * T(a.epsHep))
-             / nh;
+    T heat = (e.nH0 * uv_rate<EXT>(in.uv.epsH0, a.epsH0)
+              + nHe0 * uv_rate<EXT>(in.uv.epsHe0, a.epsHe0)
+              + nHep * uv_rate<EXT>(in.uv.epsHep, a.epsHep)) / nh;
     if (a.helium_heat) {
         T rho = T(PROTONMASS) * density / T(a.hy);
         T overden = Min(rho / T(a.rcb_z3), T(a.he_thresh));
         heat = heat * T(a.he_amp) * Pow(overden, T(a.he_exp));
     }
     T net = heat - lambda;
+    if (EXT && in.tab) {
+        // the lookup's coordinates in T, then rounded to float
+        float lnh = (float)Log10(Max(nh, T(1e-30)));
+        float lt = (float)Log10(Max(temp, T(1)));
+        net = net - T(in.z_met * metal_rate(a, in.tab, lnh, lt));
+    }
     return net * T(a.hy2) * density / T(PROTONMASS);
 }
 
@@ -512,9 +604,10 @@ template <typename T> struct Bracket { T lo, hi, ne; };
 // ne) alone: where STEFF_B's point or the equilibrium is STEFF_A's, A's
 // evaluation (kept) serves in the same iteration.  Results: (lam, ne/nh)
 // or (u, ne/nh).
-template <typename T, bool BISECT>
-__device__ void solve_row(const CoolArgs& a, const Lane<T>& L, T density,
-                          T ienergy, T ne_init, T dt_s, T& r0, T& r1) {
+template <typename T, bool BISECT, bool EXT>
+__device__ void solve_row(const CoolArgs& a, const Lane<T>& L,
+                          const RowIn<T>& in, T density, T ienergy,
+                          T ne_init, T dt_s, T& r0, T& r1) {
     enum { STEFF_A, STEFF_B, TAIL };
     T nh = density * T(a.hy);
     T min_u = T(a.min_u);
@@ -535,7 +628,7 @@ __device__ void solve_row(const CoolArgs& a, const Lane<T>& L, T density,
         return same(x.lo, y.lo) && same(x.hi, y.hi) && same(x.ne, y.ne);
     };
     for (;;) {
-        Eval<T> e = evaluate(a, L, nh, ienergy,
+        Eval<T> e = evaluate<T, EXT>(a, L, in.uv, nh, ienergy,
                              (phase == STEFF_B ? ne1 : h[0]) * nh);
         int at = phase;
         bool tail = at == TAIL;
@@ -564,7 +657,7 @@ __device__ void solve_row(const CoolArgs& a, const Lane<T>& L, T density,
         }
         if (!tail) continue;
         // the closing terms at one place, so that rows close together
-        T lam = closing(a, L, e, nh, density);
+        T lam = closing<T, EXT>(a, L, in, e, nh, density);
         if (!BISECT) {
             r0 = lam;
             r1 = e.xe;
@@ -591,11 +684,25 @@ __device__ __forceinline__ int64_t row_of(const int64_t* rows, int64_t i) {
     return rows ? rows[i] : i;
 }
 
-template <typename T>
+template <typename T, bool EXT>
+__device__ __forceinline__ RowIn<T> row_in(const CoolArgs& a, const T* uv,
+                                           const float* met,
+                                           const float* tab, int64_t p) {
+    RowIn<T> in = {};
+    if (!EXT) return in;            // unread: the scalars, no metal term
+    in.uv = uv_of(a, uv, p);
+    in.tab = met ? tab : nullptr;
+    in.z_met = met ? met[p] : 0.0f;
+    return in;
+}
+
+template <typename T, bool EXT>
 __global__ void __launch_bounds__(THREADS)
 do_cooling_kernel(const T* __restrict__ u_old, const T* __restrict__ rho,
                   const T* __restrict__ dt, const T* __restrict__ ne_guess,
                   T* __restrict__ u_new, T* __restrict__ ne_new,
+                  const T* __restrict__ uv, const float* __restrict__ met,
+                  const float* __restrict__ tab,
                   const int64_t* __restrict__ rows, int64_t n_rows,
                   CoolArgs a) {
     int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -607,19 +714,22 @@ do_cooling_kernel(const T* __restrict__ u_old, const T* __restrict__ rho,
     T u_old_cgs = Max(u_old[p] * T(a.uu), T(a.min_u));
     T dt_s = dt[p] * T(a.tt);
     T u, ne;
-    solve_row<T, true>(a, L, rho_cgs, u_old_cgs, ne_guess[p], dt_s, u, ne);
+    solve_row<T, true, EXT>(a, L, row_in<T, EXT>(a, uv, met, tab, p),
+                            rho_cgs, u_old_cgs, ne_guess[p], dt_s, u, ne);
     if (L.lane == 0) {
         u_new[p] = u / T(a.uu);
         ne_new[p] = ne;
     }
 }
 
-template <typename T>
+template <typename T, bool EXT>
 __global__ void __launch_bounds__(THREADS)
 heatingcooling_kernel(const T* __restrict__ density,
                       const T* __restrict__ ienergy,
                       const T* __restrict__ ne_init, T* __restrict__ lam,
-                      T* __restrict__ ne_new,
+                      T* __restrict__ ne_new, const T* __restrict__ uv,
+                      const float* __restrict__ met,
+                      const float* __restrict__ tab,
                       const int64_t* __restrict__ rows, int64_t n_rows,
                       CoolArgs a) {
     int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -628,8 +738,8 @@ heatingcooling_kernel(const T* __restrict__ density,
     Lane<T> L = make_lane<T>(a, (int)(t % LANES));
     int64_t p = row_of(rows, i);
     T l, e;
-    solve_row<T, false>(a, L, density[p], ienergy[p], ne_init[p], T(0), l,
-                        e);
+    solve_row<T, false, EXT>(a, L, row_in<T, EXT>(a, uv, met, tab, p),
+                             density[p], ienergy[p], ne_init[p], T(0), l, e);
     if (L.lane == 0) {
         lam[p] = l;
         ne_new[p] = e;
@@ -643,44 +753,51 @@ CoolArgs unpack(const double* d, const int* k) {
     return a;
 }
 
-bool valid_options(const CoolArgs& a) {
+bool valid_options(const CoolArgs& a, const float* met, const float* tab) {
+    if ((met == nullptr) != (tab == nullptr)) return false;
+    for (int k = 0; k < 3; ++k)
+        if (met && a.met_dims[k] < 2) return false;
     return a.recomb >= CEN92 && a.recomb <= BADNELL06 && a.cooling >= KWH92
            && a.cooling <= SHERWOOD;
 }
 
-template <typename T>
+template <typename T, bool EXT>
 int launch_do_cooling(const T* u_old, const T* rho, const T* dt,
-                      const T* ne_guess, T* u_new, T* ne_new,
+                      const T* ne_guess, T* u_new, T* ne_new, const T* uv,
+                      const float* met, const float* tab,
                       const int64_t* rows, int64_t n_rows, const double* d,
                       const int* k, cudaStream_t stream) {
     if (n_rows <= 0) return (int)cudaSuccess;
     CoolArgs a = unpack(d, k);
-    if (!valid_options(a)) return (int)cudaErrorInvalidValue;
+    if (!valid_options(a, met, tab)) return (int)cudaErrorInvalidValue;
     int64_t blocks = (n_rows * LANES + THREADS - 1) / THREADS;
-    do_cooling_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        u_old, rho, dt, ne_guess, u_new, ne_new, rows, n_rows, a);
+    do_cooling_kernel<T, EXT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        u_old, rho, dt, ne_guess, u_new, ne_new, uv, met, tab, rows, n_rows,
+        a);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool EXT>
 int launch_heatingcooling(const T* density, const T* ienergy,
-                          const T* ne_init, T* lam, T* ne_new,
+                          const T* ne_init, T* lam, T* ne_new, const T* uv,
+                          const float* met, const float* tab,
                           const int64_t* rows, int64_t n_rows,
                           const double* d, const int* k,
                           cudaStream_t stream) {
     if (n_rows <= 0) return (int)cudaSuccess;
     CoolArgs a = unpack(d, k);
-    if (!valid_options(a)) return (int)cudaErrorInvalidValue;
+    if (!valid_options(a, met, tab)) return (int)cudaErrorInvalidValue;
     int64_t blocks = (n_rows * LANES + THREADS - 1) / THREADS;
-    heatingcooling_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-        density, ienergy, ne_init, lam, ne_new, rows, n_rows, a);
+    heatingcooling_kernel<T, EXT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        density, ienergy, ne_init, lam, ne_new, uv, met, tab, rows, n_rows,
+        a);
     return (int)cudaGetLastError();
 }
 
 static_assert(offsetof(CoolArgs, recomb) == N_DOUBLES * sizeof(double)
-                  && offsetof(CoolArgs, helium_heat)
+                  && offsetof(CoolArgs, met_dims)
                          == N_DOUBLES * sizeof(double)
-                                + (N_INTS - 1) * sizeof(int),
+                                + (N_INTS - 3) * sizeof(int),
               "CoolArgs: the doubles, then the ints, packed");
 static_assert(32 % LANES == 0 && LANES < 32 && THREADS % 32 == 0,
               "a row's lanes lie in one warp");
@@ -690,10 +807,14 @@ static_assert(32 % LANES == 0 && LANES < 32 && THREADS % 32 == 0,
 // Plain C entry points, loaded with ctypes.  Device pointers to n-element
 // arrays of one type (float or double); rows: int64 device array of the
 // n_rows rows to compute, or null for rows 0..n_rows-1; other rows of the
-// outputs are not written.  d (22 doubles) and k (4 ints): host arrays in
-// the order of physics/cooling.py:kernel_args.  LANES threads a row on
-// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for an
-// unknown rate option); does not synchronise.
+// outputs are not written.  The optional inputs (null: off): uv, the six UV
+// rates of each row ([n, 6], the rows' type; null: the scalars of d);
+// met, the float metallicity of each row, and tab, the float metal cooling
+// table on the device (dims in k; both or neither).  d (32 doubles) and k
+// (7 ints): host arrays in the order of physics/cooling.py:kernel_args.
+// LANES threads a row on `stream`; returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unknown rate option, or a metallicity
+// without a table); does not synchronise.
 //
 // do_cooling: u_old, rho (internal units, physical), dt (internal time),
 // ne_guess (ne/nh) -> u_new (internal), ne_new (ne/nh).
@@ -702,17 +823,30 @@ static_assert(32 % LANES == 0 && LANES < 32 && THREADS % 32 == 0,
 #define COOLING_ENTRIES(T, SUF)                                                \
     extern "C" int do_cooling_##SUF(                                           \
         const T* u_old, const T* rho, const T* dt, const T* ne_guess,          \
-        T* u_new, T* ne_new, const int64_t* rows, int64_t n_rows,              \
-        const double* d, const int* k, cudaStream_t stream) {                  \
-        return launch_do_cooling<T>(u_old, rho, dt, ne_guess, u_new, ne_new,   \
-                                    rows, n_rows, d, k, stream);               \
+        T* u_new, T* ne_new, const T* uv, const float* met, const float* tab,  \
+        const int64_t* rows, int64_t n_rows, const double* d, const int* k,    \
+        cudaStream_t stream) {                                                 \
+        return uv || met                                                       \
+                   ? launch_do_cooling<T, true>(u_old, rho, dt, ne_guess,      \
+                                                u_new, ne_new, uv, met, tab,   \
+                                                rows, n_rows, d, k, stream)    \
+                   : launch_do_cooling<T, false>(u_old, rho, dt, ne_guess,     \
+                                                 u_new, ne_new, uv, met, tab,  \
+                                                 rows, n_rows, d, k, stream);  \
     }                                                                          \
     extern "C" int heatingcooling_rate_##SUF(                                  \
         const T* density, const T* ienergy, const T* ne_init, T* lam,          \
-        T* ne_new, const int64_t* rows, int64_t n_rows, const double* d,       \
-        const int* k, cudaStream_t stream) {                                   \
-        return launch_heatingcooling<T>(density, ienergy, ne_init, lam,        \
-                                        ne_new, rows, n_rows, d, k, stream);   \
+        T* ne_new, const T* uv, const float* met, const float* tab,            \
+        const int64_t* rows, int64_t n_rows, const double* d, const int* k,    \
+        cudaStream_t stream) {                                                 \
+        return uv || met                                                       \
+                   ? launch_heatingcooling<T, true>(density, ienergy, ne_init, \
+                                                    lam, ne_new, uv, met, tab, \
+                                                    rows, n_rows, d, k,        \
+                                                    stream)                    \
+                   : launch_heatingcooling<T, false>(                          \
+                         density, ienergy, ne_init, lam, ne_new, uv, met, tab, \
+                         rows, n_rows, d, k, stream);                          \
     }
 
 COOLING_ENTRIES(float, f32)

@@ -28,8 +28,13 @@ network and the ``1e-60`` of the cooling time are 0.
 Rate options follow the reference: recombination Cen92 / Verner96
 (default) / Badnell06, cooling KWH92 / Enzo2Nyx / Sherwood (default),
 the UVB from a TreeCool table in log10(1+z), Rahmati-Schaye 2013
-self-shielding.  The metal cooling and UV fluctuation tables are not
-carried (``run.check_supported`` refuses their files).
+self-shielding.  The UV rates may differ from row to row (a
+:class:`UVBG` whose six rates are tensors: :func:`local_uvbg` from a
+:class:`UVFluctuationTable`, or the excursion set's J21, physics/uvbg.py);
+they enter the network in the rows' type.  With a
+:class:`MetalCoolingTable` the net rate loses ``metallicity`` times the
+table's solar-metallicity rate, looked up in float32 whatever the rows'
+type, as the JAX package does.
 """
 
 import ctypes
@@ -85,7 +90,9 @@ class CoolingParams:
 @dataclass
 class UVBG:
     """Photoionization (1/s) and heating (erg/s) rates + self-shielding
-    density; scalars for the global background."""
+    density: Python floats for the global background, or for the six
+    rates per-row tensors (:func:`local_uvbg`, the excursion set);
+    self_shield_dens stays a float."""
     gJH0: float = 0.0
     gJHe0: float = 0.0
     gJHep: float = 0.0
@@ -163,7 +170,10 @@ def _sq(x):
 
 def _rdiv(c, x):
     """c / x for a Python scalar c, as a true division (PyTorch's
-    ``c / x`` multiplies by the reciprocal, another rounding)."""
+    ``c / x`` multiplies by the reciprocal, another rounding); a tensor c
+    (a per-row UV rate) is taken in x's type."""
+    if isinstance(c, torch.Tensor):
+        return c.to(x.dtype) / x
     return x.new_tensor(c) / x
 
 
@@ -325,16 +335,185 @@ def _integer_pow(x, j):
     return acc
 
 
+class MetalCoolingTable:
+    """Cloudy net metal cooling at solar metallicity on a uniform (redshift,
+    log10 nH, log10 T) grid (InitMetalCooling / TableMetalCoolingRate,
+    cooling_uvfluc.c:266-323): an 8-corner trilinear lookup with edge
+    clamps, in float32 whatever the inputs' type (as the JAX package's).
+    Table values are erg cm^3/s per proton at 1 Zsun."""
+
+    def __init__(self, zbins, lognh_bins, logt_bins, table):
+        f32 = np.float32
+        self.mins = np.asarray([zbins[0], lognh_bins[0], logt_bins[0]], f32)
+        self.maxs = np.asarray([zbins[-1], lognh_bins[-1], logt_bins[-1]],
+                               f32)
+        self.dims = (len(zbins), len(lognh_bins), len(logt_bins))
+        if min(self.dims) < 2:
+            raise ValueError(f"metal cooling table of shape {self.dims}: "
+                             "every axis needs two bins")
+        self.table = torch.as_tensor(
+            np.asarray(table, f32).reshape(self.dims))
+        # float32 as the JAX package computes them
+        self.step = (self.maxs - self.mins) / (np.asarray(self.dims, f32)
+                                               - f32(1))
+        self._on = {}
+
+    @classmethod
+    def from_file(cls, path):
+        """Read the reference's bigfile layout (read_big_array)."""
+        from ..io.bigfile import BigFile
+        bf = BigFile(path)
+        met = bf.open("MetallicityInSolar_bins").read()
+        if len(met) != 1 or met[0] != 0.0:
+            raise ValueError(f"MetalCool file {path} wrongly tabulated")
+        return cls(bf.open("Redshift_bins").read(),
+                   bf.open("HydrogenNumberDensity_bins").read(),
+                   bf.open("Temperature_bins").read(),
+                   bf.open("NetCoolingRate").read())
+
+    def on(self, device):
+        """The table as a contiguous float32 tensor on device (kept)."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = self.table.to(device).contiguous()
+        return self._on[key]
+
+    def __call__(self, redshift, nh, temp):
+        """The rate at (redshift, nh cm^-3, T K): nh and temp tensors of
+        one shape, redshift a float; float32."""
+        f32 = torch.float32
+        x = torch.stack([
+            torch.full(nh.shape, float(np.float32(redshift)), dtype=f32,
+                       device=nh.device),
+            _log10(torch.clamp(nh, min=_scalar(1e-30, nh.dtype))).to(f32),
+            _log10(torch.clamp(temp, min=1.0)).to(f32)], dim=-1)
+        mins = torch.as_tensor(self.mins, device=nh.device)
+        step = torch.as_tensor(self.step, device=nh.device)
+        top = torch.as_tensor(np.asarray(self.dims, np.float32) - 1,
+                              device=nh.device)
+        f = torch.minimum(torch.clamp((x - mins) / step, min=0.0), top)
+        i0 = torch.minimum(torch.clamp(f.to(torch.int32), min=0),
+                           torch.as_tensor(np.asarray(self.dims) - 2,
+                                           dtype=torch.int32,
+                                           device=nh.device))
+        w = f - i0
+        tab = self.on(nh.device)
+        out = torch.zeros(nh.shape, dtype=f32, device=nh.device)
+        for corner in range(8):
+            bits = [(corner >> 2) & 1, (corner >> 1) & 1, corner & 1]
+            wt = None
+            for k, b in enumerate(bits):
+                wk = w[..., k] if b else 1.0 - w[..., k]
+                wt = wk if wt is None else wt * wk
+            idx = [(i0[..., k] + b).long() for k, b in enumerate(bits)]
+            out = out + wt * tab[idx[0], idx[1], idx[2]]
+        return out
+
+
+class UVFluctuationTable:
+    """Patchy reionization: a gridded reionization redshift z_reion(x)
+    (init_uvf_table / get_local_UVBG_from_global, cooling_uvfluc.c:114-195).
+    Gas at z > z_reion(x) sees no UV background.  Periodic trilinear
+    interpolation over an Nside^3 C-ordered table, in float32."""
+
+    def __init__(self, nside, table, median_zreion=None):
+        self.nside = int(nside)
+        self.table = torch.as_tensor(
+            np.asarray(table, np.float32).reshape((self.nside,) * 3))
+        self.median_zreion = median_zreion
+        self._on = {}
+
+    @classmethod
+    def from_file(cls, path, boxsize_internal, unitlength_in_cm):
+        """Read the reference layout: Zreion_Table block with attrs Nmesh
+        (u8), BoxSize (f8, Mpc/h), Redshift (f8); a table for another box
+        size raises."""
+        from ..io.bigfile import BigFile
+        bf = BigFile(path)
+        blk = bf.open("Zreion_Table")
+        nside = int(np.asarray(blk.attrs["Nmesh"])[0])
+        tbox = float(np.asarray(blk.attrs["BoxSize"])[0])
+        zre = float(np.asarray(blk.attrs["Redshift"])[0])
+        box_mpc = boxsize_internal * unitlength_in_cm / C.CM_PER_MPC
+        if abs(tbox - box_mpc) > box_mpc * 1e-5:
+            raise ValueError(
+                f"UV fluctuation file {path} is for box "
+                f"{tbox} Mpc/h, current box is {box_mpc} Mpc/h")
+        return cls(nside, blk.read(), median_zreion=zre)
+
+    def on(self, device):
+        """The table as a float32 tensor on device (kept)."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = self.table.to(device)
+        return self._on[key]
+
+    def zreion(self, ipos):
+        """z_reion at int64 fixed-point positions in [0, 2^32), periodic
+        trilinear (float32)."""
+        ns = self.nside
+        f = ipos.to(torch.float32) * float(np.float32(ns * 2.0 ** -32))
+        i0 = torch.floor(f).to(torch.int32)
+        w = f - i0
+        tab = self.on(ipos.device)
+        out = torch.zeros(ipos.shape[0], dtype=torch.float32,
+                          device=ipos.device)
+        for corner in range(8):
+            bits = [(corner >> 2) & 1, (corner >> 1) & 1, corner & 1]
+            wt = None
+            for k, b in enumerate(bits):
+                wk = w[:, k] if b else 1.0 - w[:, k]
+                wt = wk if wt is None else wt * wk
+            idx = [((i0[:, k] + b) % ns).long() for k, b in enumerate(bits)]
+            out = out + wt * tab[idx[0], idx[1], idx[2]]
+        return out
+
+
+UV_RATES = ("gJH0", "gJHe0", "gJHep", "epsH0", "epsHe0", "epsHep")
+
+
+def local_uvbg(global_uvbg: UVBG, zreion_vals, redshift) -> UVBG:
+    """Per-row UVBG: zero rates where the local patch has not reionized yet
+    (get_local_UVBG_from_global, cooling_uvfluc.c:174-196); float32 rates,
+    the global self-shielding density."""
+    on = (zreion_vals >= _scalar(redshift, torch.float32)).to(torch.float32)
+    rates = {k: on * _scalar(getattr(global_uvbg, k), torch.float32)
+             for k in UV_RATES}
+    return UVBG(**rates, self_shield_dens=global_uvbg.self_shield_dens)
+
+
+def per_row(uvbg: UVBG) -> bool:
+    """Whether the UV rates of uvbg are per-row tensors."""
+    return isinstance(uvbg.gJH0, torch.Tensor)
+
+
+def uvbg_rows(uvbg: UVBG, rows) -> UVBG:
+    """uvbg on the rows listed (per-row rates indexed; scalars as they
+    are)."""
+    if rows is None or not per_row(uvbg):
+        return uvbg
+    return UVBG(**{k: getattr(uvbg, k)[rows] for k in UV_RATES},
+                self_shield_dens=uvbg.self_shield_dens)
+
+
+def _rate(v, like):
+    """A UV rate as the network uses it: a per-row rate in like's type, a
+    Python float as it is."""
+    return v.to(like.dtype) if isinstance(v, torch.Tensor) else v
+
+
 class CoolingRates:
     """The network on tensors (per particle): density in protons/cm^3,
     ienergy in erg/g.  These are the plain versions; see the module
     docstring."""
 
-    def __init__(self, params: CoolingParams, treecool: TreeCool):
+    def __init__(self, params: CoolingParams, treecool: TreeCool,
+                 metal_table: Optional[MetalCoolingTable] = None):
         self.par = params
         self.treecool = treecool
         self.rates = make_rates(params)
         self.helium = 1 - C.HYDROGEN_MASSFRAC
+        self.metal_table = metal_table
 
     def get_temp_internal(self, nebynh, ienergy, helium):
         hy_mass = 1 - helium
@@ -408,12 +587,13 @@ class CoolingRates:
         return torch.clamp(pp, min=0.0)
 
     def get_heatingcooling_rate(self, density, ienergy, redshift, uvbg,
-                                ne_init, helium=None):
+                                ne_init, helium=None, metallicity=None):
         """Net (heating - cooling) in erg/s/g and the equilibrium ne/nh
         (get_heatingcooling_rate, cooling_rates.c:1249-1310): the plain
-        version of K6's ``heatingcooling_rate``.  The JAX function's
-        metallicity argument is not carried: it feeds only the metal
-        cooling table, which the port does not carry yet."""
+        version of K6's ``heatingcooling_rate``.  With a metal table and a
+        per-row float32 ``metallicity`` (None: no metal term, as the JAX
+        package's 0.0), the net rate loses metallicity times the table's
+        rate, a float32 product (cooling_rates.c:1300-1303)."""
         helium = self.helium if helium is None else helium
         R = self.rates
         ne = self.get_equilib_ne(density, ienergy, uvbg, ne_init, helium)
@@ -445,8 +625,8 @@ class CoolingRates:
                                 * tcmb ** 4 * C.BOLTZMANN
                                 * (temp - tcmb)) / nh
         Lambda = LambdaCollis + LambdaRecomb + LambdaFF + LambdaCmptn
-        Heat = (nH0 * uvbg.epsH0 + nHe0 * uvbg.epsHe0
-                + nHep * uvbg.epsHep) / nh
+        Heat = (nH0 * _rate(uvbg.epsH0, nH0) + nHe0 * _rate(uvbg.epsHe0, nH0)
+                + nHep * _rate(uvbg.epsHep, nH0)) / nh
         if self.par.HeliumHeatOn:
             rho = C.PROTONMASS * density / (1 - helium)
             overden = torch.clamp(
@@ -455,6 +635,10 @@ class CoolingRates:
             Heat = Heat * self.par.HeliumHeatAmp \
                 * overden ** self.par.HeliumHeatExp
         LambdaNet = Heat - Lambda
+        if self.metal_table is not None and metallicity is not None:
+            metal = metallicity.to(torch.float32) * self.metal_table(
+                redshift, nh, temp)
+            LambdaNet = LambdaNet - metal.to(LambdaNet.dtype)
         return (LambdaNet * (1 - helium) ** 2 * density / C.PROTONMASS,
                 nebynh)
 
@@ -515,7 +699,8 @@ def iterate(step, x, iters, period):
 
 @dataclass
 class CoolingBracket:
-    """do_cooling's per-particle constants in cgs and its initial bracket
+    """do_cooling's per-particle constants in cgs (the metallicity among
+    them, None for no metal term) and its initial bracket
     (:func:`cooling_bracket`)."""
     rho_cgs: torch.Tensor
     u_old_cgs: torch.Tensor
@@ -523,9 +708,11 @@ class CoolingBracket:
     min_u: float
     u_lo: torch.Tensor
     u_hi: torch.Tensor
+    metallicity: Optional[torch.Tensor] = None
 
 
-def cooling_bracket(u_old, rho, dt, min_egy_spec, units: CoolingUnits):
+def cooling_bracket(u_old, rho, dt, min_egy_spec, units: CoolingUnits,
+                    metallicity=None):
     """The bisection's constants and initial bounds: the reference's
     bracket expanded by 1.1^k as wide bounds (DoCooling, cooling.c:57-140)."""
     rho_cgs = rho * units.density_in_phys_cgs / C.PROTONMASS
@@ -536,7 +723,7 @@ def cooling_bracket(u_old, rho, dt, min_egy_spec, units: CoolingUnits):
     # the reference expands by 1.1 from u_old; 1.1^60 ~ 300x
     return CoolingBracket(rho_cgs, u_old_cgs, dt_s, min_u,
                           torch.clamp(u_old_cgs / 300.0, min=min_u),
-                          u_old_cgs * 300.0)
+                          u_old_cgs * 300.0, metallicity)
 
 
 def bisection_step(cr: CoolingRates, redshift, uvbg, br: CoolingBracket,
@@ -545,20 +732,22 @@ def bisection_step(cr: CoolingRates, redshift, uvbg, br: CoolingBracket,
     next, a function of that triple alone (given br)."""
     u_mid = 0.5 * (u_lo + u_hi)
     lam, ne = cr.get_heatingcooling_rate(br.rho_cgs, u_mid, redshift, uvbg,
-                                         ne)
+                                         ne, metallicity=br.metallicity)
     val = u_mid - br.u_old_cgs - lam * br.dt_s
     heat = val < 0  # u too small -> move lower bound up
     return torch.where(heat, u_mid, u_lo), torch.where(heat, u_hi, u_mid), ne
 
 
 def do_cooling_reference(cr: CoolingRates, redshift, u_old, rho, dt, uvbg,
-                         ne_guess, min_egy_spec, units: CoolingUnits):
+                         ne_guess, min_egy_spec, units: CoolingUnits,
+                         metallicity=None):
     """Implicit du integration (DoCooling, cooling.c:57-140): wide initial
     bounds, then a bisection of BISECT_ITERS steps over (u_lo, u_hi, ne),
     left as soon as that state repeats (:func:`iterate`).  Per-particle
-    tensors, internal units.  Returns (u_new internal, ne/nh).  The plain
+    tensors, internal units; uvbg's rates scalars or per row, metallicity
+    per row (float32) or None.  Returns (u_new internal, ne/nh).  The plain
     version of K6."""
-    br = cooling_bracket(u_old, rho, dt, min_egy_spec, units)
+    br = cooling_bracket(u_old, rho, dt, min_egy_spec, units, metallicity)
     u_lo, u_hi, ne = iterate(
         lambda st: bisection_step(cr, redshift, uvbg, br, *st),
         (br.u_lo, br.u_hi, ne_guess), BISECT_ITERS, BISECT_PERIOD)
@@ -568,12 +757,20 @@ def do_cooling_reference(cr: CoolingRates, redshift, u_old, rho, dt, uvbg,
 
 # ---- K6 ------------------------------------------------------------------
 
-def _kernel(name, n_ptr):
-    """The ctypes function of one K6 entry point: n_ptr device pointers
-    (inputs, outputs, rows), n_rows, the host scalars and the stream."""
+# K6's entry points: the device pointers of their inputs and outputs
+N_PTRS = {"do_cooling": 6, "heatingcooling_rate": 5}
+N_EXTRA = 3     # the optional per-row UV rates, metallicity and metal table
+
+
+def _kernel(name):
+    """The ctypes function of one K6 entry point (name_f32 or name_f64):
+    its device pointers (inputs, outputs, the optional per-row UV rates,
+    metallicity and metal table, rows), n_rows, the host scalars and the
+    stream."""
     if name not in _fns:
         fn = getattr(kernels.load("cooling"), name)
         fn.restype = ctypes.c_int
+        n_ptr = N_PTRS[name.rsplit("_", 1)[0]] + N_EXTRA + 1
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int64] \
             + [ctypes.c_void_p] * 3
         _fns[name] = fn
@@ -584,28 +781,45 @@ def kernel_args(cr: CoolingRates, redshift, uvbg: UVBG, min_egy_spec=0.0,
                 units: Optional[CoolingUnits] = None):
     """K6's scalar arguments: (doubles, ints) as numpy arrays, in the
     order of ``csrc/cooling.cu``'s ``CoolArgs``.  The composite scalar
-    factors are evaluated here in Python, as in the JAX package."""
+    factors are evaluated here in Python, as in the JAX package.  Per-row
+    UV rates go to K6 as an array (the scalars here are then 0); the metal
+    table's float32 grid (redshift, mins, steps, dims) is here whether or
+    not a call uses it."""
     par = cr.par
     helium = cr.helium
     tcmb = par.CMBTemperature * (1 + redshift)
     units = units or CoolingUnits(1.0, 1.0, 1.0)
-    d = [uvbg.gJH0, uvbg.gJHe0, uvbg.gJHep, uvbg.epsH0, uvbg.epsHe0,
-         uvbg.epsHep,
-         1.003 * uvbg.self_shield_dens, uvbg.self_shield_dens * 0.01,
-         1 - helium, helium / 4 / (1 - helium), (1 - helium) ** 2,
-         par.MinGasTemp, tcmb,
-         4 * C.THOMPSON * C.RAD_CONST / (C.ELECTRONMASS * C.LIGHTCGS)
-         * tcmb ** 4 * C.BOLTZMANN,
-         par.rho_crit_baryon * (1 + redshift) ** 3, par.HeliumHeatThresh,
-         par.HeliumHeatAmp, par.HeliumHeatExp,
-         units.density_in_phys_cgs, units.uu_in_cgs, units.tt_in_s,
-         min_egy_spec * units.uu_in_cgs]
+    rates = [0.0] * 6 if per_row(uvbg) else \
+        [getattr(uvbg, k) for k in UV_RATES]
+    d = rates + [
+        1.003 * uvbg.self_shield_dens, uvbg.self_shield_dens * 0.01,
+        1 - helium, helium / 4 / (1 - helium), (1 - helium) ** 2,
+        par.MinGasTemp, tcmb,
+        4 * C.THOMPSON * C.RAD_CONST / (C.ELECTRONMASS * C.LIGHTCGS)
+        * tcmb ** 4 * C.BOLTZMANN,
+        par.rho_crit_baryon * (1 + redshift) ** 3, par.HeliumHeatThresh,
+        par.HeliumHeatAmp, par.HeliumHeatExp,
+        units.density_in_phys_cgs, units.uu_in_cgs, units.tt_in_s,
+        min_egy_spec * units.uu_in_cgs]
     i = [par.recomb, par.cooling, int(bool(par.SelfShieldingOn)),
          int(bool(par.HeliumHeatOn))]
+    mt = cr.metal_table
+    if mt is None:
+        d += [0.0] * 10
+        i += [2, 2, 2]
+    else:
+        d += [float(np.float32(redshift))] + [float(x) for x in mt.mins] \
+            + [float(x) for x in mt.step] \
+            + [float(np.float32(n - 1)) for n in mt.dims]
+        i += list(mt.dims)
     return np.asarray(d, np.float64), np.asarray(i, np.int32)
 
 
-def _launch(name, n_rows, rows, args, ins, outs):
+def _launch(name, n_rows, rows, args, ins, outs, extra=(None,) * N_EXTRA):
+    """Launch K6's entry point `name` on rows (int64 indices, or None for
+    rows 0..n_rows-1).  extra: the per-row UV rates [n, 6] in the rows'
+    type, the float32 metallicity [n] and the metal table, each a tensor
+    or None."""
     global LAUNCHES
     dev = outs[0].device
     dtype = outs[0].dtype
@@ -616,21 +830,55 @@ def _launch(name, n_rows, rows, args, ins, outs):
         kernels.check_tensor("cooling input", t, (n,), dtype)
         if t.device != dev:
             raise ValueError("K6 inputs must be on one device")
+    uv, met, table = extra
+    if uv is not None:
+        kernels.check_tensor("per-row UV rates", uv, (n, 6), dtype)
+    if met is not None:
+        kernels.check_tensor("metallicity", met, (n,), torch.float32)
+    if (met is None) != (table is None):
+        raise ValueError("K6 takes the metallicity and the metal table "
+                         "together")
+    if table is not None:
+        kernels.check_tensor("metal table", table, tuple(table.shape),
+                             torch.float32)
+        if table.dim() != 3 or tuple(table.shape) != tuple(
+                int(x) for x in args[1][4:7]):
+            raise ValueError(f"metal table of shape {tuple(table.shape)} "
+                             f"against the dims {args[1][4:7]}")
+    for t in extra:
+        if t is not None and t.device != dev:
+            raise ValueError("K6 inputs must be on one device")
     if rows is not None:
         kernels.check_tensor("rows", rows, (n_rows,), torch.int64)
         if rows.device != dev:
             raise ValueError("K6 inputs must be on one device")
     dbl, ints = args
     suffix = "f32" if dtype == torch.float32 else "f64"
-    fn = _kernel(f"{name}_{suffix}", len(ins) + len(outs) + 1)
+    fn = _kernel(f"{name}_{suffix}")
     with torch.cuda.device(dev):
         rc = fn(*[t.data_ptr() for t in ins + outs],
+                *[None if t is None else t.data_ptr() for t in extra],
                 rows.data_ptr() if rows is not None else None, n_rows,
                 dbl.ctypes.data, ints.ctypes.data,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cooling kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+
+
+def kernel_extra(cr: CoolingRates, uvbg: UVBG, metallicity, like):
+    """K6's optional inputs for rows like `like` (the first input): the
+    per-row UV rates as an [n, 6] array in like's type (None for scalar
+    rates), and with a metal table the float32 metallicity and the table
+    on like's device (None, None without a table or a metallicity)."""
+    uv = None
+    if per_row(uvbg):
+        uv = torch.stack([getattr(uvbg, k).to(like.dtype)
+                          for k in UV_RATES], dim=1).contiguous()
+    if cr.metal_table is None or metallicity is None:
+        return uv, None, None
+    return (uv, metallicity.to(torch.float32).contiguous(),
+            cr.metal_table.on(like.device))
 
 
 def _as_rows(rows, n, device):
@@ -648,16 +896,20 @@ def _as_rows(rows, n, device):
 
 
 def do_cooling(cr: CoolingRates, redshift, u_old, rho, dt, uvbg, ne_guess,
-               min_egy_spec, units: CoolingUnits, rows=None):
+               min_egy_spec, units: CoolingUnits, rows=None,
+               metallicity=None):
     """Implicit cooling of the rows listed in ``rows`` (int64 indices or a
     bool mask; all rows when None): K6's ``do_cooling`` on CUDA tensors (or
-    raise), :func:`do_cooling_reference` on CPU tensors.  Returns (u_new,
-    ne/nh); unlisted rows keep u_old and ne_guess."""
+    raise), :func:`do_cooling_reference` on CPU tensors.  uvbg's rates may
+    be per row; metallicity (per row) enters with the metal table.
+    Returns (u_new, ne/nh); unlisted rows keep u_old and ne_guess."""
     rows = _as_rows(rows, u_old.shape[0], u_old.device)
     if u_old.device.type == "cpu":
-        return _rows(lambda u, r, t, e: do_cooling_reference(
-            cr, redshift, u, r, t, uvbg, e, min_egy_spec, units), rows,
-            (u_old, ne_guess), u_old, rho, dt, ne_guess)
+        met = (metallicity,) if metallicity is not None else ()
+        return _rows(lambda u, r, t, e, *z: do_cooling_reference(
+            cr, redshift, u, r, t, uvbg_rows(uvbg, rows), e, min_egy_spec,
+            units, *z), rows, (u_old, ne_guess), u_old, rho, dt, ne_guess,
+            *met)
     u_new = u_old.clone()
     ne_new = ne_guess.clone()
     n_rows = u_old.shape[0] if rows is None else rows.shape[0]
@@ -665,21 +917,25 @@ def do_cooling(cr: CoolingRates, redshift, u_old, rho, dt, uvbg, ne_guess,
         _launch("do_cooling", n_rows, rows,
                 kernel_args(cr, redshift, uvbg, min_egy_spec, units),
                 [u_old.contiguous(), rho.contiguous(), dt.contiguous(),
-                 ne_guess.contiguous()], [u_new, ne_new])
+                 ne_guess.contiguous()], [u_new, ne_new],
+                kernel_extra(cr, uvbg, metallicity, u_old))
     return u_new, ne_new
 
 
 def heatingcooling_rate(cr: CoolingRates, density, ienergy, redshift, uvbg,
-                        ne_init, rows=None):
+                        ne_init, rows=None, metallicity=None):
     """(Lambda_net erg/s/g, ne/nh) of the rows listed in ``rows`` (all when
     None): K6's ``heatingcooling_rate`` on CUDA tensors (or raise),
     :meth:`CoolingRates.get_heatingcooling_rate` on CPU tensors.  Unlisted
     rows hold 0 and ne_init."""
     rows = _as_rows(rows, density.shape[0], density.device)
     if density.device.type == "cpu":
-        return _rows(lambda d, u, e: cr.get_heatingcooling_rate(
-            d, u, redshift, uvbg, e), rows,
-            (torch.zeros_like(density), ne_init), density, ienergy, ne_init)
+        met = (metallicity,) if metallicity is not None else ()
+        return _rows(lambda d, u, e, *z: cr.get_heatingcooling_rate(
+            d, u, redshift, uvbg_rows(uvbg, rows), e,
+            metallicity=z[0] if z else None), rows,
+            (torch.zeros_like(density), ne_init), density, ienergy, ne_init,
+            *met)
     lam = torch.zeros_like(density)
     ne_new = ne_init.clone()
     n_rows = density.shape[0] if rows is None else rows.shape[0]
@@ -687,5 +943,6 @@ def heatingcooling_rate(cr: CoolingRates, density, ienergy, redshift, uvbg,
         _launch("heatingcooling_rate", n_rows, rows,
                 kernel_args(cr, redshift, uvbg),
                 [density.contiguous(), ienergy.contiguous(),
-                 ne_init.contiguous()], [lam, ne_new])
+                 ne_init.contiguous()], [lam, ne_new],
+                kernel_extra(cr, uvbg, metallicity, density))
     return lam, ne_new

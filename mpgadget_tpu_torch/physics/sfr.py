@@ -97,15 +97,15 @@ def init_sfr(par: SFRParams, CP, units, cr: CoolingRates,
 
 
 def get_cooling_time(cr: CoolingRates, redshift, u, rho_phys, uvbg, ne,
-                     cunits: CoolingUnits, rows=None):
+                     cunits: CoolingUnits, rows=None, metallicity=None):
     """GetCoolingTime (cooling.c:143-163), internal units.  0 where the
     gas is net heated, and on rows not listed in rows (int64 indices or a
-    bool mask; all when None).  Without a metal cooling table the JAX
-    function's metallicity argument is not carried."""
+    bool mask; all when None).  metallicity (per row) enters with the
+    metal cooling table; None is the JAX package's 0.0 (init_sfr's)."""
     rho_cgs = rho_phys * cunits.density_in_phys_cgs / C.PROTONMASS
     u_cgs = u * cunits.uu_in_cgs
     lam, _ = heatingcooling_rate(cr, rho_cgs, u_cgs, redshift, uvbg, ne,
-                                 rows=rows)
+                                 rows=rows, metallicity=metallicity)
     tiny = _scalar(1e-60, lam.dtype)
     tcool = torch.where(lam < 0, u_cgs / torch.clamp(-lam, min=tiny), 0.0)
     return tcool / cunits.tt_in_s
@@ -123,7 +123,7 @@ def sfreff_on_eeqos(par: SFRParams, density, delay_time, a3inv):
 
 
 def get_sfr_eeqos(par: SFRParams, cr, cunits, density, ne, dtime, uvbg,
-                  redshift, a3inv, on_eeqos):
+                  redshift, a3inv, on_eeqos, metallicity=None):
     """Multiphase model per particle (get_sfr_eeqos, sfr_eff.c:804-842):
     dict of tsfr, egyhot, cloudfrac, trelax, egyeff.  The cooling time is
     computed for the rows of on_eeqos only; the values of other rows are
@@ -140,7 +140,7 @@ def get_sfr_eeqos(par: SFRParams, cr, cunits, density, ne, dtime, uvbg,
     factorEVP = torch.clamp(ratio, min=1e-30) ** -0.8 * par.FactorEVP
     egyhot = _rdiv(par.EgySpecSN, 1 + factorEVP) + par.EgySpecCold
     tcool = get_cooling_time(cr, redshift, egyhot, rho_phys, uvbg, ne,
-                             cunits, rows=on_eeqos)
+                             cunits, rows=on_eeqos, metallicity=metallicity)
     tcool = torch.clamp(tcool, min=1e-30)
     y = tsfr / tcool * egyhot / (par.FactorSN * par.EgySpecSN
                                  - (1 - par.FactorSN) * par.EgySpecCold)
@@ -165,10 +165,11 @@ def cooling_and_starformation(par: SFRParams, cr, cunits, rng_key, *,
     toward it and may form stars; other gas cools normally.
 
     rng_key: a raw uint32[2] key (utils/threefry.py).  do_cooling_fn(u,
-    rho_phys, dt, ne, rows) -> (u_new, ne) is the implicit cooling of
-    the listed rows (physics/cooling.do_cooling).  dloga is a scalar or a
-    per-particle tensor (hierarchical bins close over their own interval,
-    timestep.c:298).  Returns the dict of the JAX package: entropy, ne,
+    rho_phys, dt, ne, rows, metallicity) -> (u_new, ne) is the implicit
+    cooling of the listed rows (physics/cooling.do_cooling; the
+    metallicity feeds the metal cooling table, as the JAX package's Z).
+    dloga is a scalar or a per-particle tensor (hierarchical bins close
+    over their own interval, timestep.c:298).  Returns the dict of the JAX package: entropy, ne,
     sfr, metallicity, make_star, convert (whole conversion), star_mass,
     sm, on_eeqos."""
     a3inv = 1.0 / atime ** 3
@@ -184,12 +185,12 @@ def cooling_and_starformation(par: SFRParams, cr, cunits, rng_key, *,
     u_cooled, ne_cooled = do_cooling_fn(
         u_current, rho_phys,
         torch.broadcast_to(dtime, u_current.shape).to(u_current.dtype)
-        .contiguous(), ne, valid_gas & ~on_eeqos)
+        .contiguous(), ne, valid_gas & ~on_eeqos, metallicity)
     ent_cooled = u_cooled / torch.clamp(enttou, min=1e-30)
 
     # --- eEOS branch ---
     eeqos = get_sfr_eeqos(par, cr, cunits, density, ne, dtime, uvbg,
-                          redshift, a3inv, on_eeqos)
+                          redshift, a3inv, on_eeqos, metallicity)
     # relax toward the effective EOS (cooling_relaxed, sfr_eff.c:667-702)
     egyeff = eeqos["egyeff"]
     ent_relaxed = (egyeff + (u_current - egyeff)

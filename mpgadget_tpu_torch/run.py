@@ -25,10 +25,13 @@ KDK step or, with SplitGravityTimestepsOn, sub-cycled over per-particle
 power-of-two timebins whose short-range and hydro forces and gas source
 terms are computed for the closing set only
 (:meth:`Simulation.step_hierarchical`); black holes and metal return then
-run once per PM step.  The switches this port does not carry yet (the
-metal cooling and UV fluctuation tables, excursion-set reionization and
-QSO lightup) raise NotImplementedError naming the parameter (see
-:func:`check_supported`); none is silently ignored.
+run once per PM step.  The cooling may read a metal-line cooling table
+(MetalCoolFile) and gate the UV background by a reionization-redshift grid
+(UVFluctuationFile); after each PM step QSO helium reionization
+(QSOLightupOn: physics/qso_lightup.py, bubbles around FOF halos) and the
+excursion-set UV background (ExcursionSetReionOn: physics/uvbg.py, J21
+from filtered CIC grids, whose rates the cooling then uses during its
+epoch) run as in the JAX package.
 """
 
 import os
@@ -219,29 +222,12 @@ class SimConfig:
 
 
 def check_supported(cfg: SimConfig, has_gas: bool):
-    """Raise NotImplementedError for a switch this port does not carry.
-
-    Gas-only switches matter only when gas is present, as in the JAX
-    package (with HydroOn = 0 gas particles are collisionless); the
-    cooling tables only when the gas cools."""
-    with_gas = (
-        ("ExcursionSetReionOn", cfg.excursion_set_on),
-        ("QSOLightupOn", cfg.qso_lightup_on),
-    )
-    cools = cfg.cooling_on or cfg.starformation_on
-    with_cooling = (
-        ("MetalCoolFile", bool(cfg.metal_cool_file)),
-        ("UVFluctuationFile", bool(cfg.uv_fluctuation_file)),
-    )
-    for name, on in (with_gas if has_gas else ()) \
-            + (with_cooling if has_gas and cools else ()):
-        if on:
-            raise NotImplementedError(
-                f"{name} is not supported by mpgadget_tpu_torch yet (it "
-                "carries TreePM with SPH, cooling and star formation, "
-                "winds, metal return and black holes; the metal cooling "
-                "and UV fluctuation tables, excursion-set reionization and "
-                "QSO lightup come with the rest of slice 3b-ii)")
+    """Refuse a configuration the run could not complete, before it starts:
+    QSOLightupOn with gas needs its ReionHistFile (the JAX package raises
+    the same at the first PM step that reaches the lightup).  Every switch
+    of the single-device JAX package is carried."""
+    if has_gas and cfg.qso_lightup_on and not cfg.reion_hist_file:
+        raise ValueError("QSOLightupOn needs ReionHistFile")
 
 
 class Simulation:
@@ -277,7 +263,7 @@ class Simulation:
         # the halo wind model's DM velocity dispersion per row, computed on
         # global steps (set to zeros by _init_sfr, as in the JAX package)
         self._vdisp = None
-        self._age_table = None      # metal return (MetalReturnOn)
+        self._age_table = None      # metal return, the excursion set's cadence
         self._star_hsml = None
         self._gas_initialized = False
         self._gas_restore = None
@@ -312,6 +298,17 @@ class Simulation:
         self.bh_mergers = 0
         self.bh_seeded = []
         self._plane_times = None    # set by _ensure_plane_params
+        self._uvf = None            # physics/cooling.UVFluctuationTable
+        # excursion-set reionization (ExcursionSetReionOn): its parameters,
+        # set at its first update, and the Myr of its last update (-1e30 in
+        # a new or resumed run, as in the JAX package)
+        self._uvbg_params = None
+        self._uvbg_last_myr = -1e30
+        self.uvbg_updates = []      # (z, vol xHI, mass xHI) per update
+        # QSO lightup (QSOLightupOn): the HeII history and its parameters
+        self._heii_hist = None
+        self._qso_params = None
+        self.qso_bubbles = []       # (a, bubbles) per PM step in its epoch
 
     # -- setup ---------------------------------------------------------
 
@@ -795,7 +792,8 @@ class Simulation:
 
     def _init_cooling(self):
         from .physics.cooling import (CoolingParams, CoolingRates,
-                                      CoolingUnits, TreeCool)
+                                      CoolingUnits, MetalCoolingTable,
+                                      TreeCool, UVFluctuationTable)
         par = CoolingParams(
             recomb=self.cfg.recomb_rates, cooling=self.cfg.cooling_rates,
             SelfShieldingOn=self.cfg.self_shielding_on,
@@ -809,7 +807,14 @@ class Simulation:
             HeliumHeatAmp=self.cfg.helium_heat_amp,
             HeliumHeatExp=self.cfg.helium_heat_exp)
         self._treecool = TreeCool(self.cfg.treecool_file or None, par)
-        self._cooling = CoolingRates(par, self._treecool)
+        mtab = None
+        if self.cfg.metal_cool_file:
+            mtab = MetalCoolingTable.from_file(self.cfg.metal_cool_file)
+        if self.cfg.uv_fluctuation_file:
+            self._uvf = UVFluctuationTable.from_file(
+                self.cfg.uv_fluctuation_file, self.cfg.boxsize,
+                self.cfg.units.UnitLength_in_cm)
+        self._cooling = CoolingRates(par, self._treecool, metal_table=mtab)
         units = self.cfg.units
         h = self.CP.HubbleParam
         self._cooling_units = CoolingUnits(
@@ -820,7 +825,10 @@ class Simulation:
     def _source_setup(self, active):
         """What both source-term paths start from: the gas rows to update
         (the closing ones when active is given), a, the redshift, H(a) and
-        the UV background."""
+        the UV background: the TreeCool table's, gated row by row by the UV
+        fluctuation table (z_reion at each row), and during the excursion
+        set's epoch the rates of each row's J21 instead."""
+        from .physics.cooling import local_uvbg
         if self._cooling is None:
             self._init_cooling()
         gas = self.gas_mask
@@ -830,7 +838,27 @@ class Simulation:
         redshift = 1.0 / atime - 1.0
         hubble = self.CP.hubble_function(atime)
         uvbg = self._treecool.get_global_uvbg(redshift)
+        if self._uvf is not None:
+            uvbg = local_uvbg(uvbg, self._uvf.zreion(self.pdata.ipos),
+                              redshift)
+        uvbg = self._excursion_uvbg(uvbg, redshift)
         return gas, atime, redshift, hubble, uvbg
+
+    def _excursion_uvbg(self, uvbg, redshift):
+        """During the excursion epoch the cooling UVB comes from each row's
+        J21 (the grid readout): neutral cells see no background
+        (excursionset_rundown.md); outside it, the given UVBG."""
+        from .physics.cooling import UVBG
+        from .physics.uvbg import j21_to_rates
+        if not self.cfg.excursion_set_on or self.sph is None:
+            return uvbg
+        if not (self.cfg.excursion_set_zstop <= redshift
+                <= self.cfg.excursion_set_zstart):
+            return uvbg
+        g, e = j21_to_rates(self.sph.local_j21, self.cfg.alpha_uv)
+        return UVBG(gJH0=g[0], gJHe0=g[1], gJHep=g[2],
+                    epsH0=e[0], epsHe0=e[1], epsHep=e[2],
+                    self_shield_dens=uvbg.self_shield_dens)
 
     def apply_cooling(self, dloga, active=None):
         """Strang-split cooling after the kick (the cooling_direct path of
@@ -850,7 +878,8 @@ class Simulation:
         self.walltime.start("Cooling")
         u_new, ne = do_cooling(self._cooling, redshift, u, rho_phys, dt,
                                uvbg, self.sph.ne, self._min_egy_spec,
-                               self._cooling_units, rows=gas)
+                               self._cooling_units, rows=gas,
+                               metallicity=self.sph.metallicity)
         self.walltime.stop("Cooling")
         ent_new = GAMMA_MINUS1 * u_new / rho_phys ** GAMMA_MINUS1
         self.sph = self.sph.replace(
@@ -922,10 +951,11 @@ class Simulation:
         key = threefry.prng_key(
             (self.cfg.random_seed + self.ti_current) % (2 ** 31))
 
-        def cool_fn(u, rho_phys, dt, ne, rows):
+        def cool_fn(u, rho_phys, dt, ne, rows, metallicity):
             return do_cooling(self._cooling, redshift, u, rho_phys, dt,
                               uvbg, ne, self._min_egy_spec,
-                              self._cooling_units, rows=rows)
+                              self._cooling_units, rows=rows,
+                              metallicity=metallicity)
 
         self.walltime.start("Cooling/SFR")
         sph = self.sph
@@ -1731,10 +1761,19 @@ class Simulation:
                 self.step(dti)
             nsteps += 1
             hci.update_longest_step(_time.monotonic() - step_t0)
+            # QSO helium reionization runs on PM steps during its epoch,
+            # with a fresh FOF (do_heiii_reionization)
+            if (self.cfg.qso_lightup_on and self.has_gas
+                    and self._gas_initialized):
+                self._run_qso_lightup(self.timeline.dloga_from_dti(
+                    dti, self.ti_current - dti))
             if self.cfg.plane_output_list:
                 self._maybe_write_planes()
             if self.cfg.lightcone_on:
                 self._run_lightcone(dti)
+            if (self.cfg.excursion_set_on and self.has_gas
+                    and self._gas_initialized):
+                self._run_excursion_set()
             if self.cfg.output_energy_debug:
                 self._check_invariants()
             sp = self.timeline.find_current_sync_point(self.ti_current)
@@ -1770,6 +1809,99 @@ class Simulation:
             if max_steps and nsteps >= max_steps:
                 break
         return nsteps
+
+    def _run_excursion_set(self):
+        """The excursion-set UVBG update at the UVBGTimestep cadence
+        (calculate_uvbg, uvbg.c:506-594): FOF halo masses -> escape
+        fractions -> the grids -> each gas row's J21 (the max it has seen)
+        and, where it first rises, zreion = z."""
+        from .physics import uvbg as uvmod
+        atime = self.atime
+        z = 1.0 / atime - 1.0
+        cfg = self.cfg
+        if not (cfg.excursion_set_zstop <= z <= cfg.excursion_set_zstart):
+            return
+        if self._uvbg_params is None:
+            self._uvbg_params = uvmod.UVBGParams(
+                uvbg_dim=cfg.uvbg_dim, r_bubble_max=cfg.reion_r_bubble_max,
+                r_bubble_min=cfg.reion_r_bubble_min,
+                delta_r_factor=cfg.reion_delta_r_factor,
+                filter_type=cfg.reion_filter_type,
+                rtom_filter_type=cfg.rtom_filter_type,
+                nion_phot_per_bary=cfg.reion_nion_phot_per_bary,
+                alpha_uv=cfg.alpha_uv,
+                escape_frac_norm=cfg.escape_fraction_norm,
+                escape_frac_scaling=cfg.escape_fraction_scaling,
+                zstart=cfg.excursion_set_zstart,
+                zstop=cfg.excursion_set_zstop,
+                timestep_myr=cfg.uvbg_timestep_myr,
+                use_particle_sfr=cfg.reion_use_particle_sfr,
+                sfr_timescale=cfg.reion_sfr_timescale)
+            if self._age_table is None:
+                from .physics.metal_return import AgeTable
+                self._age_table = AgeTable(
+                    self.CP.hubble_function, cfg.units, self.CP.HubbleParam,
+                    device=self.device)
+        t_myr = float(self._age_table(atime))
+        if t_myr - self._uvbg_last_myr < cfg.uvbg_timestep_myr:
+            return
+        self._uvbg_last_myr = t_myr
+        self.walltime.start("UVBG")
+        # per-row escape fractions from the FOF halo masses
+        cat = self.run_fof(save=False)
+        gi = np.asarray(cat["group_index"])
+        halo_mass = np.zeros(self.pdata.capacity, np.float32)
+        ok = gi >= 0
+        halo_mass[ok] = np.asarray(cat["masses"])[gi[ok]]
+        p = self._uvbg_params
+        fesc = uvmod.escape_fractions(
+            torch.as_tensor(halo_mass, device=self.device),
+            p.escape_frac_norm, p.escape_frac_scaling,
+            cfg.units.UnitMass_in_g, self.CP.HubbleParam)
+        pd = self.pdata
+        is_star = pd.valid & (pd.ptype == 4)
+        out = uvmod.calculate_uvbg(
+            pd.ipos, pd.mass, pd.valid, self.gas_mask, is_star,
+            self.sph.sfr, fesc, p, self.CP, cfg.units, cfg.boxsize, atime)
+        j21_p = uvmod.readout_j21_max(out["j21"], pd.ipos)
+        sph = self.sph
+        newly = self.gas_mask & (j21_p > sph.local_j21) & (sph.zreion < 0)
+        self.sph = sph.replace(
+            local_j21=torch.where(self.gas_mask,
+                                  torch.maximum(sph.local_j21, j21_p),
+                                  sph.local_j21),
+            zreion=torch.where(newly, float(np.float32(z)), sph.zreion))
+        self.walltime.stop("UVBG")
+        vol = out["volume_weighted_global_xHI"]
+        mass = out["mass_weighted_global_xHI"]
+        self.uvbg_updates.append((z, vol, mass))
+        print(f"[UVBG] z={z:.2f} vol xHI={vol:.4f} mass xHI={mass:.4f}")
+
+    def _run_qso_lightup(self, dloga=0.0):
+        """Helium reionization for one PM step of dloga: the long-mean-free-
+        path heating, then QSO bubbles around the halos of a fresh FOF."""
+        from .physics import qso_lightup as qmod
+        if self._heii_hist is None:     # (check_supported: a file is set)
+            self._heii_hist = qmod.load_heii_reion_hist(
+                self.cfg.reion_hist_file)
+            self._qso_params = qmod.QSOParams(
+                min_mass=self.cfg.qso_min_mass,
+                max_mass=self.cfg.qso_max_mass,
+                mean_bubble=self.cfg.qso_mean_bubble,
+                var_bubble=self.cfg.qso_var_bubble,
+                finish_frac=self.cfg.qso_finish_frac,
+                heiii_start=self._heii_hist.zstart)
+        hist, par = self._heii_hist, self._qso_params
+        atime = self.atime
+        if 1.0 / atime - 1.0 > par.heiii_start or atime > hist.aend:
+            return
+        self.walltime.start("HeIII")
+        if dloga > 0:
+            qmod.apply_lmfp_heating(self, hist, par, dloga)
+        cat = self.run_fof(save=False)
+        nbub = qmod.do_heiii_reionization(self, cat, hist, par)
+        self.walltime.stop("HeIII")
+        self.qso_bubbles.append((atime, nbub))
 
     def _check_invariants(self):
         """State sanity checks of OutputEnergyDebug (the reference's DEBUG

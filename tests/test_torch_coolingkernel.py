@@ -8,7 +8,10 @@ early exit) the same way.  Both run the same C entry points on the same
 inputs; the redesign must equal the first design bit for bit, as
 tests/test_torch_cuda.py holds them on a card.  This checks the
 procedure: the exact exits, the lanes' slots and shuffles, the reuse of
-an evaluation.  The host's libm stands in for CUDA's, so the outputs are
+an evaluation.  The redesign's optional per-row inputs (UV rates,
+metallicity with the metal table), which the first design lacks, are
+held to the outputs without them where they reduce to them, bit for bit,
+and otherwise to the plain version.  The host's libm stands in for CUDA's, so the outputs are
 compared with each other, and with the plain version only to the
 tolerance of tests/test_torch_cooling.py.
 """
@@ -52,6 +55,7 @@ inline unsigned __float_as_uint(float x) {
 inline long long __double_as_longlong(double x) {
     long long u; std::memcpy(&u, &x, 8); return u; }
 using std::exp; using std::log; using std::pow; using std::sqrt;
+template <typename T> T __ldg(const T* p) { return *p; }
 struct LaneGroup {   // a barrier of the group's n threads, and their slots
     std::atomic<int> count{0}, gen{0};
     int n = 1;
@@ -135,16 +139,22 @@ def host_libs(tmp_path_factory):
     return libs
 
 
-def _call(lib, name, ins, outs, rows, args):
+def _call(lib, name, ins, outs, rows, args, extra=None):
+    """One entry point of a host build; extra: the redesign's optional
+    inputs (per-row UV rates, metallicity, metal table; each a tensor or
+    None), absent from the first design's entry points."""
     suffix = "f32" if ins[0].dtype == torch.float32 else "f64"
     fn = getattr(lib, f"{name}_{suffix}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (len(ins) + len(outs) + 1) \
+    ptrs = [t.data_ptr() for t in ins] + [None] * len(outs)
+    if extra is not None:
+        ptrs += [None if t is None else t.data_ptr() for t in extra]
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 1) \
         + [ctypes.c_int64] + [ctypes.c_void_p] * 3
     outs = [o.clone() for o in outs]
+    ptrs[len(ins):len(ins) + len(outs)] = [o.data_ptr() for o in outs]
     n = ins[0].shape[0] if rows is None else rows.shape[0]
-    assert fn(*[t.data_ptr() for t in ins + outs],
-              None if rows is None else rows.data_ptr(), n,
+    assert fn(*ptrs, None if rows is None else rows.data_ptr(), n,
               args[0].ctypes.data, args[1].ctypes.data, None) == 0
     return outs
 
@@ -196,7 +206,8 @@ def _both(host_libs, cr, uvbg, c, rows):
             ("heatingcooling_rate", [c["dens"], c["ucgs"], c["ne"]],
              [torch.zeros_like(c["u"]), c["ne"]],
              cool.kernel_args(cr, 3.0, uvbg))):
-        new = _call(host_libs["new"], name, ins, outs, rows, args)
+        new = _call(host_libs["new"], name, ins, outs, rows, args,
+                    (None,) * cool.N_EXTRA)
         first = _call(host_libs["first"], name, ins, outs, rows, args)
         for x, y in zip(new, first):
             assert torch.equal(_bits(x), _bits(y)), name
@@ -243,3 +254,86 @@ def test_host_build_options_match_first_design(host_libs, kind):
     uvbg = cool.UVBG(gJH0=1e-12, gJHe0=8e-13, gJHep=3e-14, epsH0=5e-24,
                      epsHe0=6e-24, epsHep=2e-25, self_shield_dens=5e-3)
     _both(host_libs, cr, uvbg, _inputs(torch.float32, 13, 41), None)
+
+
+def _metal_table():
+    """A metal cooling table from tests/test_torch_reion.py's closed form,
+    built in memory."""
+    z = np.linspace(0.0, 10.0, 6)
+    lognh = np.linspace(-6.0, 3.0, 10)
+    logt = np.linspace(2.0, 9.0, 15)
+    zz, nn, tt = np.meshgrid(z, lognh, logt, indexing="ij")
+    return cool.MetalCoolingTable(
+        z, lognh, logt,
+        1e-23 * (1 + zz) * np.exp(-(nn + 2) ** 2) * np.exp(-(tt - 5) ** 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_host_build_per_row_inputs(host_libs, dtype):
+    """The redesign's optional inputs on the host build, 25 rows: per-row
+    UV rates equal to the scalars on every row and a zero metallicity with
+    the metal table give the outputs without them bit for bit; rows whose
+    rates are gated off (local_uvbg) give the scalar call without a UV
+    background bit for bit; with a metallicity in [0, 0.02] and a third of
+    the rows gated off, both entry points match the plain version within
+    tests/test_torch_cooling.py's tolerances (u_new 2e-5; the rate 4e-6
+    plus 1e-7 of its largest value, ne/nh 1e-6; float64 1e-9), the metal
+    term lowering the net rate."""
+    p = cool.CoolingParams(MinGasTemp=100.0)
+    cr = cool.CoolingRates(p, cool.TreeCool(None, p),
+                           metal_table=_metal_table())
+    uvbg = cool.UVBG(gJH0=1e-12, gJHe0=8e-13, gJHep=3e-14, epsH0=5e-24,
+                     epsHe0=6e-24, epsHep=2e-25, self_shield_dens=5e-3)
+    n = 25
+    c = _inputs(dtype, n, 43)
+    rng = np.random.default_rng(5)
+    zmet = torch.as_tensor(rng.uniform(0, 0.02, n).astype(np.float32))
+    gated = cool.local_uvbg(uvbg, torch.as_tensor(
+        np.where(np.arange(n) % 3 == 0, 1.0, 20.0).astype(np.float32)), 3.0)
+    calls = {
+        "do_cooling": ([c["u"], c["rho"], c["dt"], c["ne"]],
+                       [c["u"], c["ne"]], 1.5, (c["min_egy"], c["cu"])),
+        "heatingcooling_rate": ([c["dens"], c["ucgs"], c["ne"]],
+                                [torch.zeros_like(c["u"]), c["ne"]], 3.0,
+                                ())}
+
+    def run(name, uv, zm, scalars=None):
+        ins, outs, z, extra = calls[name]
+        args = cool.kernel_args(cr if scalars is None else scalars, z,
+                                uv, *extra)
+        return _call(host_libs["new"], name, ins, outs, None, args,
+                     cool.kernel_extra(cr, uv, zm, ins[0]))
+
+    # the scalars on every row, in the rows' type (local_uvbg's float32
+    # rates would promote to other float64 values)
+    same = cool.UVBG(**{k: torch.full((n,), getattr(uvbg, k), dtype=dtype)
+                        for k in cool.UV_RATES},
+                     self_shield_dens=uvbg.self_shield_dens)
+    for name in calls:
+        want = run(name, uvbg, None)
+        for x, y in zip(run(name, same, torch.zeros(n)), want):
+            assert torch.equal(_bits(x), _bits(y)), name
+        off = gated.gJH0 == 0
+        dark = run(name, cool.UVBG(), None)
+        for x, y in zip(run(name, gated, None), dark):
+            assert torch.equal(_bits(x[off]), _bits(y[off])), name
+    ok = ~torch.isnan(c["u"])
+    u, ne = run("do_cooling", gated, zmet)
+    ur, _ = cool.do_cooling_reference(
+        cr, 1.5, c["u"][ok], c["rho"][ok], c["dt"][ok],
+        cool.uvbg_rows(gated, ok), c["ne"][ok], c["min_egy"], c["cu"],
+        metallicity=zmet[ok])
+    f64 = dtype == torch.float64
+    torch.testing.assert_close(u[ok], ur, rtol=1e-9 if f64 else 2e-5,
+                               atol=0)
+    lam, ne = run("heatingcooling_rate", gated, zmet)
+    lr, nr = cr.get_heatingcooling_rate(c["dens"][ok], c["ucgs"][ok], 3.0,
+                                        cool.uvbg_rows(gated, ok),
+                                        c["ne"][ok], metallicity=zmet[ok])
+    scale = float(lr.abs().max())
+    torch.testing.assert_close(lam[ok], lr, rtol=1e-9 if f64 else 4e-6,
+                               atol=(1e-12 if f64 else 1e-7) * scale)
+    torch.testing.assert_close(ne[ok], nr, rtol=1e-9 if f64 else 0,
+                               atol=1e-12 if f64 else 1e-6)
+    lam0, _ = run("heatingcooling_rate", gated, torch.zeros(n))
+    assert (lam[ok] < lam0[ok]).sum() > 5

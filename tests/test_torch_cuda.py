@@ -1120,3 +1120,134 @@ def test_cooling_kernel_options_match_first_design(cuda, kind):
     c = _cooling_case(cuda, torch.float32, n=121, seed=31)
     _against_first_design(cr, _uvbg(True), c,
                           torch.arange(0, 121, 2, device=cuda))
+
+
+def _metal_rates():
+    """_cooling_rates' network with a metal cooling table from
+    tests/test_torch_reion.py's closed form."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    z = np.linspace(0.0, 10.0, 6)
+    lognh = np.linspace(-6.0, 3.0, 10)
+    logt = np.linspace(2.0, 9.0, 15)
+    zz, nn, tt = np.meshgrid(z, lognh, logt, indexing="ij")
+    p = cool.CoolingParams(MinGasTemp=100.0)
+    return cool.CoolingRates(p, cool.TreeCool(None, p), cool.MetalCoolingTable(
+        z, lognh, logt,
+        1e-23 * (1 + zz) * np.exp(-(nn + 2) ** 2) * np.exp(-(tt - 5) ** 2)))
+
+
+def _per_row(device, n, which, seed=41):
+    """The per-row inputs of K6's cases: UV rates gated off on a third of
+    the rows (local_uvbg) when "uv" in which, else the scalars; a
+    metallicity in [0, 0.02] when "metals" in which, else None."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    rng = np.random.default_rng(seed)
+    uvbg = _uvbg(True)
+    if "uv" in which:
+        zre = np.where(np.arange(n) % 3 == 0, 1.0, 20.0).astype(np.float32)
+        uvbg = cool.local_uvbg(uvbg, torch.as_tensor(zre, device=device),
+                               3.0)
+    zmet = torch.as_tensor(rng.uniform(0, 0.02, n).astype(np.float32),
+                           device=device) if "metals" in which else None
+    return uvbg, zmet
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["uv", "metals", "uv+metals"])
+@pytest.mark.parametrize("rows", [False, True])
+def test_cooling_kernel_per_row_inputs_match_plain(cuda, dtype, which, rows):
+    """K6 with per-row UV rates, with the metallicity and the metal table,
+    and with both, against its plain version on the card: do_cooling's
+    u_new and ne/nh and the rate's ne/nh and net rate to the tolerances of
+    test_cooling_kernel_matches_plain and test_heatingcooling_kernel_
+    matches_plain, all rows or a listed third, unlisted rows untouched,
+    two launches bit-identical."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr = _metal_rates()
+    c = _cooling_case(cuda, dtype, n=512, seed=43)
+    uvbg, zmet = _per_row(cuda, 512, which)
+    idx = torch.arange(0, 512, 3, device=cuda) if rows else None
+    sel = idx if rows else slice(None)
+    args = (cr, 1.5, c["u"], c["rho"], c["dt"], uvbg, c["ne"], c["min_egy"],
+            c["cu"])
+    u1, n1 = cool.do_cooling(*args, rows=idx, metallicity=zmet)
+    u2, n2 = cool.do_cooling(*args, rows=idx, metallicity=zmet)
+    assert torch.equal(u1, u2) and torch.equal(n1, n2)
+    ur, nr = cool.do_cooling_reference(
+        cr, 1.5, c["u"][sel], c["rho"][sel], c["dt"][sel],
+        cool.uvbg_rows(uvbg, sel), c["ne"][sel], c["min_egy"], c["cu"],
+        metallicity=None if zmet is None else zmet[sel])
+    tol = (2e-5, 2e-3, 2e-6) if dtype == torch.float32 else (1e-9, 1e-9, 0)
+    torch.testing.assert_close(u1[sel], ur, rtol=tol[0], atol=0)
+    torch.testing.assert_close(n1[sel], nr, rtol=tol[1], atol=tol[2])
+    if rows:
+        rest = torch.ones(512, dtype=torch.bool, device=cuda)
+        rest[idx] = False
+        assert torch.equal(u1[rest], c["u"][rest])
+        assert torch.equal(n1[rest], c["ne"][rest])
+    l1, e1 = cool.heatingcooling_rate(cr, c["dens"], c["ucgs"], 3.0, uvbg,
+                                      c["ne"], rows=idx, metallicity=zmet)
+    lr, er = cr.get_heatingcooling_rate(
+        c["dens"][sel], c["ucgs"][sel], 3.0, cool.uvbg_rows(uvbg, sel),
+        c["ne"][sel], metallicity=None if zmet is None else zmet[sel])
+    scale = float(lr.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(e1[sel], er, rtol=0, atol=1e-6)
+        torch.testing.assert_close(l1[sel], lr, rtol=4e-6, atol=1e-7 * scale)
+    else:
+        torch.testing.assert_close(e1[sel], er, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(l1[sel], lr, rtol=1e-9,
+                                   atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cooling_kernel_tables_off_are_todays(cuda, dtype):
+    """K6's per-row inputs set to what they replace give its outputs
+    without them bit for bit: per-row UV rates equal to the scalars on
+    every row, and a zero metallicity with the metal table; and without
+    them K6 equals its first design bit for bit (chip_smoke.simple_cooling),
+    do_cooling and the rate."""
+    import chip_smoke
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr = _metal_rates()
+    c = _cooling_case(cuda, dtype, n=509, seed=47)
+    uvbg = _uvbg(True)
+    same = cool.UVBG(**{k: torch.full((509,), getattr(uvbg, k), dtype=dtype,
+                                      device=cuda) for k in cool.UV_RATES},
+                     self_shield_dens=uvbg.self_shield_dens)
+    zero = torch.zeros(509, device=cuda)
+
+    def calls(uv, z):
+        return (cool.do_cooling(cr, 1.5, c["u"], c["rho"], c["dt"], uv,
+                                c["ne"], c["min_egy"], c["cu"],
+                                metallicity=z)
+                + cool.heatingcooling_rate(cr, c["dens"], c["ucgs"], 3.0, uv,
+                                           c["ne"], metallicity=z))
+
+    off = calls(uvbg, None)
+    for got in (calls(same, zero), chip_smoke.simple_cooling(
+            lambda: calls(uvbg, None))):
+        for x, y in zip(got, off):
+            assert chip_smoke.same_bits(x, y)
+
+
+def test_cooling_kernel_refuses_bad_per_row_inputs(cuda):
+    """The wrapper's checks of K6's per-row inputs: UV rates of another
+    shape or type, a metallicity without the table, a table of another
+    shape than its dims, inputs on another device."""
+    from mpgadget_tpu_torch.physics import cooling as cool
+    cr = _metal_rates()
+    c = _cooling_case(cuda, torch.float32, n=64)
+    args = cool.kernel_args(cr, 1.5, _uvbg(True), c["min_egy"], c["cu"])
+    ins = [c["u"], c["rho"], c["dt"], c["ne"]]
+    outs = [c["u"].clone(), c["ne"].clone()]
+    uv = torch.zeros(64, 6, device=cuda)
+    met = torch.zeros(64, device=cuda)
+    tab = cr.metal_table.on(cuda)
+    for extra, err in (((uv[:, :5], None, None), ValueError),
+                       ((uv.double(), None, None), ValueError),
+                       ((None, met, None), ValueError),
+                       ((None, met, tab[:, :, :3].contiguous()), ValueError),
+                       ((uv.cpu(), None, None), ValueError)):
+        with pytest.raises(err):
+            cool._launch("do_cooling", 64, None, args, ins, outs, extra)

@@ -12,10 +12,20 @@ two global KDK steps, the state recorded after setup_gas and the first
 compute_hydro, then one hierarchical PM step
 (SplitGravityTimestepsOn switched on).  The port runs its plain versions
 on the CPU; tests/test_torch_cuda.py holds K4 and K5 to them on a card.
+
+The JAX package's run is committed as ``torch_gas/jax_run.npz`` (with its
+final SPH state), which the port's run from the same IC (the port's
+genic, made again by the fixture) is held to; ``test_jax_run_matches_
+its_record`` (slow) runs the JAX package and holds it to the record, and
+with MPG_WRITE_GAS_FIXTURE=1 writes the record anew:
+
+    MPG_WRITE_GAS_FIXTURE=1 python -m pytest -m slow \
+        tests/test_torch_gas_run.py
 """
 
 import os
 from dataclasses import fields
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +45,7 @@ from mpgadget_tpu_torch.sph.state import SphData
 # share the machine's cores
 torch.set_num_threads(1)
 
+RECORD = Path(__file__).resolve().parent / "torch_gas" / "jax_run.npz"
 NG = 8
 TOL = 1e-5          # relative, by norm
 GENIC = """
@@ -118,34 +129,85 @@ def _params(create, ic, out, **override):
     return ps
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("torch_gas_run")
+def make_ic(tmp):
+    """The IC: the port's genic at Ngrid 8 (GENIC)."""
     gps = create_genic_parameter_set()
     gps.parse_string(GENIC.format(out=tmp / "ics", ng=NG))
     gps.validate()
-    ic = run_genic(gps, device="cpu")
-    out = {}
-    for name, build, create, kw in (
-            ("jax", jax_build, jax_params, {}),
-            ("torch", build_simulation, create_gadget_parameter_set,
-             {"device": "cpu"})):
-        sim, _ = build(_params(create, ic, tmp / name), **kw)
-        states = {}
-        _record_first_hydro(sim, states)
-        assert sim.run(max_steps=2, verbose=False) == 2
-        states["global"] = _state(sim)
-        if name == "torch":
-            states["snapshot"] = sim.write_snapshot()
-            states["at_snapshot"] = _state(sim)
-        sim.cfg.split_gravity_timesteps = True
-        assert sim.run(max_steps=1, verbose=False) == 1
-        states["hier"] = _state(sim)
+    return run_genic(gps, device="cpu")
+
+
+def run_package(name, ic, tmp):
+    """The run by the JAX package or the port (CPU): the states after the
+    first compute_hydro, the two global steps and the hierarchical step;
+    the port's also its snapshot and simulation, the JAX package's its
+    final SPH state (every SphData field)."""
+    build, create, kw = {
+        "jax": (jax_build, jax_params, {}),
+        "torch": (build_simulation, create_gadget_parameter_set,
+                  {"device": "cpu"})}[name]
+    sim, _ = build(_params(create, ic, tmp / name), **kw)
+    states = {}
+    _record_first_hydro(sim, states)
+    assert sim.run(max_steps=2, verbose=False) == 2
+    states["global"] = _state(sim)
+    if name == "torch":
+        states["snapshot"] = sim.write_snapshot()
+        states["at_snapshot"] = _state(sim)
+    sim.cfg.split_gravity_timesteps = True
+    assert sim.run(max_steps=1, verbose=False) == 1
+    states["hier"] = _state(sim)
+    if name == "torch":
         states["sim"] = sim
-        out[name] = states
-    out["ic"] = ic
-    out["tmp"] = tmp
+    else:
+        states["sph"] = {f.name: np.asarray(getattr(sim.sph, f.name))
+                         for f in fields(SphData)}
+    return states
+
+
+def write_record(run):
+    RECORD.parent.mkdir(exist_ok=True)
+    np.savez_compressed(RECORD, **{f"{part}/{k}": np.asarray(v)
+                                   for part, st in run.items()
+                                   for k, v in st.items()})
+
+
+def read_record():
+    out = {}
+    with np.load(RECORD) as z:
+        for key in z.files:
+            part, name = key.split("/", 1)
+            v = z[key]
+            out.setdefault(part, {})[name] = v.item() if name == "ti" else v
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_gas_run")
+    ic = make_ic(tmp)
+    return {"ic": ic, "tmp": tmp, "jax": read_record(),
+            "torch": run_package("torch", ic, tmp)}
+
+
+@pytest.mark.slow
+def test_jax_run_matches_its_record(tmp_path):
+    """The JAX package's run from the IC against its committed record:
+    every array within 1e-6 by norm.  With MPG_WRITE_GAS_FIXTURE=1 it
+    writes the record anew."""
+    run = run_package("jax", make_ic(tmp_path), tmp_path)
+    if os.environ.get("MPG_WRITE_GAS_FIXTURE"):
+        write_record(run)
+    rec = read_record()
+    assert set(rec) == set(run)
+    for part in run:
+        a, b = rec[part], run[part]
+        assert set(a) == set(b), part
+        for k in a:
+            x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+            assert x.shape == y.shape, (part, k)
+            err = np.linalg.norm(y - x) / max(np.linalg.norm(x), 1e-300)
+            assert err <= 1e-6, (part, k, err)
 
 
 def _compare(a, b, ticks):
@@ -176,11 +238,8 @@ def test_sph_state_carries_from_jax(runs):
     port's: the same fields, shapes and types, and equal values where
     the non-radiative path keeps the initial ones (ne, metals, zreion,
     ...)."""
-    jsph = runs["jax"]["sim"].sph
     tsph = runs["torch"]["sim"].sph
-    carried = SphData.from_jax_numpy(
-        {f.name: np.asarray(getattr(jsph, f.name)) for f in fields(SphData)},
-        device="cpu")
+    carried = SphData.from_jax_numpy(runs["jax"]["sph"], device="cpu")
     for f in fields(SphData):
         a, b = getattr(carried, f.name), getattr(tsph, f.name)
         assert a.dtype == b.dtype and a.shape == b.shape, f.name

@@ -191,9 +191,9 @@ def sf_runs(setup):
                 return jcool.do_cooling(jcr, 1.5, u, rho, dt, juv, ne, Z,
                                         1e-4, jcu)
 
-            def tcool_fn(u, rho, dt, ne, rows):
+            def tcool_fn(u, rho, dt, ne, rows, Z):
                 return tcool.do_cooling(tcr, 1.5, u, rho, dt, tuv, ne, 1e-4,
-                                        tcu, rows=rows)
+                                        tcu, rows=rows, metallicity=Z)
 
             j = jsfr.cooling_and_starformation(
                 jp, jcr, jcu, jax.random.PRNGKey(seed), **jkw,

@@ -212,8 +212,10 @@ def test_bad_timestep_error_survives_a_failed_emergency_snapshot(
 # BlackHoleOn since black holes were
 CARRIED = ("MassiveNuLinRespOn", "LightconeOn", "PlaneOutputList",
            "OutputEnergyDebug", "HybridNeutrinosOn", "BlackHoleOn")
-# gas switches the port carries since winds and metal return were ported
-GAS_CARRIED = ("WindOn", "MetalReturnOn")
+# gas switches the port carries since winds and metal return were ported,
+# and the reionization switches and cooling tables since they were
+GAS_CARRIED = ("WindOn", "MetalReturnOn", "ExcursionSetReionOn",
+               "QSOLightupOn", "MetalCoolFile", "UVFluctuationFile")
 
 
 @pytest.mark.parametrize("name,value", [
@@ -224,12 +226,13 @@ GAS_CARRIED = ("WindOn", "MetalReturnOn")
     ("QSOLightupOn", 1), ("MetalCoolFile", "cooling_metal_UVB"),
     ("UVFluctuationFile", "uvfluc.txt")])
 def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
-    """A switch the port does not carry raises NotImplementedError naming
-    it: the gas switches with gas, the cooling tables with cooling gas
-    (check_supported of a gas box with CoolingOn; the slice's IC holds no
-    gas).  The five dark-matter switches and BlackHoleOn, which the port
-    carries, build a Simulation on the CPU; WindOn and MetalReturnOn, which
-    it carries too, pass check_supported with cooling gas."""
+    """Every switch of the single-device JAX package is carried: the five
+    dark-matter switches and BlackHoleOn build a Simulation on the CPU;
+    the gas switches and the cooling tables (WindOn, MetalReturnOn, the
+    excursion set, QSO lightup with its ReionHistFile, the metal cooling
+    and UV fluctuation tables) pass check_supported with cooling gas (the
+    slice's IC holds no gas).  QSOLightupOn without its ReionHistFile is
+    refused, naming it."""
     ps = _params(create_gadget_parameter_set, ic_path, tmp_path,
                  **{name: value})
     if name in CARRIED:
@@ -244,11 +247,13 @@ def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
              "MetalCoolFile": "metal_cool_file",
              "UVFluctuationFile": "uv_fluctuation_file"}[name]
     cfg = SimConfig(**{**cfg.__dict__, field: value})
-    if name in GAS_CARRIED:
-        check_supported(cfg, has_gas=True)
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        check_supported(cfg, has_gas=True)
+    assert name in GAS_CARRIED
+    if name == "QSOLightupOn":
+        with pytest.raises(ValueError, match="QSOLightupOn needs "
+                           "ReionHistFile"):
+            check_supported(cfg, has_gas=True)
+        cfg = SimConfig(**{**cfg.__dict__, "reion_hist_file": "heii.txt"})
+    check_supported(cfg, has_gas=True)
 
 
 @pytest.mark.parametrize("name,field", [
@@ -256,17 +261,19 @@ def test_unsupported_switch_raises(ic_path, tmp_path, name, value):
     ("QSOLightupOn", "qso_lightup_on"),
     ("WindOn", "wind_on"), ("MetalReturnOn", "metal_return_on")])
 def test_gas_switches_raise_only_with_gas(name, field):
-    """The gas switches the port does not carry raise only with gas; WindOn
-    and MetalReturnOn, which it carries, pass with and without gas."""
+    """The gas switches, all carried, pass with and without gas (QSOLightupOn
+    with gas given its ReionHistFile: without it, it is refused with gas
+    only)."""
     cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
                     units=None, hydro_on=False, split_gravity_timesteps=False)
     cfg = SimConfig(**{**cfg.__dict__, field: True})
     check_supported(cfg, has_gas=False)
-    if name in GAS_CARRIED:
-        check_supported(cfg, has_gas=True)
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        check_supported(cfg, has_gas=True)
+    assert name in GAS_CARRIED
+    if name == "QSOLightupOn":
+        with pytest.raises(ValueError, match="ReionHistFile"):
+            check_supported(cfg, has_gas=True)
+        cfg = SimConfig(**{**cfg.__dict__, "reion_hist_file": "heii.txt"})
+    check_supported(cfg, has_gas=True)
 
 
 def test_restart_flag_99_raises(monkeypatch):
@@ -292,6 +299,8 @@ def test_port_imports_no_jax():
             "mpgadget_tpu_torch.physics.blackhole, "
             "mpgadget_tpu_torch.physics.metal_return, "
             "mpgadget_tpu_torch.physics.yield_tables; "
+            "import mpgadget_tpu_torch.physics.uvbg, "
+            "mpgadget_tpu_torch.physics.qso_lightup; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mpgadget_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")

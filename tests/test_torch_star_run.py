@@ -31,9 +31,22 @@ error (1.1e-4 against 1.8e-6 for every other particle, 237 ticks after
 the hierarchical step).  The tree itself is not the cause: on the JAX
 run's own state the port's tree force equals the JAX package's
 (test_tree_force_on_the_jax_state).
+
+The JAX package's three runs are committed as ``torch_star/jax_runs.npz``
+(with the spawn run's final particle and star state and its tree force on
+that state): they cost the suite ~100 s of JAX compiling and running.  In
+the suite the port runs from the IC (the port's genic, made again by the
+fixture) and is held to the record; ``test_jax_runs_match_their_record``
+(slow) runs the JAX package and holds it to the record, and with
+MPG_WRITE_STAR_FIXTURE=1 writes the record anew:
+
+    MPG_WRITE_STAR_FIXTURE=1 python -m pytest -m slow \
+        tests/test_torch_star_run.py
 """
 
+import os
 from dataclasses import fields
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,9 +61,12 @@ from mpgadget_tpu_torch.main import build_simulation
 from mpgadget_tpu_torch.params import (create_gadget_parameter_set,
                                        create_genic_parameter_set)
 from mpgadget_tpu_torch.physics.stars import StarData
+from mpgadget_tpu_torch.particles import ParticleData
 from mpgadget_tpu_torch.run import SimConfig, check_supported
 
 torch.set_num_threads(1)
+
+RECORD = Path(__file__).resolve().parent / "torch_star" / "jax_runs.npz"
 
 NG = 8
 TOL = 2e-5          # relative, by norm
@@ -138,35 +154,125 @@ def _params(create, ic, out, **override):
     return ps
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("torch_star_run")
+def make_ic(tmp):
+    """The IC: the port's genic at Ngrid 8 (GENIC)."""
     gps = create_genic_parameter_set()
     gps.parse_string(GENIC.format(out=tmp / "ics", ng=NG))
     gps.validate()
-    ic = run_genic(gps, device="cpu")
-    out = {"ic": ic, "tmp": tmp}
+    return run_genic(gps, device="cpu")
+
+
+def run_package(name, ic, tmp):
+    """Each configuration's two global steps and hierarchical PM step by
+    the JAX package or the port (CPU): {config: states}.  The JAX spawn
+    run also keeps its final particle and star state and its tree force
+    on that state (test_tree_force_on_the_jax_state,
+    test_star_data_carries_from_jax)."""
+    build, create, kw = {
+        "jax": (jax_build, jax_params, {}),
+        "torch": (build_simulation, create_gadget_parameter_set,
+                  {"device": "cpu"})}[name]
+    out = {}
     for config, over in CONFIGS.items():
-        for name, build, create, kw in (
-                ("jax", jax_build, jax_params, {}),
-                ("torch", build_simulation, create_gadget_parameter_set,
-                 {"device": "cpu"})):
-            odir = tmp / f"{config}_{name}"
-            sim, _ = build(_params(create, ic, odir, **over), **kw)
-            states = {}
-            assert sim.run(max_steps=2, verbose=False) == 2
-            states["global"] = _state(sim)
-            if name == "torch":
-                states["snapshot"] = sim.write_snapshot()
-            sim.cfg.split_gravity_timesteps = True
-            assert sim.run(max_steps=1, verbose=False) == 1
-            states["hier"] = _state(sim)
-            if config in STAR_CONFIGS:
-                with open(odir / "sfr.txt") as fh:
-                    states["sfr_txt"] = [ln.split() for ln in fh]
+        odir = tmp / f"{config}_{name}"
+        sim, _ = build(_params(create, ic, odir, **over), **kw)
+        states = {}
+        assert sim.run(max_steps=2, verbose=False) == 2
+        states["global"] = _state(sim)
+        if name == "torch":
+            states["snapshot"] = sim.write_snapshot()
+        sim.cfg.split_gravity_timesteps = True
+        assert sim.run(max_steps=1, verbose=False) == 1
+        states["hier"] = _state(sim)
+        if config in STAR_CONFIGS:
+            with open(odir / "sfr.txt") as fh:
+                states["sfr_txt"] = [ln.split() for ln in fh]
+        if name == "torch":
             states["sim"] = sim
+        elif config == "spawn":
+            states["pdata"] = {f.name: _np(getattr(sim.pdata, f.name))
+                               for f in fields(ParticleData)}
+            states["stars"] = {f.name: _np(getattr(sim.stars, f.name))
+                               for f in fields(StarData)}
+            states["use_bh_now"] = np.array(bool(sim._tree_grav._use_bh_now))
+            states["tree_accel"] = _np(sim._tree_grav.compute(sim.pdata))
+        out[config] = states
+    return out
+
+
+def write_record(run):
+    """The JAX runs' record: every array by configuration and part, the
+    sfr.txt lines as strings."""
+    arrays = {}
+    for config, states in run.items():
+        for part, v in states.items():
+            if part == "sfr_txt":
+                arrays[f"{config}/sfr_txt"] = np.array(
+                    [" ".join(ln) for ln in v])
+            elif isinstance(v, dict):
+                arrays.update({f"{config}/{part}/{k}": np.asarray(x)
+                               for k, x in v.items()})
+            else:
+                arrays[f"{config}/{part}"] = np.asarray(v)
+    RECORD.parent.mkdir(exist_ok=True)
+    np.savez_compressed(RECORD, **arrays)
+
+
+def read_record():
+    out = {}
+    with np.load(RECORD) as z:
+        for key in z.files:
+            config, part, *name = key.split("/")
+            st = out.setdefault(config, {})
+            v = z[key]
+            if part == "sfr_txt":
+                st[part] = [ln.split() for ln in v.tolist()]
+            elif name:
+                st.setdefault(part, {})[name[0]] = \
+                    v.item() if name[0] == "ti" else v
+            else:
+                st[part] = v
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_star_run")
+    ic = make_ic(tmp)
+    out = {"ic": ic, "tmp": tmp}
+    for name, run in (("jax", read_record()),
+                      ("torch", run_package("torch", ic, tmp))):
+        for config, states in run.items():
             out[config, name] = states
     return out
+
+
+@pytest.mark.slow
+def test_jax_runs_match_their_record(tmp_path):
+    """The JAX package's three runs from the IC against their committed
+    record: every array within 1e-6 by norm, the same sfr.txt lines.  With
+    MPG_WRITE_STAR_FIXTURE=1 it writes the record anew."""
+    run = run_package("jax", make_ic(tmp_path), tmp_path)
+    if os.environ.get("MPG_WRITE_STAR_FIXTURE"):
+        write_record(run)
+    rec = read_record()
+    assert set(rec) == set(run)
+    for config in run:
+        a, b = rec[config], run[config]
+        assert set(a) == set(b), config
+        assert a.get("sfr_txt") == b.get("sfr_txt")
+        for part in a:
+            if part == "sfr_txt":
+                continue
+            pa, pb = (a[part], b[part]) if isinstance(a[part], dict) \
+                else ({part: a[part]}, {part: b[part]})
+            assert set(pa) == set(pb), (config, part)
+            for k in pa:
+                x = np.asarray(pa[k], np.float64)
+                y = np.asarray(pb[k], np.float64)
+                assert x.shape == y.shape, (config, part, k)
+                err = np.linalg.norm(y - x) / max(np.linalg.norm(x), 1e-300)
+                assert err <= 1e-6, (config, part, k, err)
 
 
 def _compare(a, b, ticks):
@@ -273,17 +379,14 @@ def test_tree_force_on_the_jax_state(runs):
     """Both packages' short-range tree force on the JAX run's final state
     (spawned stars beside their parents included): within 1e-6 of the
     largest |accel|."""
-    from mpgadget_tpu_torch.particles import ParticleData
-    jsim = runs["spawn", "jax"]["sim"]
+    jrun = runs["spawn", "jax"]
     tsim = runs["spawn", "torch"]["sim"]
-    pdata = ParticleData.from_jax_numpy(
-        {f.name: np.asarray(getattr(jsim.pdata, f.name))
-         for f in fields(ParticleData)}, device="cpu")
-    tsim._tree_grav._use_bh_now = bool(jsim._tree_grav._use_bh_now)
-    want = np.asarray(jsim._tree_grav.compute(jsim.pdata))
+    pdata = ParticleData.from_jax_numpy(jrun["pdata"], device="cpu")
+    tsim._tree_grav._use_bh_now = bool(jrun["use_bh_now"])
+    want = jrun["tree_accel"]
     got = tsim._tree_grav.compute(pdata).numpy()
-    valid = np.asarray(jsim.pdata.valid)
-    assert (np.asarray(jsim.pdata.pid)[valid] >= 2 ** 40).any()
+    valid = jrun["pdata"]["valid"]
+    assert (jrun["pdata"]["pid"][valid] >= 2 ** 40).any()
     np.testing.assert_allclose(got[valid], want[valid], rtol=0,
                                atol=1e-6 * np.abs(want[valid]).max())
 
@@ -291,11 +394,9 @@ def test_tree_force_on_the_jax_state(runs):
 def test_star_data_carries_from_jax(runs):
     """StarData.from_jax_numpy carries the JAX run's star state into the
     port's: the same fields, shapes and values on the star rows to 2e-5."""
-    jst = runs["spawn", "jax"]["sim"].stars
     tst = runs["spawn", "torch"]["sim"].stars
-    carried = StarData.from_jax_numpy(
-        {f.name: np.asarray(getattr(jst, f.name)) for f in fields(StarData)},
-        device="cpu")
+    carried = StarData.from_jax_numpy(runs["spawn", "jax"]["stars"],
+                                      device="cpu")
     rows = runs["spawn", "torch"]["hier"]["ptype"] == 4
     for f in fields(StarData):
         a, b = getattr(carried, f.name), getattr(tst, f.name)
@@ -310,17 +411,12 @@ def test_star_data_carries_from_jax(runs):
     ("MetalCoolFile", "metal_cool_file", "cooling.bf"),
     ("UVFluctuationFile", "uv_fluctuation_file", "uvf.bf")])
 def test_check_supported_names_refused_switches(name, field, value):
-    """With gas, cooling and star formation, the switches the port does not
-    carry raise NotImplementedError naming the parameter and what the port
-    carries; WindOn, BlackHoleOn and MetalReturnOn, carried since winds,
-    black holes and metal return were ported, pass."""
+    """With gas, cooling and star formation every switch passes: WindOn,
+    BlackHoleOn and MetalReturnOn since winds, black holes and metal return
+    were ported, the metal cooling and UV fluctuation tables since the
+    cooling tables were (tests/test_torch_reion.py reads them)."""
     cfg = SimConfig(boxsize=1.0, nmesh=8, output_dir="", timeline=None,
                     units=None, cooling_on=True, starformation_on=True)
     check_supported(cfg, has_gas=True)
     cfg = SimConfig(**{**cfg.__dict__, field: value})
-    if name in ("WindOn", "BlackHoleOn", "MetalReturnOn"):
-        check_supported(cfg, has_gas=True)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"{name} .*cooling and star formation"):
-        check_supported(cfg, has_gas=True)
+    check_supported(cfg, has_gas=True)
