@@ -99,8 +99,9 @@ fails the run (non-zero exit, no result line) if it fails:
    phase 9 (Ngrid 32: 32^3 gas + 32^3 DM, BoxSize 5000 kpc/h, z=9), then
    its paramfile.gadget as it ships (hierarchical, SnapshotWithFOF,
    DensityIndependentSphOn, Nmesh 64) but for CoolingOn, StarformationOn,
-   BlackHoleOn, WindOn and MetalReturnOn, all 0 (GAS_SWITCHES_OFF) ->
-   Simulation.run() to a = 0.2 -> write_snapshot, the five kernels'
+   BlackHoleOn, WindOn and MetalReturnOn, all 0 (GAS_SWITCHES_OFF), and
+   TimeMax 0.15 (GAS_TIME_MAX, the depth cut that pays for phase 27; it
+   ships with 0.2) -> Simulation.run() -> write_snapshot, the five kernels'
    launch counts reset just before and read just after: every density
    solve's targets within DesNumNgb +- MaxNumNgbDeviation (or the count
    that hit max_iter, and a failure), every hydro call's momentum
@@ -127,7 +128,9 @@ fails the run (non-zero exit, no result line) if it fails:
    (hierarchical, cooling, star formation with QuickLymanAlphaProbability
    1, DensityIndependentSphOn 0, cubic, Nmesh 64) but for TreeCoolFile
    "" (LYA_SWITCHES: the absent TREECOOL_ep_2018p, the reference's
-   no-UV-background case) -> Simulation.run() to TimeMax 0.33333 ->
+   no-UV-background case) and TimeMax 0.2 (LYA_TIME_MAX, the depth cut
+   that pays for phase 27: it ships with 0.33333; the output at 0.2
+   stays) -> Simulation.run() ->
    write_snapshot, the six kernels' launch counts reset just before and
    read just after: stars formed, no particle lost, the gas state finite
    and above the entropy floor, each snapshot's star count, stellar mass
@@ -205,22 +208,36 @@ fails the run (non-zero exit, no result line) if it fails:
    the total mass kept, the snapshots and PIGs read back;
 26. reionization on star-small: phase 23's snapshot at a = 0.15 resumed
    through the CLI's body (RestartFlag 2, hierarchical as shipped) to a =
-   0.185 (REION_TIME_MAX, the depth cut) with the metal table, a z_reion
+   0.17 (REION_TIME_MAX, the depth cut) with the metal table, a z_reion
    grid (UVFluctuationFile), the excursion set (epoch z 6 to 5) and QSO
    lightup on, each reading a
    stand-in the smoke writes (write_reion_inputs: a TreeCool table, the
-   metal table, a z_reion grid at Nmesh 8 with a late patch at z_re 4.5,
+   metal table, a z_reion grid at Nmesh 8 with a late patch at z_re 5,
    a HeII history from z 5.6 to 4), QSOMinMass/QSOMaxMass bracketing the
    PIG's largest halo and 1000 kpc/h bubbles (cuts, printed): the UVBG
    updates and their xHI, gas rows with J21 > 0 and zreion set, the late
-   patch's rows without UV rates between the epoch's end and z = 4.5 and
+   patch's rows without UV rates between the epoch's end (z 5.2) and z = 5
+   and
    with them after, HeIII-ionized rows each inside a placed bubble, gas
    with metallicity > 0, the mass against the snapshot's, J21,
    ZReionized and HeIIIIonized read back from the last snapshot, the
    "UVBG" and "HeIII" seconds; then K6 with its per-row inputs on that
    run's last cooling call (per-row UV rates, metallicity, the metal
    table) against its plain version, and with them off bit for bit its
-   first design, both timed (reion_cooling_case).
+   first design, both timed (reion_cooling_case);
+27. the sharded driver: examples/dm-small/paramfile.gadget as it ships
+   (64^3, Nmesh 128, hierarchical, to a = 0.25, snapshots and PIGs at
+   0.15, 0.2 and 0.25) from phase 9's IC through Simulation.run_sharded,
+   started by python -m torch.distributed.run with this script as each
+   rank (--sharded-rank), twice: (a) one NCCL rank with MPG_SHARDED=1 and
+   (b) two gloo ranks sharing the card (MPG_DIST_BACKEND=gloo), each
+   under a time limit of its own: every rank on the card with K1, K2 and
+   K3 launched by the sharded steps and FOF; every ID once in each
+   snapshot, the total mass the IC's, the PIGs (pig_check), and the last
+   snapshot's P(k) against phase 10's on the bins below k_Nyquist/4
+   (SHARDED_PK_RTOL); per configuration the PM steps, substeps, seconds
+   of steps, collective seconds and bytes per PM step and rank 0's
+   walltime by layer.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -1397,6 +1414,236 @@ def hier_phase(workdir, device="cuda", max_steps=HIER_STEPS, nmesh=None):
                 snapnum=int(os.path.basename(snap).split("_")[-1]))
 
 
+SHARDED_CONFIGS = (
+    # (name, ranks, environment): one NCCL rank forced onto the sharded
+    # driver, and two gloo ranks on the one card (the only way one card
+    # runs exchanges and ghost strips that are not empty)
+    ("nccl_1rank", 1, {"MPG_SHARDED": "1"}),
+    ("gloo_2ranks", 2, {"MPG_DIST_BACKEND": "gloo"}),
+)
+SHARDED_TIMEOUT = 300     # seconds for each configuration's ranks
+SHARDED_PK_RTOL = 3e-3    # the last snapshot's P(k) against phase 10's, on
+                          # the bins below k_Nyquist/4; measured 3.2e-4 in
+                          # both configurations (the sharded run keeps the
+                          # box unshifted, as the JAX package's sharded
+                          # run does, while phase 10 shifts it every PM
+                          # step: their force errors differ)
+MASS_RTOL = 1e-6
+
+
+def sharded_rank(argv):
+    """One rank of phase 27, started by torch.distributed.run: argv =
+    [paramfile, json prefix, device ("cuda"; "cpu" for a rehearsal)].  Joins the process group
+    (main.init_distributed), builds the simulation on its card, takes the
+    first forces, sets every kernel's count to 0, runs the sharded driver
+    with its collectives and layers timed, and writes <prefix>_r<rank>.json."""
+    sys.path.insert(0, HERE)
+    import torch
+    from mpgadget_tpu_torch.gravity import pairkernel as pk
+    from mpgadget_tpu_torch.gravity import treewalk as tw
+    from mpgadget_tpu_torch.main import (build_simulation, init_distributed,
+                                         device_mesh_or_none)
+    from mpgadget_tpu_torch.ops import pairs
+    from mpgadget_tpu_torch.parallel import collectives as coll
+    from mpgadget_tpu_torch.physics import cooling
+    from mpgadget_tpu_torch.sph import density, hydra
+    mods = {"pair": pk, "walk": tw, "neighbors": pairs, "density": density,
+            "hydro": hydra, "cooling": cooling}
+    paramfile, prefix, device = argv
+    dev = init_distributed(device)
+    check(dev.type == device, f"rank device {dev}")
+    try:
+        sim, _ = build_simulation(paramfile, device=dev)
+        mesh = device_mesh_or_none(dev)
+        check(mesh is not None, "the sharded driver was not selected")
+        check(sim.pdata.ipos.device.type == device,
+              f"the state is on {sim.pdata.ipos.device}")
+        sim.compute_forces(measure_power=False)
+        coll.TIMED = True
+        coll.reset_stats()
+        for m in mods.values():
+            m.LAUNCHES = 0
+        sync = torch.cuda.synchronize if device == "cuda" else \
+            (lambda d: None)
+        sync(dev)
+        t0 = time.perf_counter()
+        nsteps = sim.run_sharded(mesh, hierarchical=bool(
+            sim.cfg.split_gravity_timesteps and sim.cfg.tree_grav_on),
+            layer_sync=True)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        res = dict(rank=mesh.rank, size=mesh.size, backend=mesh.backend,
+                   device=str(dev), nsteps=nsteps, atime=sim.atime,
+                   seconds=seconds,
+                   launches={k: m.LAUNCHES for k, m in mods.items()},
+                   log=sim.sharded_log, fofs=sim.sharded_fofs,
+                   walltime=dict(sim.walltime.totals),
+                   collectives=dict(coll.STATS),
+                   state_on=str(sim.pdata.ipos.device))
+        with open(f"{prefix}_r{mesh.rank}.json", "w") as fh:
+            json.dump(res, fh)
+    finally:
+        coll.destroy_process_group()
+    return 0
+
+
+def snapshot_power(path, device, nmesh=NMESH):
+    """P(k) of a snapshot's type-1 rows (pm.gravity.measure_power at
+    nmesh): (k, P, modes) and k_Nyquist, in h/Mpc."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.particles import pos_to_fixed
+    from mpgadget_tpu_torch.pm.gravity import PMConfig, measure_power
+    bf = BigFile(path)
+    hdr = snap_io.read_header(bf)
+    ipos = torch.as_tensor(pos_to_fixed(bf.open("1/Position").read(),
+                                        hdr.BoxSize).astype(np.int64),
+                           device=device)
+    mass = torch.as_tensor(bf.open("1/Mass").read(), device=device)
+    ps = measure_power(ipos, mass, PMConfig(
+        nmesh=nmesh, boxsize=hdr.BoxSize,
+        unitlength_in_cm=hdr.UnitLength_in_cm))
+    box_mpc = hdr.BoxSize * hdr.UnitLength_in_cm / 3.085678e24
+    return ps.k, ps.power, ps.nmodes, np.pi * nmesh / box_mpc
+
+
+def sharded_phase(workdir, hres, device="cuda", configs=SHARDED_CONFIGS,
+                  nmesh=None):
+    """Phase 27: dm-small as it ships through the sharded driver (see the
+    module's docstring), each configuration's ranks under
+    torch.distributed.run in a process group of their own.  device "cpu"
+    and a smaller nmesh rehearse it on the CPU (every rank on gloo)."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    nmesh = nmesh or NMESH
+    ic = os.path.join(workdir, "IC", "IC")      # phase 9's genic output
+    ref_snap = os.path.join(workdir, "output", hres["snapshot"])
+    k0, p0, n0, knyq = snapshot_power(ref_snap, device, nmesh)
+    icb = BigFile(ic)
+    sp = snap_io.read_species(icb, 1, snap_io.read_header(icb))
+    ic_ids = np.sort(sp["pid"])
+    ic_mass = float(sp["mass"].astype(np.float64).sum())
+    text = open(os.path.join(HERE, "examples", "dm-small",
+                             "paramfile.gadget")).read()
+    text = text.replace("Nmesh = 128", f"Nmesh = {nmesh}")
+    results = {}
+    for name, nranks, env_over in configs:
+        out = os.path.join(workdir, f"sharded_{name}")
+        pf = os.path.join(workdir, f"paramfile_{name}.gadget")
+        with open(pf, "w") as fh:
+            fh.write(text.replace("InitCondFile = IC/IC",
+                                  f"InitCondFile = {ic}")
+                     .replace("OutputDir = output", f"OutputDir = {out}"))
+        prefix = os.path.join(workdir, f"sharded_{name}")
+        env = dict(os.environ, **env_over)
+        for k in ("MPG_SHARDED", "MPG_DIST_BACKEND"):
+            if k not in env_over:
+                env.pop(k, None)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nranks),
+               os.path.join(HERE, "chip_smoke.py"), "--sharded-rank", pf,
+               prefix, device]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=workdir, env=env, text=True,
+                                  capture_output=True,
+                                  timeout=SHARDED_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"sharded {name}: over {SHARDED_TIMEOUT} s; "
+                               f"{(e.stdout or '')[-2000:]}")
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"sharded {name}: a rank failed (exit "
+              f"{proc.returncode}): {proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        head = [ln for ln in proc.stdout.splitlines()
+                if "[distributed]" in ln]
+        print(f"sharded {name}: {head[0] if head else 'no backend line'}",
+              flush=True)
+        ranks = []
+        for r in range(nranks):
+            with open(f"{prefix}_r{r}.json") as fh:
+                ranks.append(json.load(fh))
+        for rk in ranks:
+            check(rk["device"].startswith(device)
+                  and rk["state_on"].startswith(device),
+                  f"sharded {name} rank {rk['rank']} on {rk['device']}")
+            check(rk["size"] == nranks, f"sharded {name}: {rk['size']} ranks")
+            for kname in ("pair", "walk", "neighbors"):
+                check(rk["launches"][kname] > 0, f"sharded {name} rank "
+                      f"{rk['rank']}: {kname} kernel never launched")
+        r0 = ranks[0]
+        check(abs(r0["atime"] - 0.25) < 1e-9, f"sharded {name} stopped at "
+              f"a={r0['atime']}")
+        snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+        pigs = sorted(f for f in os.listdir(out) if f.startswith("PIG_"))
+        check(len(snaps) == 3 and len(pigs) == 3,
+              f"sharded {name}: snapshots {snaps}, PIGs {pigs}")
+        for sn in snaps:
+            bf = BigFile(os.path.join(out, sn))
+            ids = bf.open("1/ID").read()
+            check(np.array_equal(np.sort(ids), ic_ids),
+                  f"sharded {name} {sn}: IDs not each once")
+            m = float(bf.open("1/Mass").read().astype(np.float64).sum())
+            check(abs(m / ic_mass - 1) <= MASS_RTOL,
+                  f"sharded {name} {sn}: mass {m} against the IC's {ic_mass}")
+            check(bf.open("1/ID").Nfile == nranks,
+                  f"sharded {name} {sn}: not one stripe a rank")
+        groups = {}
+        for pg in pigs:
+            ng, bins, last = pig_check(os.path.join(out, pg), 32)
+            groups[pg] = ng
+        check(groups[pigs[-1]] > 0, f"sharded {name}: no halo at a = 0.25")
+        k1, p1, n1, _ = snapshot_power(os.path.join(out, snaps[-1]), device,
+                                       nmesh)
+        check(np.array_equal(n1, n0), f"sharded {name}: P(k) mode counts")
+        low = k0 < knyq / 4
+        dev_pk = float(np.max(np.abs(p1[low] / p0[low] - 1)))
+        print(f"sharded {name}: {snaps[-1]} P(k) against phase 10's "
+              f"{hres['snapshot']} on {int(low.sum())} bins below "
+              f"k_Nyquist/4 = {knyq / 4:.6f} h/Mpc: largest relative "
+              f"difference {dev_pk:.6e} (tolerance {SHARDED_PK_RTOL}); all "
+              f"bins {float(np.max(np.abs(p1 / p0 - 1))):.6e}", flush=True)
+        check(dev_pk <= SHARDED_PK_RTOL, f"sharded {name}: P(k) off phase "
+              f"10's by {dev_pk:.3e}")
+        results[name] = dict(ranks=ranks, wall=wall, pk_dev=dev_pk,
+                             groups=groups, snapshots=snaps)
+    return results
+
+
+def report_sharded(shd, card):
+    """Phase 27's lines: per configuration the PM steps, substeps, seconds
+    of steps, collective seconds and bytes per PM step, rank 0's walltime
+    by layer."""
+    for name, r in shd.items():
+        r0 = r["ranks"][0]
+        log = r0["log"]
+        steps = sum(e["seconds"] for e in log)
+        print(f"sharded {name} dm-small 64^3 Nmesh {NMESH} on {card}: "
+              f"{r0['nsteps']} PM steps to a={r0['atime']:.6f}, substeps "
+              f"{[e['substeps'] for e in log]} ({sum(e['substeps'] for e in log)}"
+              f" in all), {steps:.6f} s of steps, run_sharded "
+              f"{r0['seconds']:.6f} s, the ranks' processes "
+              f"{r['wall']:.3f} s; groups per PIG {r['groups']}; FOF rounds "
+              f"{[f['rounds'] for f in r0['fofs']]}", flush=True)
+        for rk in r["ranks"]:
+            lg = rk["log"]
+            cs = [e["coll_seconds"] for e in lg]
+            cb = [e["coll_bytes"] for e in lg]
+            print(f"  rank {rk['rank']} ({rk['backend']}, {rk['device']}): "
+                  f"collective seconds per PM step {[round(x, 6) for x in cs]}"
+                  f" ({sum(cs):.6f} of {sum(e['seconds'] for e in lg):.6f} s"
+                  f" of steps), bytes sent per PM step {cb}; all "
+                  f"collectives {rk['collectives']}; launches "
+                  f"{rk['launches']}", flush=True)
+        print(f"  rank 0 walltime by layer: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(r0["walltime"].items(),
+                                               key=lambda kv: -kv[1])),
+              flush=True)
+
+
 def hier_bounds(res):
     """K1's and K2's bounds summed over the hierarchical run's
     evaluations, each at its own (compacted) nb, with the potential where
@@ -2321,6 +2568,8 @@ def parity_phase(workdir, device="cuda"):
 GAS_SWITCHES_OFF = {"CoolingOn": 0, "StarformationOn": 0, "BlackHoleOn": 0,
                     "WindOn": 0, "MetalReturnOn": 0}
 GAS_STEPS = None      # PM steps of the star-small run (None: to TimeMax)
+GAS_TIME_MAX = 0.15   # the depth cut (as shipped 0.2: 152 PM steps; to
+                      # 0.15 36 of them)
 MOMENTUM_TOL = 1e-4   # |sum m a_hydro| / sum m |a_hydro|
 # the IC's SPH density, volume-weighted (sum m / sum m/rho), against the
 # mean baryon density Omega_b rho_crit.  star-small's IC (z = 9, a 5
@@ -2563,7 +2812,7 @@ def gas_run_phase(workdir, device="cuda", max_steps=GAS_STEPS, ngrid=None,
     if ngrid is not None:           # a smaller rehearsal on the CPU
         over["Ngrid"] = ngrid
     _, ngas, genic_s = gas_genic(workdir, "star-small", over, device)
-    gover = dict(GAS_SWITCHES_OFF)
+    gover = dict(GAS_SWITCHES_OFF, TimeMax=GAS_TIME_MAX)
     if nmesh is not None:
         gover["Nmesh"] = nmesh
     paramfile = paramfile_copy(
@@ -2980,6 +3229,9 @@ def big_gas_case(workdir, l2_ns):
 
 LYA_SWITCHES = {"TreeCoolFile": ""}   # the absent TREECOOL_ep_2018p: no UVB
 LYA_STEPS = None      # PM steps of the lya run (None: to TimeMax)
+LYA_TIME_MAX = 0.2    # the depth cut (as shipped 0.33333: 766 PM steps,
+                      # 182 s; to 0.25 414 PM steps, 93 s, 390 stars; to
+                      # 0.2 198 PM steps, 46 s, 95 stars)
 # K6 against its plain version on the card (the CPU parity tolerances of
 # tests/test_torch_cooling.py): do_cooling's u_new relative, its ne/nh
 # relative and absolute; the net rate relative and of the largest |rate|;
@@ -3089,7 +3341,7 @@ def lya_phase(workdir, device="cuda", max_steps=LYA_STEPS, ngrid=None,
     if ngrid is not None:           # a smaller rehearsal on the CPU
         over["Ngrid"] = ngrid
     _, ngas, genic_s = gas_genic(workdir, "lya", over, device)
-    gover = dict(LYA_SWITCHES)
+    gover = dict(LYA_SWITCHES, TimeMax=LYA_TIME_MAX)
     if nmesh is not None:
         gover["Nmesh"] = nmesh
     paramfile = paramfile_copy(
@@ -4100,23 +4352,24 @@ def report_global(glob, card):
 # phase 26: phase 23's snapshot at a = 0.15 resumed (RestartFlag 2,
 # hierarchical as shipped) to REION_TIME_MAX with the four switches on,
 # each reading a stand-in the smoke writes from a closed form; the
-# excursion epoch z 6 to 5 ends inside the run, and the late patch of the
-# z_reion grid switches on at REION_ZRE_LATE (a = 0.1818); QSOMinMass and
+# excursion epoch z 6 to 5.2 ends inside the run, and the late patch of the
+# z_reion grid switches on at REION_ZRE_LATE (a = 0.1667); QSOMinMass and
 # QSOMaxMass bracket the largest halo of the snapshot's PIG
 # (REION_QSO_BRACKET) and the bubbles are REION_BUBBLE kpc/h (the 20 Mpc/h
 # default covers the 5 Mpc/h box).  The depth cut: star-small ends at
-# a = 0.2; 0.185 keeps the smoke within its time beside phase 23's run to
-# 0.2 (a FOF at every PM step of the HeII epoch: 285 s to 0.2 and 192 s to
-# 0.19 on an NVIDIA H100 80GB HBM3, 700 W), with the late patch lit from
-# a = 0.1818
-REION_TIME_MAX = 0.185
+# a = 0.2; 0.17 keeps the smoke within its time beside phase 23's run to
+# 0.2 and phase 27 (a FOF at every PM step of the HeII epoch: 285 s to 0.2,
+# 192 s to 0.19 and 152-184 s to 0.185 on an NVIDIA H100 80GB HBM3, 700
+# W), with the epoch's end (z 5.2) and the late patch (z_re 5, a = 0.1667)
+# moved before it
+REION_TIME_MAX = 0.17
 REION_ZRE_EARLY = 20.0
-REION_ZRE_LATE = 4.5
+REION_ZRE_LATE = 5.0
 REION_ZRE_TOL = 1e-3
 REION_BUBBLE = 1000.0
 REION_QSO_BRACKET = (0.5, 2.0)
 REION_SWITCHES = {"ExcursionSetReionOn": 1, "ExcursionSetZStart": 6,
-                  "ExcursionSetZStop": 5, "QSOLightupOn": 1,
+                  "ExcursionSetZStop": 5.2, "QSOLightupOn": 1,
                   "QSOMeanBubble": REION_BUBBLE,
                   # star-small's outputs to the depth cut
                   "TimeMax": REION_TIME_MAX,
@@ -4779,10 +5032,14 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import torch
+    if sys.argv[1:2] == ["--sharded-rank"] and sys.argv[-1] == "cpu":
+        return sharded_rank(sys.argv[2:])      # a phase 27 rehearsal rank
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
     try:
+        if sys.argv[1:2] == ["--sharded-rank"]:
+            return sharded_rank(sys.argv[2:])
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
@@ -4891,6 +5148,9 @@ def run():
         nu = neutrino_phase(os.path.join(work, "nu"),
                             os.path.join(work, "output"))
         rflags = restart_flags_phase(work, hres["snapnum"])
+        t0 = time.perf_counter()
+        shd = sharded_phase(work, hres)
+        t27 = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as work:
         hyb = hybrid_phase(work)
     with tempfile.TemporaryDirectory() as work:
@@ -4931,6 +5191,9 @@ def run():
           f"K3 launches {hres['launches']['neighbors']} (run), "
           f"{fres['launches']} (final state) on {card}", flush=True)
 
+    report_sharded(shd, card)
+    print(f"phase 27 (sharded): {t27:.3f} s of the smoke", flush=True)
+
     with tempfile.TemporaryDirectory() as work:
         gas = gas_run_phase(work)
         spy = gas["spy"]
@@ -4966,7 +5229,8 @@ def run():
     lst = lya["step_seconds"]
     lwt = lya["walltime"]
     print(f"lya (2 x {lya['ngas']} particles, cuts {GENIC_OVERRIDE} in genic "
-          f"and {LYA_SWITCHES} in the run) on {card}: {lya['nsteps']} PM "
+          f"and {LYA_SWITCHES}, TimeMax {LYA_TIME_MAX} in the run) on "
+          f"{card}: {lya['nsteps']} PM "
           f"steps to a={lya['atime']:.6f} in {sum(lst):.6f} s of steps "
           f"({lya['run_seconds']:.6f} s with the gas set-up, the first "
           f"forces and the last snapshot); walltime Cooling/SFR "
@@ -5008,6 +5272,10 @@ def run():
     new = {"star_small_full": star["launches"],
            "subgrid_global": glob["launches"], "travis": trav["launches"],
            "reion": reion["launches"]}
+    for name, r in shd.items():     # phase 27, summed over its ranks
+        new[f"sharded_{name}"] = {k: sum(rk["launches"][k]
+                                         for rk in r["ranks"])
+                                  for k in r["ranks"][0]["launches"]}
 
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096

@@ -7,6 +7,13 @@ from the last snapshot in Snapshots.txt; 2 <num> = restart from snapshot
 num; 3 <num> = FOF halo catalogue (PIG_<num>) of snapshot num; 4 <num> =
 measure power spectrum; 99 [num] = force-accuracy self-test (the tree
 force against direct summation) of the IC, or of snapshot num.
+
+Several ranks: ``python -m torch.distributed.run --nproc_per_node N -m
+mpgadget_tpu_torch.main <paramfile>`` runs the sharded driver
+(Simulation.run_sharded), one rank per card over NCCL.  MPG_SHARDED=1
+runs it on one rank too, MPG_SHARDED=0 runs the single-device loop;
+MPG_DIST_BACKEND=gloo puts the ranks on gloo instead (for example several
+ranks that share one card).
 """
 
 import os
@@ -204,11 +211,88 @@ def build_simulation(paramfile_or_ps, override=None, snapshot=None,
     return sim, ps
 
 
+def init_distributed(device="cuda"):
+    """Join the process group that ``torch.distributed.run`` describes
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; the reference's
+    MPI_Init), and return this rank's device.
+
+    On the card the backend is NCCL, one rank per card on cuda:LOCAL_RANK;
+    more ranks than visible cards raise, as NCCL refuses two ranks on one
+    card.  gloo is used only when asked for: device="cpu" (every rank on
+    the CPU), or MPG_DIST_BACKEND=gloo on the card, where ranks then share
+    the cards (cuda:LOCAL_RANK mod the card count).  Without torchrun's
+    environment, or when the group is up already, nothing is joined.
+    Rank 0 prints the backend."""
+    from .parallel import collectives as coll
+    from .utils.log import message
+    dev = torch.device(device)
+    if coll.is_initialized():
+        return _rank_device(dev)
+    if "WORLD_SIZE" not in os.environ:
+        return dev
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    backend = os.environ.get("MPG_DIST_BACKEND", "")
+    if dev.type == "cpu":
+        if backend not in ("", "gloo"):
+            raise ValueError(f"backend {backend} cannot run on the CPU")
+        backend = "gloo"
+    elif backend in ("", "nccl"):
+        backend = "nccl"
+        ncard = torch.cuda.device_count()
+        if world > ncard:
+            raise RuntimeError(
+                f"NCCL: {world} ranks but {ncard} visible card(s); NCCL "
+                "runs one rank per card (MPG_DIST_BACKEND=gloo shares "
+                "cards)")
+    elif backend != "gloo":
+        raise ValueError(f"unknown MPG_DIST_BACKEND {backend!r}")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
+        torch.cuda.set_device(dev)
+    coll.init_process_group(
+        backend,
+        f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+        world, rank)
+    message(f"[distributed] backend {backend}, {world} rank(s), rank 0 on "
+            f"{dev}")
+    return dev
+
+
+def _rank_device(dev):
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_mesh_or_none(device):
+    """The dispatch rule of the JAX package (main.py:229-243): more than
+    one rank, or MPG_SHARDED=1, runs the sharded driver on the ranks'
+    ShardMesh; MPG_SHARDED=0, or one rank without it, runs the
+    single-device loop (None)."""
+    from .parallel import collectives as coll
+    from .parallel.mesh import ShardMesh
+    force = os.environ.get("MPG_SHARDED", "")
+    if coll.is_initialized():
+        rank, size, backend = coll.world()
+    else:
+        rank, size, backend = 0, 1, "none"
+    if force == "0" or (size == 1 and force != "1"):
+        return None
+    return ShardMesh(rank=rank, size=size,
+                     device=_rank_device(torch.device(device)),
+                     backend=str(backend))
+
+
 def run_cli(paramfile, restart=0, snapnum=None, device="cuda"):
     """What ``main`` does for a paramfile and RestartFlag, on ``device``.
     A resumed run (flags 1 and 2) numbers its snapshots on from the one
     it started from (the reference's SnapshotFileCount), so that it
-    writes no snapshot over an earlier one."""
+    writes no snapshot over an earlier one.  Under torch.distributed.run
+    each rank joins the process group first (init_distributed) and the
+    run dispatches as :func:`device_mesh_or_none` says."""
+    device = init_distributed(device)
     if restart in (2, 3, 4) and snapnum is None:
         raise SystemExit("RestartFlag %d needs a snapshot number" % restart)
     snapshot = None
@@ -236,7 +320,13 @@ def run_cli(paramfile, restart=0, snapnum=None, device="cuda"):
         return sim
     if restart in (1, 2):
         sim.snapshot_count = snapnum + 1
-    sim.run()
+    mesh = device_mesh_or_none(device)
+    if mesh is not None:
+        # SplitGravityTimestepsOn routes to the hierarchical substeps
+        sim.run_sharded(mesh, hierarchical=bool(
+            sim.cfg.split_gravity_timesteps and sim.cfg.tree_grav_on))
+    else:
+        sim.run()
     return sim
 
 
@@ -248,7 +338,11 @@ def main():
     snapnum = int(sys.argv[3]) if len(sys.argv) > 3 else None
     if not torch.cuda.is_available():
         raise SystemExit("mpgadget_tpu_torch.main needs a CUDA device")
-    run_cli(sys.argv[1], restart, snapnum, device="cuda")
+    from .parallel import collectives as coll
+    try:
+        run_cli(sys.argv[1], restart, snapnum, device="cuda")
+    finally:
+        coll.destroy_process_group()
 
 
 if __name__ == "__main__":

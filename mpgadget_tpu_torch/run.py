@@ -230,6 +230,28 @@ def check_supported(cfg: SimConfig, has_gas: bool):
         raise ValueError("QSOLightupOn needs ReionHistFile")
 
 
+def check_sharded_supported(cfg: SimConfig, has_gas: bool):
+    """Refuse, before the first step, a switch that the sharded driver
+    (Simulation.run_sharded) does not carry yet: the gas and everything
+    that needs it, and the dark-matter options.  The single-device run()
+    carries them all."""
+    gas = [("HydroOn", cfg.hydro_on), ("CoolingOn", cfg.cooling_on),
+           ("StarformationOn", cfg.starformation_on),
+           ("WindOn", cfg.wind_on), ("BlackHoleOn", cfg.black_hole_on),
+           ("MetalReturnOn", cfg.metal_return_on),
+           ("QSOLightupOn", cfg.qso_lightup_on),
+           ("ExcursionSetReionOn", cfg.excursion_set_on)]
+    other = [("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
+             ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
+             ("LightconeOn", cfg.lightcone_on),
+             ("PlaneOutputList", bool(cfg.plane_output_list))]
+    for name, on in (gas if has_gas else []) + other:
+        if on:
+            raise ValueError(f"{name} is not yet ported to the sharded "
+                             "driver; run it with MPG_SHARDED=0 on one "
+                             "device")
+
+
 class Simulation:
     def __init__(self, cosmology: Cosmology, pdata: ParticleData,
                  cfg: SimConfig, time_ic: float = None):
@@ -1808,6 +1830,344 @@ class Simulation:
                       f"dloga={dloga:.4g}")
             if max_steps and nsteps >= max_steps:
                 break
+        return nsteps
+
+    def run_sharded(self, mesh, max_steps=None, verbose=True,
+                    hierarchical=False, layer_sync=False):
+        """Multi-rank main loop of the dark matter (run.c:358-800 at
+        scale; the JAX package's run_sharded with its gas, subgrid and
+        auxiliary parts left for later slices).
+
+        mesh: parallel.mesh.ShardMesh of this rank.  Every rank holds the
+        whole host state (read from the same IC, as every MPI rank reads
+        the snapshot before the domain scatter, petaio.c:33-68) and keeps
+        the rows of its slab: parallel/driver.py's KDK step (global) or
+        per-timebin substeps with a PM refresh at each end of the interval
+        (hierarchical=True, the sharded step_hierarchical), over
+        count-balanced boundaries recomputed from the x histogram summed
+        over ranks after every step.  Timestep statistics are summed over
+        ranks, so no step gathers rows.  Sync points write striped
+        snapshots (parallel/snapshot.py) and, with SnapshotWithFOF, the
+        distributed FOF's PIG (parallel/fof.py).  The host mirror
+        (self.pdata) is refreshed from every rank's rows at the end.  No
+        per-step power spectrum is written (the JAX package's sharded run
+        writes none either).
+
+        layer_sync=True synchronises the device at each layer boundary of
+        the step, so that ``self.walltime`` splits the step's seconds by
+        layer; ``self.sharded_log`` gets one dict per PM step.  Raises
+        ValueError before the first step for a switch this driver does not
+        carry (check_sharded_supported)."""
+        check_sharded_supported(self.cfg, self.has_gas)
+        from .parallel import collectives as coll
+        from .parallel.decomp import balanced_boundaries
+        from .parallel.driver import (MAXB, Layers, assign_bins,
+                                      ghost_hops, pm_refresh, sharded_step)
+        from .parallel.fof import sharded_fof
+        from .parallel.mesh import (default_n_local, fetch_global,
+                                    shard_particles)
+        from .parallel.snapshot import (write_snapshot_sharded,
+                                        write_pig_sharded)
+        from .physics.fof import FOFParams
+        from .utils.hci import (HCIManager, HCI_STOP, HCI_TERMINATE,
+                                HCI_CHECKPOINT, HCI_TIMEOUT,
+                                HCI_AUTO_CHECKPOINT)
+        from .utils.log import message, endrun
+
+        if torch.device(mesh.device) != torch.device(self.device):
+            raise ValueError(f"rank device {mesh.device} differs from the "
+                             f"simulation's {self.device}")
+        S = mesh.size
+        log2s = int(np.log2(S))
+        assert 1 << log2s == S, "rank count must be a power of two"
+        with_potential = bool(self.cfg.output_potential)
+        os.makedirs(self.cfg.output_dir, exist_ok=True)
+        if self._tree_grav is None:
+            self.compute_forces(measure_power=False)
+        tg = self._tree_grav
+        lay = Layers(self.walltime, mesh.device, layer_sync)
+        self.sharded_log = []
+
+        # ---- this rank's rows of the host state (shard_particles) ----
+        pd = self.pdata
+        acc0 = pd.grav_accel + pd.grav_pm
+        cols = {"ipos": pd.ipos, "vel": pd.vel, "mass": pd.mass,
+                "pid": pd.pid, "ptype": pd.ptype,
+                "amag": torch.sqrt(torch.sum(acc0 * acc0, dim=-1)),
+                "grav_acc": pd.grav_accel if hierarchical else acc0}
+        if hierarchical:
+            cols["pm_acc"] = pd.grav_pm
+            cols["bins"] = torch.ones_like(pd.ptype)
+        if with_potential:
+            # the PM part (single-device semantics); the tree part joins
+            # it in the step (global) or per closing bin (hierarchical)
+            cols["potential"] = pd.potential
+            cols["pm_pot"] = pd.potential
+            if hierarchical:
+                cols["tree_pot"] = torch.zeros_like(pd.potential)
+        n_local = default_n_local(pd.capacity, S)
+        st = shard_particles(cols, pd.valid.cpu(), mesh, n_local)
+        for k, v in st.items():
+            assert v.device == torch.device(mesh.device), (k, v.device)
+
+        rcut_box = self.cfg.rcut * self.cfg.asmth / self.cfg.nmesh
+        hist_bits = 12
+        # count-balanced boundaries from the host state before the first
+        # step (domain_decompose, domain.c:106)
+        x = pd.ipos[:, 0][pd.valid].cpu().numpy()
+        bounds = balanced_boundaries(np.bincount(
+            x >> (32 - hist_bits), minlength=1 << hist_bits), S)
+
+        common = dict(nmesh=self.cfg.nmesh, boxsize=self.cfg.boxsize,
+                      gconst=self.CP.GravInternal, asmth=self.cfg.asmth,
+                      with_potential=with_potential, hist_bits=hist_bits,
+                      layers=lay)
+
+        def step(st, scal):
+            return sharded_step(st, bounds, scal, mesh, tg=tg,
+                                hops_ghost=ghost_hops(bounds, rcut_box),
+                                rcut=self.cfg.rcut,
+                                hierarchical=hierarchical, **common)
+
+        def dloga_from_stats(stats, atime, pm_only=False):
+            """The host timestep policy from statistics summed over ranks
+            (get_long_range_timestep_dloga + the acceleration criterion,
+            timestep.c:1063-1300); pm_only keeps the displacement
+            criterion alone (the hierarchical PM interval)."""
+            par = self.cfg.timestep
+            hubble = self.CP.hubble_function(atime)
+            dloga = par.MaxSizeTimestep
+            asmth_len = self.cfg.asmth * self.cfg.boxsize / self.cfg.nmesh
+            vsum = stats["vsum"].cpu().numpy().astype(np.float64)
+            cnt = stats["count"].cpu().numpy().astype(np.float64)
+            mmin = stats["min_mass"].cpu().numpy().astype(np.float64)
+            for t in range(6):
+                if cnt[t] == 0 or self._omega_per_type is None:
+                    continue
+                omega = self._omega_per_type[t]
+                if omega <= 0:
+                    continue
+                dmean = (mmin[t] / (omega * self.CP.RhoCrit)) ** (1 / 3)
+                vrms = np.sqrt(vsum[t] / cnt[t])
+                if vrms <= 0:
+                    continue
+                d1 = (par.MaxRMSDisplacementFac * hubble * atime * atime
+                      * min(asmth_len, dmean) / vrms)
+                if t != self.cfg.fast_particle_type:
+                    dloga = min(dloga, d1)
+            if pm_only:
+                return max(dloga, par.MinSizeTimestep)
+            amax = float(stats["max_acc"])
+            if amax > 0 and self.cfg.tree_grav_on:
+                eta_eps = 2 * par.ErrTolIntAccuracy * atime * tg.softening
+                dloga = min(dloga, float(
+                    np.sqrt(eta_eps / (amax / atime ** 2)) * hubble))
+            return max(dloga, par.MinSizeTimestep)
+
+        def mirror_to_host():
+            """Every rank's rows, in rank order, into the host state
+            (outputs and the final state only)."""
+            rows = {k: fetch_global(v, mesh) for k, v in st.items()}
+            n = rows["ipos"].shape[0]
+            cap = max(int(self.pdata.capacity), n)
+            new = ParticleData.zeros(cap, device=self.device)
+            upd = {}
+            names = dict(ipos="ipos", vel="vel", mass="mass", pid="pid",
+                         ptype="ptype", grav_accel="grav_acc")
+            if hierarchical:
+                names.update(grav_pm="pm_acc", timebin="bins")
+            if with_potential:
+                names["potential"] = "pm_pot"
+            for field_, key in names.items():
+                full = getattr(new, field_).clone()
+                full[:n] = rows[key].to(self.device, full.dtype)
+                upd[field_] = full
+            valid = torch.zeros(cap, dtype=torch.bool, device=self.device)
+            valid[:n] = True
+            upd["valid"] = valid
+            self.pdata = new.replace(**upd)
+
+        def do_fof():
+            npart = int(coll.psum((st["ptype"] == 1).sum(), mesh))
+            mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(npart))
+            params = FOFParams(
+                linking_length=self.cfg.fof_linking_length,
+                min_group_length=self.cfg.fof_min_group_length,
+                primary_link_types=self.cfg.fof_primary_link_types,
+                secondary_link_types=self.cfg.fof_secondary_link_types)
+            lay("FOF")
+            fstats = {}
+            cat, sorted_labels, labels = sharded_fof(
+                mesh, st, bounds, boxsize=self.cfg.boxsize,
+                mean_sep=mean_sep, params=params, stats=fstats)
+            lay("IO")
+            write_pig_sharded(self, mesh, st, labels, sorted_labels, cat)
+            lay(None)
+            self.sharded_fofs.append(dict(a=self.atime,
+                                          ngroups=cat["ngroups"],
+                                          rounds=fstats["rounds"]))
+
+        self.sharded_fofs = []
+
+        def sync_outputs():
+            sp = self.timeline.find_current_sync_point(self.ti_current)
+            if sp is None or not sp.write_snapshot:
+                return
+            lay("IO")
+            write_snapshot_sharded(self, mesh, st)
+            lay(None)
+            if sp.write_fof or self.cfg.snapshot_with_fof:
+                do_fof()
+
+        # ---- HCI: stop / checkpoint / terminate files and TimeLimitCPU,
+        # queried at PM boundaries; rank 0 decides and the others follow
+        hci = HCIManager(self.cfg.output_dir,
+                         time_limit_cpu=self.cfg.time_limit_cpu,
+                         auto_checkpoint_time=self.cfg.auto_snapshot_time)
+
+        def hci_check():
+            action = hci.query() if mesh.rank == 0 else 0
+            action = int(coll.broadcast(torch.tensor(action), mesh))
+            if action in (HCI_STOP, HCI_TIMEOUT):
+                write_snapshot_sharded(self, mesh, st)
+                if verbose:
+                    message("[hci] stop requested: checkpoint written"
+                            if action == HCI_STOP else
+                            "[hci] TimeLimitCPU reached: checkpoint "
+                            "written")
+                return True
+            if action == HCI_TERMINATE:
+                return True
+            if action in (HCI_CHECKPOINT, HCI_AUTO_CHECKPOINT):
+                write_snapshot_sharded(self, mesh, st)
+            return False
+
+        loga = self.timeline.loga_from_ti
+        par_ts = self.cfg.timestep
+        soft_h = 2.8 * self.cfg.gravity_softening * self._dm_mean_sep()
+        f32 = np.float32
+
+        def bin_tables(ti, dti_s, maxbin, a1s, pop):
+            """Per-bin kick factors and alignment masks of one substep
+            (apply_half_kick's factors, timestep.c); the factors (each a
+            quadrature on the host) only for the bins that hold rows
+            (pop: rows per bin, summed over ranks)."""
+            gko = np.zeros(MAXB + 1, f32)
+            gkc = np.zeros(MAXB + 1, f32)
+            ti2 = ti + dti_s
+            for b in range(1, maxbin + 1):
+                if not pop[b]:
+                    continue
+                db = 1 << b
+                if ti % db == 0:
+                    gko[b] = self.tf.gravkick(ti, ti + db // 2)
+                if ti2 % db == 0:
+                    gkc[b] = self.tf.gravkick(ti2 - db // 2, ti2)
+            return {
+                "ddrift": self.tf.drift(ti, ti2), "atime": a1s,
+                "hubble": float(self.CP.hubble_function(a1s)),
+                "gk_open": gko, "gk_close": gkc,
+                "al_open": np.array([ti % (1 << b) == 0
+                                     for b in range(MAXB + 1)]),
+                "al_close": np.array([ti2 % (1 << b) == 0
+                                      for b in range(MAXB + 1)]),
+                "eta_eps": 2 * par_ts.ErrTolIntAccuracy * a1s * soft_h,
+                "max_dloga": par_ts.MaxSizeTimestep,
+                "dloga_tick": float(self.timeline._interval_dloga(ti)),
+                "maxbin": maxbin}
+
+        def log_step(t_start, n_sub, n_closing, c0):
+            self.sharded_log.append(dict(
+                a=self.atime, substeps=n_sub, n_closing=n_closing,
+                seconds=_time.monotonic() - t_start,
+                coll_seconds=coll.STATS["seconds"] - c0[0],
+                coll_bytes=coll.STATS["bytes"] - c0[1]))
+
+        nsteps = 0
+        stats = None
+        pm_stats = None
+        while self.ti_current < self.timeline.ti_end:
+            if hci_check():
+                break
+            step_t0 = _time.monotonic()
+            c0 = (coll.STATS["seconds"], coll.STATS["bytes"])
+            t0 = self.ti_current
+            a0 = self.atime
+            last = pm_stats if hierarchical else stats
+            if last is None:
+                dti = self.find_pm_timestep()
+            else:
+                dti = get_pm_timestep_ti(
+                    dloga_from_stats(last, a0, pm_only=hierarchical),
+                    self.timeline, t0, t0)
+            if dti <= 0:
+                endrun(1, f"bad sharded timestep {dti}")
+            dti = min(dti, self.timeline.ti_end - t0)
+            t1 = t0 + dti
+            mid = t0 + dti // 2
+            if not hierarchical:
+                st, stats = step(st, {
+                    "dk1": self.tf.gravkick(t0, mid),
+                    "ddrift": self.tf.drift(t0, t1),
+                    "dk2": self.tf.gravkick(mid, t1)})
+                self.ti_current = t1
+                self.force_evals += stats["n_valid"]
+                n_sub, n_closing = 1, [stats["n_valid"]]
+                hist = stats["hist"]
+            else:
+                # opening PM half kick with the carried long-range field
+                st["vel"] = st["vel"] + st["pm_acc"] * float(
+                    f32(self.tf.gravkick(t0, mid)))
+                maxbin = get_timestep_bin(dti)
+                tz = (t0 & -t0).bit_length() - 1 if t0 > 0 else 62
+                tzp = (dti & -dti).bit_length() - 1
+                maxbin = max(1, min(maxbin, tz, tzp, MAXB))
+                st["bins"] = assign_bins(
+                    st, a0, 2 * par_ts.ErrTolIntAccuracy * a0 * soft_h,
+                    float(self.CP.hubble_function(a0)),
+                    par_ts.MaxSizeTimestep,
+                    float(self.timeline._interval_dloga(t0)), maxbin)
+                nloc = st["bins"].shape[0]
+                if par_ts.ForceEqualTimesteps:
+                    mb0 = int(coll.pmin(st["bins"].min().long() if nloc
+                                        else torch.tensor(maxbin), mesh))
+                    st["bins"] = torch.full_like(st["bins"], mb0)
+                minb = int(coll.pmin(st["bins"].min().long() if nloc
+                                     else torch.tensor(MAXB), mesh))
+                pop = coll.psum(torch.bincount(
+                    st["bins"].long(), minlength=MAXB + 1), mesh).cpu()
+                ti = t0
+                n_sub, n_closing = 0, []
+                while ti < t1:
+                    dti_s = min(1 << minb, t1 - ti)
+                    a1s = float(np.exp(loga(ti + dti_s)))
+                    st, sstats = step(st, bin_tables(ti, dti_s, maxbin,
+                                                     a1s, pop))
+                    ti += dti_s
+                    self.ti_current = ti
+                    n_sub += 1
+                    n_closing.append(sstats["n_closing"])
+                    self.force_evals += sstats["n_closing"]
+                    bounds = balanced_boundaries(
+                        sstats["hist"].cpu().numpy(), S)
+                    minb = sstats["min_act_bin"]
+                    pop = sstats["bin_hist"]
+                # PM refresh and closing half kick at t1
+                upd, pm_stats = pm_refresh(
+                    st, mesh, {"fac": self.tf.gravkick(mid, t1)}, **common)
+                st.update(upd)
+                hist = pm_stats["hist"]
+            nsteps += 1
+            bounds = balanced_boundaries(hist.cpu().numpy(), S)
+            log_step(step_t0, n_sub, n_closing, c0)
+            sync_outputs()
+            hci.update_longest_step(_time.monotonic() - step_t0)
+            if verbose:
+                message(f"[sharded{'-hier' if hierarchical else ''} step "
+                        f"{nsteps}] a={self.atime:.5f} substeps={n_sub}")
+            if max_steps and nsteps >= max_steps:
+                break
+        mirror_to_host()
         return nsteps
 
     def _run_excursion_set(self):
