@@ -181,7 +181,9 @@ fails the run (non-zero exit, no result line) if it fails:
 23. star-small as it ships: examples/star-small/paramfile.genic through
    the genic CLI (phase 9's Eisenstein-Hu cut), paramfile.gadget with
    TreeCoolFile empty (the absent TREECOOL_fg_june11), Simulation.run()
-   to a = 0.2 with cooling, star formation, ofjt10 winds, metal return
+   to a = 0.18 (STAR_SMALL_TIME_MAX: the depth cut that pays for phase
+   28; it ships with 0.2) with cooling, star formation, ofjt10 winds,
+   metal return
    and black holes (seeded from each PIG): the six kernels' launches,
    "walltime" by layer, stars, BHs, wind kicks (0: hierarchical steps
    compute no dispersion), the total mass against the IC's (MASS_TOL),
@@ -237,7 +239,24 @@ fails the run (non-zero exit, no result line) if it fails:
    snapshot's P(k) against phase 10's on the bins below k_Nyquist/4
    (SHARDED_PK_RTOL); per configuration the PM steps, substeps, seconds
    of steps, collective seconds and bytes per PM step and rank 0's
-   walltime by layer.
+   walltime by layer;
+28. the sharded driver with gas: phase 16's lya paramfile (cooling and
+   quick-Lyman-alpha star formation, TreeCoolFile empty, TimeMax
+   LYA_TIME_MAX) from phase 16's IC through Simulation.run_sharded, in
+   phase 27's two configurations (lya_sharded_phase): every rank on the
+   card with K1-K6 launched; held to phase 16's single-device run at the
+   same a: every ID once (QLA converts whole: the IC's IDs exactly), the
+   total mass the IC's, the final snapshot's dark-matter P(k) on the bins
+   below k_Nyquist/4, the star count and stellar mass, and the gas's
+   mean density and entropy, each within its LYA_SHARDED_TOL (measured);
+   sfr.txt's rows (the steps that formed stellar mass) well formed and as
+   many as phase 16's such rows within LYA_SFR_ROWS_TOL; stars formed on
+   both ranks in (b); the distributed FOF of (b)'s final rows
+   (FOFHaloMinLength LYA_FOF_MIN_LENGTH), gas and stars attached as
+   secondaries, against the single-device run_fof of the same rows (group
+   count, lengths and masses by type); per configuration the PM steps,
+   substeps, seconds, collective seconds and bytes and rank 0's walltime
+   by layer, SPH/Density, SPH/Hydro and Cooling/SFR among them.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -1432,11 +1451,16 @@ MASS_RTOL = 1e-6
 
 
 def sharded_rank(argv):
-    """One rank of phase 27, started by torch.distributed.run: argv =
-    [paramfile, json prefix, device ("cuda"; "cpu" for a rehearsal)].  Joins the process group
-    (main.init_distributed), builds the simulation on its card, takes the
-    first forces, sets every kernel's count to 0, runs the sharded driver
-    with its collectives and layers timed, and writes <prefix>_r<rank>.json."""
+    """One rank of phases 27 and 28, started by torch.distributed.run: argv
+    = [paramfile, json prefix, device ("cuda"; "cpu" for a rehearsal)[,
+    "gas"]].  Joins the process group (main.init_distributed), builds the
+    simulation on its card, takes the first forces, sets every kernel's
+    count to 0, runs the sharded driver with its collectives and layers
+    timed, and writes <prefix>_r<rank>.json.  With "gas" (phase 28) the
+    json also holds the gas's means, the stars, the rows this rank held and
+    the stars it formed, and the distributed FOF of the final rows with
+    gas and stars attached as secondaries beside the single-device
+    catalogue of the same rows (rank 0)."""
     sys.path.insert(0, HERE)
     import torch
     from mpgadget_tpu_torch.gravity import pairkernel as pk
@@ -1449,7 +1473,8 @@ def sharded_rank(argv):
     from mpgadget_tpu_torch.sph import density, hydra
     mods = {"pair": pk, "walk": tw, "neighbors": pairs, "density": density,
             "hydro": hydra, "cooling": cooling}
-    paramfile, prefix, device = argv
+    paramfile, prefix, device = argv[:3]
+    with_gas = argv[3:4] == ["gas"]
     dev = init_distributed(device)
     check(dev.type == device, f"rank device {dev}")
     try:
@@ -1480,6 +1505,8 @@ def sharded_rank(argv):
                    walltime=dict(sim.walltime.totals),
                    collectives=dict(coll.STATS),
                    state_on=str(sim.pdata.ipos.device))
+        if with_gas:
+            res.update(gas_rank_summary(sim, mesh))
         with open(f"{prefix}_r{mesh.rank}.json", "w") as fh:
             json.dump(res, fh)
     finally:
@@ -1487,7 +1514,62 @@ def sharded_rank(argv):
     return 0
 
 
-def snapshot_power(path, device, nmesh=NMESH):
+def gas_rank_summary(sim, mesh):
+    """Phase 28's part of a rank's json: the final state's gas means and
+    stars (the host mirror, the same on every rank), the rows by type this
+    rank held at the end and the stars it formed, and, on more than one
+    rank, the distributed FOF of the final rows (re-sharded and exchanged
+    to count-balanced slabs; gas and stars attached as secondaries) with,
+    on rank 0, the single-device catalogue (run_fof) of the same rows."""
+    import numpy as np
+    import torch
+    from mpgadget_tpu_torch.parallel.decomp import (balanced_boundaries,
+                                                    count_histogram,
+                                                    exchange_to_slabs)
+    from mpgadget_tpu_torch.parallel.fof import sharded_fof
+    from mpgadget_tpu_torch.parallel.mesh import (default_n_local,
+                                                  shard_particles)
+    from mpgadget_tpu_torch.physics.fof import FOFParams
+    pd, sph = sim.pdata, sim.sph
+    gas = sim.gas_mask
+    out = dict(
+        gas_mean_density=float(sph.density[gas].double().mean()),
+        gas_mean_entropy=float(sph.entropy[gas].double().mean()),
+        nstars=int((pd.valid & (pd.ptype == 4)).sum()),
+        rows_by_type=sim.sharded_rows, formed_here=sim.sharded_formed)
+    if mesh.size == 1:      # phase 28 compares (b)'s catalogue
+        return out
+    cols = {"ipos": pd.ipos, "vel": pd.vel, "mass": pd.mass,
+            "ptype": pd.ptype, "sfr": sph.sfr}
+    st = shard_particles(cols, pd.valid.cpu(), mesh,
+                         default_n_local(pd.capacity, mesh.size))
+    bounds = balanced_boundaries(
+        count_histogram(st["ipos"], mesh).cpu().numpy(), mesh.size)
+    st, _ = exchange_to_slabs(st, st["ipos"], mesh, bounds)
+    npart = int((pd.valid & (pd.ptype == 1)).sum())
+    sim.cfg.fof_min_group_length = LYA_FOF_MIN_LENGTH
+    params = FOFParams(linking_length=sim.cfg.fof_linking_length,
+                       min_group_length=sim.cfg.fof_min_group_length,
+                       primary_link_types=sim.cfg.fof_primary_link_types,
+                       secondary_link_types=sim.cfg.fof_secondary_link_types)
+    t0 = time.perf_counter()
+    cat, _, _ = sharded_fof(mesh, st, bounds, boxsize=sim.cfg.boxsize,
+                            mean_sep=sim.cfg.boxsize / np.cbrt(npart),
+                            params=params)
+    out["fof"] = dict(seconds=time.perf_counter() - t0,
+                      ngroups=cat["ngroups"],
+                      len_by_type=cat["len_by_type"].tolist(),
+                      mass_by_type=cat["mass_by_type"].tolist())
+    if mesh.rank == 0:
+        one = sim.run_fof(save=False)
+        out["fof_single"] = dict(
+            ngroups=int(one["ngroups"]),
+            len_by_type=np.asarray(one["len_by_type"]).tolist(),
+            mass_by_type=np.asarray(one["mass_by_type"]).tolist())
+    return out
+
+
+def snapshot_power(path, device, nmesh=NMESH, ptype=1):
     """P(k) of a snapshot's type-1 rows (pm.gravity.measure_power at
     nmesh): (k, P, modes) and k_Nyquist, in h/Mpc."""
     import numpy as np
@@ -1498,10 +1580,10 @@ def snapshot_power(path, device, nmesh=NMESH):
     from mpgadget_tpu_torch.pm.gravity import PMConfig, measure_power
     bf = BigFile(path)
     hdr = snap_io.read_header(bf)
-    ipos = torch.as_tensor(pos_to_fixed(bf.open("1/Position").read(),
+    ipos = torch.as_tensor(pos_to_fixed(bf.open(f"{ptype}/Position").read(),
                                         hdr.BoxSize).astype(np.int64),
                            device=device)
-    mass = torch.as_tensor(bf.open("1/Mass").read(), device=device)
+    mass = torch.as_tensor(bf.open(f"{ptype}/Mass").read(), device=device)
     ps = measure_power(ipos, mass, PMConfig(
         nmesh=nmesh, boxsize=hdr.BoxSize,
         unitlength_in_cm=hdr.UnitLength_in_cm))
@@ -1613,21 +1695,21 @@ def sharded_phase(workdir, hres, device="cuda", configs=SHARDED_CONFIGS,
     return results
 
 
-def report_sharded(shd, card):
-    """Phase 27's lines: per configuration the PM steps, substeps, seconds
-    of steps, collective seconds and bytes per PM step, rank 0's walltime
-    by layer."""
+def report_sharded(shd, card, what=f"dm-small 64^3 Nmesh {NMESH}"):
+    """Phase 27's and 28's lines: per configuration the PM steps,
+    substeps, seconds of steps, collective seconds and bytes per PM step,
+    rank 0's walltime by layer."""
     for name, r in shd.items():
         r0 = r["ranks"][0]
         log = r0["log"]
         steps = sum(e["seconds"] for e in log)
-        print(f"sharded {name} dm-small 64^3 Nmesh {NMESH} on {card}: "
+        print(f"sharded {name} {what} on {card}: "
               f"{r0['nsteps']} PM steps to a={r0['atime']:.6f}, substeps "
               f"{[e['substeps'] for e in log]} ({sum(e['substeps'] for e in log)}"
               f" in all), {steps:.6f} s of steps, run_sharded "
               f"{r0['seconds']:.6f} s, the ranks' processes "
-              f"{r['wall']:.3f} s; groups per PIG {r['groups']}; FOF rounds "
-              f"{[f['rounds'] for f in r0['fofs']]}", flush=True)
+              f"{r['wall']:.3f} s; groups per PIG {r.get('groups')}; FOF "
+              f"rounds {[f['rounds'] for f in r0['fofs']]}", flush=True)
         for rk in r["ranks"]:
             lg = rk["log"]
             cs = [e["coll_seconds"] for e in lg]
@@ -3456,6 +3538,197 @@ def lya_phase(workdir, device="cuda", max_steps=LYA_STEPS, ngrid=None,
                 snapnum=int(os.path.basename(snap).split("_")[-1]))
 
 
+LYA_SHARDED_TIMEOUT = 600   # seconds for each configuration's ranks
+LYA_FOF_MIN_LENGTH = 8      # phase 28's FOF check: lya's 32 would leave
+                            # few groups of its 32^3 dark matter at a = 0.2
+# phase 28 against phase 16, relative, each about three times what was
+# measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, PR 15;
+# (a) one NCCL rank, (b) two gloo ranks): the sharded run keeps the box
+# unshifted and takes longer PM steps (bounded by the displacement alone,
+# the gas's Courant limit in its bins), so its gas follows another path
+LYA_SHARDED_TOL = {
+    "pk": 0.05,             # measured 1.72e-2 (a), 1.71e-2 (b)
+    "stars": 0.35,          # 107 and 109 against 95: 0.126, 0.147
+    "star_mass": 0.35,      # quick Lyman-alpha converts whole: as stars
+    "gas_density": 0.10,    # 2.83e-2, 4.53e-2 (the densest gas converts)
+    "gas_entropy": 0.075}   # 2.35e-2, 2.48e-2
+# sfr.txt holds a row for each step that formed stellar mass (the
+# effective EOS's sm > 0): in lya a rare event before quick Lyman-alpha
+# converts the gas (measured: 5 rows of phase 16's, none in (a) and (b)),
+# so the rows' count is held to phase 16's within LYA_SFR_ROWS_TOL
+LYA_SFR_ROWS_TOL = 10
+
+
+def lya_sharded_phase(workdir, lres, device="cuda",
+                      configs=SHARDED_CONFIGS, nmesh=None):
+    """Phase 28: lya through the sharded driver (see the module's
+    docstring), from phase 16's IC and paramfile copy (lres: lya_phase's
+    result, its workdir this one), each configuration's ranks under
+    torch.distributed.run in a process group of their own.  device "cpu"
+    rehearses it on the CPU (every rank on gloo; chip_smoke.LYA_TIME_MAX
+    cut as phase 16's)."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    from mpgadget_tpu_torch.params import create_gadget_parameter_set
+    nmesh_pk = nmesh or 64
+    ps = create_gadget_parameter_set()
+    ps.parse_file(lres["paramfile"])
+    ic = os.path.join(workdir, ps["InitCondFile"])
+    out16 = os.path.join(workdir, ps["OutputDir"])
+    ref_snap = os.path.join(out16, f"PART_{lres['snapnum']:03d}")
+    k0, p0, n0, knyq = snapshot_power(ref_snap, device, nmesh_pk)
+    with open(os.path.join(out16, "sfr.txt")) as fh:
+        # the rows of steps that formed stellar mass (the sharded loop
+        # writes only those, sfr_eff.c:356)
+        ref_sfr = [ln.split() for ln in fh.read().splitlines()
+                   if float(ln.split()[1]) > 0]
+    sim16 = lres["sim"]
+    g16 = sim16.gas_mask
+    ref = dict(stars=lres["nstars"],
+               star_mass=lres["snapshots"][f"PART_{lres['snapnum']:03d}"][2],
+               gas_density=float(sim16.sph.density[g16].double().mean()),
+               gas_entropy=float(sim16.sph.entropy[g16].double().mean()))
+    icb = BigFile(ic)
+    ih = snap_io.read_header(icb)
+    sp = [snap_io.read_species(icb, t, ih) for t in (0, 1)]
+    ic_ids = np.sort(np.concatenate([x["pid"] for x in sp]))
+    ic_mass = sum(float(x["mass"].astype(np.float64).sum()) for x in sp)
+    text = open(lres["paramfile"]).read()
+    results = {}
+    for name, nranks, env_over in configs:
+        out = os.path.join(workdir, f"sharded_lya_{name}")
+        pf = os.path.join(workdir, f"paramfile_lya_{name}.gadget")
+        lines = []
+        for ln in text.splitlines():
+            key = ln.split("=")[0].strip()
+            if key == "InitCondFile":
+                ln = f"InitCondFile = {ic}"
+            elif key == "OutputDir":
+                ln = f"OutputDir = {out}"
+            lines.append(ln)
+        with open(pf, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        prefix = os.path.join(workdir, f"sharded_lya_{name}")
+        env = dict(os.environ, **env_over)
+        for k in ("MPG_SHARDED", "MPG_DIST_BACKEND"):
+            if k not in env_over:
+                env.pop(k, None)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nranks),
+               os.path.join(HERE, "chip_smoke.py"), "--sharded-rank", pf,
+               prefix, device, "gas"]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=workdir, env=env, text=True,
+                                  capture_output=True,
+                                  timeout=LYA_SHARDED_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"sharded lya {name}: over "
+                               f"{LYA_SHARDED_TIMEOUT} s; "
+                               f"{(e.stdout or '')[-2000:]}")
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"sharded lya {name}: a rank failed "
+              f"(exit {proc.returncode}): {proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        ranks = []
+        for r in range(nranks):
+            with open(f"{prefix}_r{r}.json") as fh:
+                ranks.append(json.load(fh))
+        for rk in ranks:
+            check(rk["device"].startswith(device)
+                  and rk["state_on"].startswith(device),
+                  f"sharded lya {name} rank {rk['rank']} on {rk['device']}")
+            if device == "cuda":
+                for kname, c in rk["launches"].items():
+                    check(c > 0, f"sharded lya {name} rank {rk['rank']}: "
+                          f"{kname} kernel never launched")
+        r0 = ranks[0]
+        check(abs(r0["atime"] - sim16.atime) < 1e-9, f"sharded lya {name} "
+              f"stopped at a={r0['atime']}, phase 16 at {sim16.atime}")
+        snaps = sorted(f for f in os.listdir(out) if f.startswith("PART_"))
+        check(snaps, f"sharded lya {name}: no snapshot")
+        last = os.path.join(out, snaps[-1])
+        bf = BigFile(last)
+        hdr = snap_io.read_header(bf)
+        check(abs(hdr.Time - sim16.atime) < 1e-9, f"sharded lya {name}: "
+              f"{snaps[-1]} at a={hdr.Time}")
+        ids = np.sort(np.concatenate([bf.open(f"{t}/ID").read()
+                                      for t in (0, 1, 4)
+                                      if hdr.TotNumPart[t]]))
+        check(np.array_equal(ids, ic_ids), f"sharded lya {name}: the IDs "
+              "are not the IC's, each once")
+        m = sum(float(bf.open(f"{t}/Mass").read().astype(np.float64).sum())
+                for t in (0, 1, 4) if hdr.TotNumPart[t])
+        check(abs(m / ic_mass - 1) <= MASS_TOL, f"sharded lya {name}: mass "
+              f"{m!r} against the IC's {ic_mass!r}")
+        check(bf.open("0/ID").Nfile == nranks,
+              f"sharded lya {name}: not one stripe a rank")
+        k1, p1, n1, _ = snapshot_power(last, device, nmesh_pk)
+        check(np.array_equal(n1, n0), f"sharded lya {name}: P(k) modes")
+        low = k0 < knyq / 4
+        sfr_path = os.path.join(out, "sfr.txt")
+        sfr = []
+        if os.path.exists(sfr_path):
+            with open(sfr_path) as fh:
+                sfr = [ln.split() for ln in fh.read().splitlines()]
+        check(all(len(r) == 8 and float(r[1]) > 0 for r in sfr),
+              f"sharded lya {name}: sfr.txt not 8 columns or with a line "
+              "that formed no stellar mass")
+        mstar = 0.0
+        if hdr.TotNumPart[4]:
+            mstar = float(bf.open("4/Mass").read().astype(np.float64)
+                          .sum()) * 1e10 / hdr.HubbleParam
+        got = dict(stars=r0["nstars"], star_mass=mstar,
+                   gas_density=r0["gas_mean_density"],
+                   gas_entropy=r0["gas_mean_entropy"])
+        dev = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-300)
+               for k in ref}
+        dev["pk"] = float(np.max(np.abs(p1[low] / p0[low] - 1)))
+        print(f"sharded lya {name} against phase 16 at a={r0['atime']:.6f}"
+              f": " + ", ".join(
+                  f"{k} {got.get(k, 'P(k)')} vs {ref.get(k, '')} "
+                  f"(relative {dev[k]:.6e}, tolerance {LYA_SHARDED_TOL[k]})"
+                  for k in LYA_SHARDED_TOL) + f"; P(k) on {int(low.sum())} "
+              f"bins below k_Nyquist/4 = {knyq / 4:.6f} h/Mpc", flush=True)
+        print(f"sharded lya {name} sfr.txt: {len(sfr)} rows, the last "
+              f"{sfr[-3:]}; phase 16's with total_sm > 0: {len(ref_sfr)} "
+              f"rows, the last {ref_sfr[-3:]} (tolerance "
+              f"{LYA_SFR_ROWS_TOL} rows)", flush=True)
+        check(abs(len(sfr) - len(ref_sfr)) <= LYA_SFR_ROWS_TOL,
+              f"sharded lya {name}: {len(sfr)} sfr.txt rows against phase "
+              f"16's {len(ref_sfr)}")
+        for k, tol in LYA_SHARDED_TOL.items():
+            check(dev[k] <= tol, f"sharded lya {name}: {k} off phase 16's "
+                  f"by {dev[k]:.3e} (tolerance {tol})")
+        check(r0["nstars"] > 0, f"sharded lya {name} formed no stars")
+        if nranks > 1:
+            formed = [rk["formed_here"] for rk in ranks]
+            check(min(formed) > 0, f"sharded lya {name}: stars formed on "
+                  f"the ranks' slabs {formed}: not on every rank")
+            f1, f0 = r0["fof"], r0["fof_single"]
+            check(f1["ngroups"] == f0["ngroups"] > 0, f"sharded lya {name}:"
+                  f" the distributed FOF found {f1['ngroups']} groups, "
+                  f"run_fof {f0['ngroups']}")
+            lb1 = np.array(f1["len_by_type"]).reshape(-1, 6)
+            lb0 = np.array(f0["len_by_type"]).reshape(-1, 6)
+            o1, o0 = np.lexsort(lb1.T[::-1]), np.lexsort(lb0.T[::-1])
+            check(np.array_equal(lb1[o1], lb0[o0]), f"sharded lya {name}: "
+                  "FOF lengths by type differ from run_fof's")
+            mb1 = np.array(f1["mass_by_type"]).reshape(-1, 6)
+            mb0 = np.array(f0["mass_by_type"]).reshape(-1, 6)
+            check(np.allclose(mb1[o1], mb0[o0], rtol=1e-5, atol=0),
+                  f"sharded lya {name}: FOF masses by type differ from "
+                  "run_fof's")
+            print(f"sharded lya {name}: the distributed FOF of the final "
+                  f"rows {f1['ngroups']} groups ({f1['seconds']:.6f} s), "
+                  f"members by type {lb1.sum(axis=0).tolist()}, as "
+                  f"run_fof's; stars formed per rank {formed}", flush=True)
+        results[name] = dict(ranks=ranks, wall=wall, dev=dev, got=got,
+                             snapshots=snaps)
+    return dict(configs=results, ref=ref)
+
+
 def lya_pig_stars(workdir, snapnum):
     """The PIG that RestartFlag 3 wrote for lya's last snapshot: its
     grouped stars (secondaries, FOFSecondaryLinkTypes 1 + 16 + 32) carry
@@ -3904,7 +4177,12 @@ def cooling_phase(lres):
 
 # the absent TREECOOL_fg_june11: no UV background (the cut lya carries)
 STAR_SMALL_SWITCHES = {"TreeCoolFile": ""}
-STAR_SMALL_STEPS = None   # PM steps of phase 23 (None: to TimeMax; not cut)
+STAR_SMALL_STEPS = None   # PM steps of phase 23 (None: to TimeMax)
+STAR_SMALL_TIME_MAX = 0.18  # the depth cut (PR 15) that pays for phase 28:
+                            # as shipped 0.2 (486 PM steps, 207 s of the
+                            # smoke in PR 15's proof); its outputs at 0.125
+                            # and 0.15 (phases 24 and 26 resume the latter)
+                            # stay
 MASS_TOL = 1e-5           # the total mass against the IC's, relative
 # phase 24: global steps from phase 23's snapshot at a = 0.15 (RestartFlag
 # 2), where ofjt10's dispersion is computed; its cuts: the seeding
@@ -4025,7 +4303,7 @@ def star_small_phase(workdir, device="cuda", max_steps=STAR_SMALL_STEPS,
     if ngrid is not None:           # a smaller rehearsal on the CPU
         over["Ngrid"] = ngrid
     _, ngas, genic_s = gas_genic(workdir, "star-small", over, device)
-    gover = dict(STAR_SMALL_SWITCHES)
+    gover = dict(STAR_SMALL_SWITCHES, TimeMax=STAR_SMALL_TIME_MAX)
     if nmesh is not None:
         gover["Nmesh"] = nmesh
     paramfile = paramfile_copy(
@@ -5032,8 +5310,8 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import torch
-    if sys.argv[1:2] == ["--sharded-rank"] and sys.argv[-1] == "cpu":
-        return sharded_rank(sys.argv[2:])      # a phase 27 rehearsal rank
+    if sys.argv[1:2] == ["--sharded-rank"] and sys.argv[4:5] == ["cpu"]:
+        return sharded_rank(sys.argv[2:])      # a rehearsal's rank
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
@@ -5213,6 +5491,9 @@ def run():
         lrres = restart_phase(work, lya["snapnum"], "not run",
                               paramfile=lya["paramfile"])
         lya_pig = lya_pig_stars(work, lya["snapnum"])
+        t0 = time.perf_counter()
+        l28 = lya_sharded_phase(work, lya)
+        t28 = time.perf_counter() - t0
     gst = gas["step_seconds"]
     gwt = gas["walltime"]
     print(f"star-small (2 x {gas['ngas']} particles, cuts "
@@ -5245,6 +5526,10 @@ def run():
           f"{lya['snapshots']}; RestartFlag 3 {lrres['seconds']:.6f} s, "
           f"{lrres['groups']} groups holding {lya_pig} stars", flush=True)
     print(f"lya sfr.txt last line: {lya['sfr_last']}", flush=True)
+    report_sharded(l28["configs"], card,
+                   f"lya (2 x {lya['ngas']} particles, TimeMax "
+                   f"{LYA_TIME_MAX})")
+    print(f"phase 28 (sharded lya): {t28:.3f} s of the smoke", flush=True)
 
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -5276,6 +5561,10 @@ def run():
         new[f"sharded_{name}"] = {k: sum(rk["launches"][k]
                                          for rk in r["ranks"])
                                   for k in r["ranks"][0]["launches"]}
+    for name, r in l28["configs"].items():     # phase 28, the same
+        new[f"sharded_lya_{name}"] = {k: sum(rk["launches"][k]
+                                             for rk in r["ranks"])
+                                      for k in r["ranks"][0]["launches"]}
 
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096

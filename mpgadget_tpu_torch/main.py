@@ -16,6 +16,7 @@ MPG_DIST_BACKEND=gloo puts the ranks on gloo instead (for example several
 ranks that share one card).
 """
 
+import atexit
 import os
 import sys
 
@@ -255,6 +256,10 @@ def init_distributed(device="cuda"):
         backend,
         f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
         world, rank)
+    # leave the group before the interpreter exits: a gloo group torn down
+    # by the exit itself can abort the process (SIGABRT, "terminate called
+    # without an active exception") once its run has ended
+    atexit.register(coll.destroy_process_group)
     message(f"[distributed] backend {backend}, {world} rank(s), rank 0 on "
             f"{dev}")
     return dev

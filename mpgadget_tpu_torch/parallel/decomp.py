@@ -213,6 +213,25 @@ def ring_parts(hops, n_shards):
     return shifts
 
 
+def ghost_hops(bounds, width):
+    """Ring hops K such that, from every slab, the K neighbours on each
+    side span at least ``width`` (box units): the ghost_strips_multi
+    contract (the JAX package's run_sharded hops_for)."""
+    S = len(bounds)
+    b = np.asarray(bounds, np.float64) / 2 ** 32
+    widths = np.diff(np.append(b, 1.0))
+    K = 1
+    for s in range(S):
+        left = right = 0.0
+        k = 0
+        while (left < width or right < width) and k < S // 2:
+            k += 1
+            left += widths[(s - k) % S]
+            right += widths[(s + k) % S]
+        K = max(K, k)
+    return int(min(max(K, 1), max(S // 2, 1)))
+
+
 def ghost_strips_multi(arrays, ipos, mesh, boundaries, width_box, hops):
     """K-hop ghost exchange over arbitrary slab boundaries (the
     reference's treewalk exports reach any rank, treewalk.c:325): rank j

@@ -1,30 +1,37 @@
-"""The sharded KDK step of the dark matter: TreePM over balanced slabs.
+"""The sharded KDK step: gas and dark-matter TreePM over balanced slabs.
 
-PyTorch port of the dark-matter part of mpgadget_tpu/parallel/driver.py,
-the analog of the reference run loop's per-step machinery (run.c:358-800):
-count-balanced slab boundaries (domain.c:106), K-hop ghost strips
-(treewalk.c exports reach any rank), the tree (K2 walk, K1 pair sums) and
-the pencil-FFT PM, the half-kick / drift / half-kick structure, and
-timestep statistics summed over ranks, so that the host policy never
-gathers particle rows.  Global steps and the hierarchical per-timebin
-substeps (timestep.c:298-503) are both here; the gas branches come with
-the sharded SPH.
+PyTorch port of mpgadget_tpu/parallel/driver.py, the analog of the
+reference run loop's per-step machinery (run.c:358-800): count-balanced
+slab boundaries (domain.c:106), K-hop ghost strips (treewalk.c exports
+reach any rank), the tree (K2 walk, K1 pair sums) and the pencil-FFT PM,
+the SPH density and hydro force (parallel/sph.py: K3, K4, K5 on each
+rank), the half-kick / drift / half-kick structure with the entropy
+integration (apply_hydro_half_kick), the Strang-split cooling and star
+formation (K6) with the new stars, and timestep statistics summed over
+ranks, so that the host policy never gathers particle rows.  Global steps
+and the hierarchical per-timebin substeps (timestep.c:298-503) are both
+here.  Winds, black holes and metal return are not carried yet.
 
 Each rank holds its rows in a dict of tensors (variable-length, all rows
-valid).  No capacity is carried, so a step cannot overflow and is never
-retried: exchanges and ghost strips move exactly the rows they need, the
-PM routes every row to the rank of its geometric mesh slab whatever its
-distance, and the tree's own capacities grow inside the rank's tree force.
+valid; new stars are appended).  No capacity is carried, so a step cannot
+overflow and is never retried for room: exchanges and ghost strips move
+exactly the rows they need, the PM routes every row to the rank of its
+geometric mesh slab whatever its distance, and the tree's own capacities
+grow inside the rank's tree force.  The one re-run left is the density
+strip's correctness rule (parallel/sph.py).
 """
 
 import numpy as np
 import torch
 
 from ..integrate import drift
+from ..physics.sfr import SPAWN_PID_OFFSET
 from . import collectives as coll
-from .decomp import (exchange_to_slabs, ghost_strips_multi,
+from .decomp import (exchange_to_slabs, ghost_hops, ghost_strips_multi,
                      count_histogram, slab_of, pack_rows, unpack_rows)
 from .pfft import pm_force_slab
+from .sph import (DENSITY_MARGIN, density_local, global_hmax_box,
+                  sharded_hydro, strip_overrun, strip_width)
 from .treepm import tree_force_retry
 
 MAXB = 46     # timebin-table size == TIMEBINS (timeline.py); bins live in
@@ -50,25 +57,6 @@ class Layers:
         self._name = name
         if name is not None:
             self.wt.start(name)
-
-
-def ghost_hops(bounds, width):
-    """Ring hops K such that, from every slab, the K neighbours on each
-    side span at least ``width`` (box units): the ghost_strips_multi
-    contract (the JAX package's run_sharded hops_for)."""
-    S = len(bounds)
-    b = np.asarray(bounds, np.float64) / 2 ** 32
-    widths = np.diff(np.append(b, 1.0))
-    K = 1
-    for s in range(S):
-        left = right = 0.0
-        k = 0
-        while (left < width or right < width) and k < S // 2:
-            k += 1
-            left += widths[(s - k) % S]
-            right += widths[(s + k) % S]
-        K = max(K, k)
-    return int(min(max(K, 1), max(S // 2, 1)))
 
 
 def pm_force_multi(ipos, weights, nmesh, boxsize, gconst, asmth, mesh,
@@ -115,22 +103,90 @@ def _type_stats(st, mesh):
             "min_mass": coll.pmin(mmin, mesh)}
 
 
-def assign_bins(st, atime, eta_eps, hubble, max_dloga, dloga_tick, maxbin):
+def assign_bins(st, atime, eta_eps, hubble, max_dloga, dloga_tick, maxbin,
+                courant=None):
     """Power-of-two timebins from the gravity criterion (find_timesteps,
     timestep.c:298-503), elementwise in float32 on each rank's rows; the
     host scalars enter as float32 tensors, so that divisions by them
-    round as divisions."""
+    round as divisions.  courant=(courant_fac, fac3) adds the gas's
+    Courant and hsml-change criteria (assign_bins_global's with_gas)."""
     from ..timestep import _f32
     dev = st["grav_acc"].device
     a = _f32(atime, dev)
     full = (st["grav_acc"] + st["pm_acc"]) / (a * a)
     ac = torch.sqrt(torch.clamp(torch.sum(full * full, dim=-1), min=1e-60))
     dloga = torch.sqrt(_f32(eta_eps, dev) / ac) * _f32(hubble, dev)
+    if courant is not None:
+        cfac = _f32(courant[0], dev)
+        vsig = torch.clamp(st["maxsig"], min=1e-30)
+        dt_c = 2.0 * cfac * a * st["hsml"] / (_f32(courant[1], dev) * vsig)
+        dt_h = cfac * a * a * torch.abs(st["hsml"]
+                                        / (st["dt_hsml"] + 1e-20))
+        dloga_h = torch.minimum(dt_c, dt_h) * _f32(hubble, dev)
+        dloga = torch.where(st["gas_mask"], torch.minimum(dloga, dloga_h),
+                            dloga)
     dloga = torch.minimum(dloga, _f32(max_dloga, dev))
     dti = dloga / _f32(dloga_tick, dev)
     bins = torch.floor(torch.log2(torch.clamp(dti, min=2.0))).to(
         torch.int32)
     return torch.clamp(bins, 1, int(maxbin))
+
+
+def _entropy_update(entropy, dtent, dloga, density, min_egy_spec, atime,
+                    gas):
+    """Half-kick entropy integration with the MinGasTemp floor and the
+    at-most-halving limiter (apply_hydro_half_kick, timestep.c), for the
+    rows in gas.  dloga: a float32 value or a per-row tensor; atime enters
+    as float32 (a^3 in float32, as the JAX package's step)."""
+    from ..utils.constants import GAMMA_MINUS1
+    a = np.float32(atime)
+    a3 = float(a * a * a)
+    ent = entropy + dtent * dloga
+    minent = GAMMA_MINUS1 * min_egy_spec / torch.clamp(
+        density / a3, min=1e-30) ** GAMMA_MINUS1
+    ent = torch.maximum(ent, minent)
+    ent = torch.maximum(ent, 0.5 * entropy)
+    return torch.where(gas, ent, entropy)
+
+
+# columns a spawned star copies from its parent gas row; every other column
+# of the new row starts at zero (the JAX package's free rows)
+SPAWN_COPY = ("ipos", "vel", "hsml", "dt_hsml", "amag", "grav_acc", "dtent",
+              "density", "pm_acc", "bins")
+
+
+def spawn_rows(st, make_star, convert, star_mass, atime):
+    """Star spawning on a rank's rows (spawn_stars semantics,
+    physics/sfr.py): whole conversions flip ptype in place; partial ones
+    append a new star row, in row order, and take its mass from the gas.
+    Rows are variable-length, so nothing can overflow.  The birth record
+    (formation time, birth density and metallicity) is set for both.
+    Returns (st, new star rows on this rank)."""
+    spawn = make_star & ~convert
+    idx = torch.nonzero(spawn).squeeze(1)
+    st = dict(st)
+    af = float(np.float32(atime))
+    four = torch.full_like(st["ptype"], 4)
+    st["ptype"] = torch.where(convert, four, st["ptype"])
+    birth = {"formation_time": torch.full_like(st["density"], af),
+             "birth_density": st["density"],
+             "birth_metallicity": st["metallicity"]}
+    for k, v in birth.items():
+        st[k] = torch.where(convert, v, st[k])
+    new = {k: v.new_zeros((idx.shape[0],) + tuple(v.shape[1:]))
+           for k, v in st.items()}
+    for k in SPAWN_COPY:
+        if k in st:
+            new[k] = st[k][idx]
+    new["ptype"] = four[idx]
+    new["mass"] = star_mass[idx].to(st["mass"].dtype)
+    new["pid"] = st["pid"][idx] + SPAWN_PID_OFFSET
+    for k, v in birth.items():
+        new[k] = v[idx]
+    st["mass"] = torch.where(spawn, st["mass"] - star_mass, st["mass"])
+    st["gas_mask"] = st["gas_mask"] & (st["ptype"] == 0)
+    st = {k: torch.cat([v, new[k]]) for k, v in st.items()}
+    return st, int(idx.shape[0])
 
 
 def pm_refresh(st, mesh, scal, *, nmesh, boxsize, gconst, asmth,
@@ -160,22 +216,102 @@ def pm_refresh(st, mesh, scal, *, nmesh, boxsize, gconst, asmth,
     return upd, stats
 
 
-def sharded_step(st, bounds, scal, mesh, *, tg, hops_ghost, nmesh,
-                 boxsize, gconst, asmth, rcut, hierarchical=False,
-                 with_potential=False, hist_bits=12, layers=None):
+class GasStep:
+    """What the gas half of a step needs beyond the dark matter's: the
+    density and hydro parameters, whether the density solve also sums the
+    entropy-weighted density (DensityIndependentSphOn), the MinGasTemp
+    energy floor, the strip margin (widened by the caller on a strip
+    re-run, and kept), and the source terms: sfr_fn(st, gas, dloga, scal)
+    -> cooling_and_starformation's outputs, or cooling_fn(st, gas, dloga,
+    scal) -> (entropy, ne); gas the rows to update, dloga a float32 value
+    or a per-row tensor."""
+
+    def __init__(self, dpar, hpar, do_egy_density, min_egy_spec,
+                 margin=DENSITY_MARGIN, sfr_fn=None, cooling_fn=None):
+        self.dpar, self.hpar = dpar, hpar
+        self.do_egy_density = bool(do_egy_density)
+        self.min_egy_spec = float(min_egy_spec)
+        self.margin = margin
+        self.sfr_fn, self.cooling_fn = sfr_fn, cooling_fn
+
+
+def _table(scal, name, dev):
+    """A per-bin table of the host scalars as a float32 tensor."""
+    return torch.as_tensor(np.asarray(scal[name], np.float32), device=dev)
+
+
+def _source_terms(st, gas_src, dl, scal, gas, mesh):
+    """The Strang-split source terms of one step on a rank's rows: cooling
+    and star formation with the new stars (sfr_fn), or cooling alone
+    (cooling_fn).  Returns (st, sums): sums over ranks (one all-reduce)
+    of sfr.txt's inputs, None for cooling alone."""
+    if gas.sfr_fn is None:
+        ent, ne = gas.cooling_fn(st, gas_src, dl, scal)
+        st["entropy"] = torch.where(gas_src, ent, st["entropy"])
+        st["ne"] = torch.where(gas_src, ne, st["ne"])
+        return st, None
+    out = gas.sfr_fn(st, gas_src, dl, scal)
+    for k in ("entropy", "ne", "metallicity", "sfr"):
+        st[k] = torch.where(gas_src, out[k], st[k])
+    # sfr.txt's inputs before the new stars take their mass
+    # (sfr_eff.c:319-364): the SFR, the expected mass, the star-forming
+    # rows' dt and count, the mass actually formed
+    on_sf = out["on_eeqos"] & gas_src
+    make = out["make_star"] & gas_src
+    dt_sf = torch.broadcast_to(torch.as_tensor(
+        dl, dtype=torch.float32, device=st["mass"].device)
+        / float(np.float32(scal["hubble"])), on_sf.shape)
+    part = torch.stack([
+        st["sfr"].sum(), torch.where(gas_src, out["sm"], 0.0).sum(),
+        torch.where(on_sf, dt_sf, 0.0).sum(), on_sf.sum().to(torch.float32),
+        torch.where(make, torch.where(out["convert"], st["mass"],
+                                      out["star_mass"]), 0.0).sum()])
+    st, nsp = spawn_rows(st, make, out["convert"] & gas_src,
+                         out["star_mass"], scal["atime"])
+    part = torch.cat([part.to(torch.float64), torch.tensor(
+        [nsp], dtype=torch.float64, device=part.device)])
+    tot = coll.psum(part, mesh).cpu().numpy()
+    sums = dict(zip(("sfr_sum", "sm_sum", "sf_dtime_sum", "sf_count",
+                     "mass_formed_sum", "n_spawned"), tot.tolist()))
+    # the stars this rank formed (not summed over ranks)
+    sums["formed_here"] = int(make.sum())
+    return st, sums
+
+
+def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
+                 asmth, rcut, hierarchical=False, with_potential=False,
+                 hist_bits=12, layers=None, gas=None):
     """One KDK step (global) or one substep (hierarchical) on this rank's
-    rows (build_sharded_step with with_gas=False).
+    rows (build_sharded_step).
 
     st: dict of this rank's columns: ipos, vel, mass, pid, ptype, amag,
     grav_acc; hierarchical adds bins (int32) and pm_acc (the long-range
     field, kicked only by :func:`pm_refresh`; grav_acc is then tree-only);
     with_potential adds potential and pm_pot (and tree_pot when
-    hierarchical).  bounds: the S balanced left edges.  scal: host
-    scalars; global: dk1, ddrift, dk2; hierarchical: ddrift, and the MAXB+1
-    tables gk_open, gk_close, al_open, al_close, with eta_eps, hubble,
-    max_dloga, dloga_tick, maxbin for the bins' re-derivation.  Returns
-    (st', stats): stats summed over ranks (vsum, count, min_mass, max_acc,
-    hist, n_valid; hierarchical: min_act_bin, bin_hist, n_closing)."""
+    hierarchical); with gas (a :class:`GasStep`) the gas columns gas_mask,
+    hsml, entropy, dtent, density, egywt, divv, curlv, dhsml_egy, dt_hsml,
+    hydro_acc, maxsig, with the source terms ne and metallicity, with star
+    formation sfr, delay_time, formation_time, birth_density and
+    birth_metallicity.  bounds: the S balanced left edges.  scal: host
+    scalars; global: dk1, ddrift, dk2, atime and hubble (at the step's
+    end); with gas hk1, dloga1, hk2, dloga2, dloga_full; hierarchical:
+    ddrift, atime, hubble and the MAXB+1 tables gk_open, gk_close, al_open,
+    al_close, with eta_eps, max_dloga, dloga_tick, maxbin for the bins'
+    re-derivation; with gas the tables hk_open, hk_close, dlg_open,
+    dlg_close, dlg_full and dloga_full, courant_fac, fac3; the source
+    terms add redshift, uvbg and (star formation) the random key.
+
+    Only the rows closing their bin are force targets when hierarchical
+    (the tree, and the density solve with the rank's own closing gas); the
+    hydro force of the closing gas follows with the converged hsml of all
+    gas; the source terms act on the closing gas, each row over its own
+    bin.  Returns (st', stats): stats summed over ranks (vsum, count,
+    min_mass, max_acc, hist, n_valid; hierarchical: min_act_bin,
+    bin_hist, n_closing; gas: min_h_over_sig, min_h_over_dth and, with
+    star formation, sfr.txt's sums).  With gas, (None, {"strip_ok":
+    False}) when the density strip was too narrow: run the step again
+    from the same st with gas.margin widened."""
+    from ..utils.constants import GAMMA
     lay = layers or Layers(None, mesh.device)
     dev = mesh.device
     f32 = np.float32
@@ -186,15 +322,35 @@ def sharded_step(st, bounds, scal, mesh, *, tg, hops_ghost, nmesh,
     lay("Kick")
     if hierarchical:
         al_open = torch.as_tensor(scal["al_open"], device=dev)
-        gk_open = torch.as_tensor(np.asarray(scal["gk_open"], f32),
-                                  device=dev)
         bins0 = torch.clamp(st["bins"], 1, MAXB).long()
-        gk1 = torch.where(al_open[bins0], gk_open[bins0], 0.0)
+        act = al_open[bins0]
+        gk1 = torch.where(act, _table(scal, "gk_open", dev)[bins0], 0.0)
         st["vel"] = st["vel"] + st["grav_acc"] * gk1[:, None]
+        if gas is not None:
+            gact = st["gas_mask"] & act
+            hk1 = torch.where(gact, _table(scal, "hk_open", dev)[bins0],
+                              0.0)
+            st["vel"] = st["vel"] + st["hydro_acc"] * hk1[:, None]
+            st["entropy"] = _entropy_update(
+                st["entropy"], st["dtent"],
+                _table(scal, "dlg_open", dev)[bins0], st["density"],
+                gas.min_egy_spec, scal["atime"], gact)
     else:
         st["vel"] = st["vel"] + st["grav_acc"] * float(f32(scal["dk1"]))
-    # ---- drift ----
+        if gas is not None:
+            g = st["gas_mask"]
+            st["vel"] = st["vel"] + torch.where(
+                g[:, None], st["hydro_acc"], 0.0) * float(f32(scal["hk1"]))
+            st["entropy"] = _entropy_update(
+                st["entropy"], st["dtent"], float(f32(scal["dloga1"])),
+                st["density"], gas.min_egy_spec, scal["atime"], g)
+    # ---- drift (positions and predicted hsml) ----
     st["ipos"] = drift(st["ipos"], st["vel"], scal["ddrift"], 1.0 / boxsize)
+    if gas is not None:
+        hs = st["hsml"] + st["dt_hsml"] * float(f32(scal["ddrift"]))
+        st["hsml"] = torch.where(st["gas_mask"],
+                                 torch.clamp(hs, 0.0, 0.45 * boxsize),
+                                 st["hsml"])
 
     # ---- domain exchange to the balanced owners ----
     lay("Exchange")
@@ -204,14 +360,25 @@ def sharded_step(st, bounds, scal, mesh, *, tg, hops_ghost, nmesh,
     st = dict(zip(keys, cols))
     n = st["ipos"].shape[0]
 
-    # ---- ghost strips: the tree's sources near the slab faces ----
+    # ---- ghost strips: the tree's (and the density's) sources near the
+    # slab faces; with gas as wide as the gas's largest hsml times the
+    # margin, and never narrower than the tree's cut-off ----
     lay("Ghosts")
-    g_ipos, g_mass = ghost_strips_multi(
-        (st["ipos"], st["mass"]), st["ipos"], mesh, bounds,
-        float(f32(rcut_box)), hops_ghost)
-    ng = g_ipos.shape[0]
-    ipos_a = torch.cat([st["ipos"], g_ipos])
-    mass_a = torch.cat([st["mass"], g_mass])
+    if gas is not None:
+        g = st["gas_mask"]
+        entvar = torch.where(g, torch.clamp(st["entropy"], min=1e-30)
+                             ** (1.0 / GAMMA), 0.0)
+        w1 = strip_width(global_hmax_box(st["hsml"], g, mesh, boxsize),
+                         gas.margin, rcut_box)
+        payload = (st["ipos"], st["mass"], st["vel"], st["hsml"], entvar, g)
+    else:
+        w1 = float(f32(rcut_box))
+        payload = (st["ipos"], st["mass"])
+    gh = ghost_strips_multi(payload, st["ipos"], mesh, bounds, w1,
+                            ghost_hops(bounds, w1))
+    ng = gh[0].shape[0]
+    ipos_a = torch.cat([st["ipos"], gh[0]])
+    mass_a = torch.cat([st["mass"], gh[1]])
     amag_a = torch.cat([st["amag"], st["amag"].new_zeros(ng)])
 
     lay("Tree")
@@ -249,26 +416,107 @@ def sharded_step(st, bounds, scal, mesh, *, tg, hops_ghost, nmesh,
         st["amag"] = torch.sqrt(torch.sum(grav * grav, dim=-1))
         st["grav_acc"] = grav
 
+    # ---- SPH: density of the rank's own (closing) gas over its rows and
+    # the ghosts, the strip check, then the hydro force ----
+    if gas is not None:
+        lay("SPH/Density")
+        g = st["gas_mask"]
+        if hierarchical:
+            gate = g & closing
+            tmask = torch.cat([closing, closing.new_zeros(ng)])
+        else:
+            gate = g
+            tmask = torch.cat([torch.ones_like(g), g.new_zeros(ng)])
+        d = density_local(
+            ipos_a, mass_a, torch.cat([g, gh[5]]),
+            torch.cat([st["hsml"], gh[3]]), torch.cat([st["vel"], gh[2]]),
+            torch.cat([entvar, gh[4]]), n, gas.dpar, boxsize, tmask,
+            gas.do_egy_density)
+        hsml_n = torch.where(gate, d["hsml"], st["hsml"])
+        if strip_overrun(hsml_n, g, mesh, boxsize, w1):
+            lay(None)
+            return None, {"strip_ok": False}
+        st["hsml"] = hsml_n
+        for k, dk in (("density", "density"), ("egywt", "egy_wt_density"),
+                      ("divv", "div_vel"), ("curlv", "curl_vel"),
+                      ("dhsml_egy", "dhsml_egy_factor"),
+                      ("dt_hsml", "dt_hsml")):
+            keep = hierarchical or k in ("density", "egywt", "dt_hsml")
+            st[k] = torch.where(gate, d[dk], st[k]) if keep else d[dk]
+        lay("SPH/Hydro")
+        hcols = dict(ipos=st["ipos"], vel=st["vel"], mass=st["mass"],
+                     hsml=st["hsml"], entvar=entvar, density=st["density"],
+                     egywt=st["egywt"], divv=st["divv"], curlv=st["curlv"],
+                     dhsml_egy=st["dhsml_egy"])
+        h = sharded_hydro(hcols, g, mesh, bounds, gas.hpar, boxsize,
+                          float(f32(scal["atime"])),
+                          float(f32(scal["hubble"])),
+                          float(f32(scal["dloga_full"])))
+        st["hydro_acc"] = torch.where(
+            gate[:, None], h["hydro_accel"],
+            torch.where(g[:, None], st["hydro_acc"], 0.0))
+        st["dtent"] = torch.where(gate, h["dt_entropy"],
+                                  torch.where(g, st["dtent"], 0.0))
+        st["maxsig"] = torch.where(gate, h["max_signal_vel"],
+                                   torch.where(g, st["maxsig"], 0.0))
+
     # ---- closing half kick with the fresh forces ----
     lay("Kick")
     if hierarchical:
-        gk_close = torch.as_tensor(np.asarray(scal["gk_close"], f32),
-                                   device=dev)
-        gk2 = torch.where(closing, gk_close[bins], 0.0)
+        gk2 = torch.where(closing, _table(scal, "gk_close", dev)[bins], 0.0)
         st["vel"] = st["vel"] + st["grav_acc"] * gk2[:, None]
-        # bins of the rows closing their interval: shrink freely, grow
-        # only where the longer interval is aligned with the far clock
-        # edge (is_timebin_active)
+        if gas is not None:
+            gcl = st["gas_mask"] & closing
+            hk2 = torch.where(gcl, _table(scal, "hk_close", dev)[bins], 0.0)
+            st["vel"] = st["vel"] + st["hydro_acc"] * hk2[:, None]
+            st["entropy"] = _entropy_update(
+                st["entropy"], st["dtent"],
+                _table(scal, "dlg_close", dev)[bins], st["density"],
+                gas.min_egy_spec, scal["atime"], gcl)
+    else:
+        st["vel"] = st["vel"] + st["grav_acc"] * float(f32(scal["dk2"]))
+        if gas is not None:
+            g = st["gas_mask"]
+            st["vel"] = st["vel"] + torch.where(
+                g[:, None], st["hydro_acc"], 0.0) * float(f32(scal["hk2"]))
+            st["entropy"] = _entropy_update(
+                st["entropy"], st["dtent"], float(f32(scal["dloga2"])),
+                st["density"], gas.min_egy_spec, scal["atime"], g)
+
+    # ---- Strang-split source terms: each closing gas row over its own
+    # bin (hierarchical), every gas row over the step (global) ----
+    sums = None
+    if gas is not None and (gas.sfr_fn or gas.cooling_fn):
+        lay("Cooling/SFR")
+        if hierarchical:
+            gas_src = st["gas_mask"] & closing
+            dl = torch.where(gas_src, _table(scal, "dlg_full", dev)[bins],
+                             0.0)
+        else:
+            gas_src = st["gas_mask"]
+            dl = float(f32(scal["dloga_full"]))
+        st, sums = _source_terms(st, gas_src, dl, scal, gas, mesh)
+        if hierarchical:
+            # new star rows close no bin in this substep
+            grown = st["ipos"].shape[0] - n
+            closing = torch.cat([closing, closing.new_zeros(grown)])
+            n += grown
+
+    # ---- bins of the rows closing their interval ----
+    lay("Kick")
+    if hierarchical:
+        # shrink freely, grow only where the longer interval is aligned
+        # with the far clock edge (is_timebin_active)
         nb = assign_bins(st, scal["atime"], scal["eta_eps"],
                          scal["hubble"], scal["max_dloga"],
-                         scal["dloga_tick"], scal["maxbin"])
+                         scal["dloga_tick"], scal["maxbin"],
+                         courant=None if gas is None else
+                         (scal["courant_fac"], scal["fac3"]))
         cur = st["bins"]
         new = torch.where(closing & (nb < cur), nb, cur)
         new = torch.where(closing & (nb > cur) & al_close[nb.long()], nb,
                           new)
         st["bins"] = torch.clamp(new, 1, int(scal["maxbin"]))
-    else:
-        st["vel"] = st["vel"] + st["grav_acc"] * float(f32(scal["dk2"]))
 
     # ---- statistics summed over ranks ----
     lay("Stats")
@@ -277,6 +525,21 @@ def sharded_step(st, bounds, scal, mesh, *, tg, hops_ghost, nmesh,
     stats["max_acc"] = float(coll.pmax(amax, mesh))
     stats["hist"] = count_histogram(st["ipos"], mesh, hist_bits)
     stats["n_valid"] = int(coll.psum(torch.tensor(n, device=dev), mesh))
+    if gas is not None:
+        g = st["gas_mask"]
+        inf = float("inf")
+        h_sig = torch.where(g, st["hsml"] / torch.clamp(st["maxsig"],
+                                                         min=1e-30), inf)
+        h_dth = torch.where(g, torch.abs(st["hsml"]
+                                         / (st["dt_hsml"] + 1e-20)), inf)
+        mins = torch.stack([h_sig.min() if n else torch.tensor(inf),
+                            h_dth.min() if n else torch.tensor(inf)])
+        mins = coll.pmin(mins.to(dev), mesh).cpu().numpy()
+        stats["min_h_over_sig"] = float(mins[0])
+        stats["min_h_over_dth"] = float(mins[1])
+        stats["strip_ok"] = True
+        if sums is not None:
+            stats.update(sums)
     if hierarchical:
         bins_c = torch.clamp(st["bins"], 1, MAXB).long()
         al_n = al_close[bins_c]

@@ -1,7 +1,8 @@
 """Distributed friends-of-friends over the slab decomposition.
 
-PyTorch port of mpgadget_tpu/parallel/fof.py (primary linking, counts and
-catalogue; the secondary attach and BH seeding come with the sharded gas),
+PyTorch port of mpgadget_tpu/parallel/fof.py (primary linking, the
+secondary attach, counts and catalogue; BH seeding comes with the sharded
+black holes),
 the redesign of the reference's distributed FOF (libgadget/fof.c): the
 reference links primaries with treewalks whose exports hop ranks until no
 label changes (fof_fof, fof.c:158-330) and compiles the catalogue with an
@@ -24,6 +25,14 @@ label round:
 3. the count of changed labels, summed over ranks, says whether to go on;
    it takes O(slabs a group spans) rounds.
 
+Secondaries (gas, stars, black holes by FOFSecondaryLinkTypes) then join
+the group of their nearest primary (fof_secondary, fof.c:1175): the
+primaries within 32 linking lengths of a slab arrive as ghosts with their
+labels, and each rank runs the single-device attach
+(physics/fof.fof_secondary: radii doubling from the linking length) over
+its rows and those ghosts.  Members are counted after the attach, so the
+catalogue's by-type columns count the secondaries.
+
 The catalogue routes per-label partial sums to the label's owner rank
 through a split-size all_to_all, which reduces them and joins the
 all-gathered table.  Centres of mass are circular means (atan2 of
@@ -33,7 +42,7 @@ mass-weighted phases), as in the JAX package.
 import numpy as np
 import torch
 
-from ..physics.fof import FOFParams, fof_label
+from ..physics.fof import FOFParams, fof_label, fof_secondary
 from . import collectives as coll
 from .decomp import exchange_by_dest, ghost_strips_multi
 
@@ -90,6 +99,31 @@ def fof_round(ipos, prim, label, mesh, bounds, ll_box, hops, cfg):
     return out, changed
 
 
+SECONDARY_EXPAND = 6    # attach radii: the linking length times 1..32
+
+
+def fof_attach_secondaries(ipos, prim, sec, label, mesh, bounds, ll_box,
+                           cfg):
+    """The secondary attach (build_fof_secondary): each secondary row takes
+    the label of its nearest primary within the expanding radii, over this
+    rank's rows and the primaries of the other slabs within the widest
+    radius.  Returns the labels (secondaries attached, -1 where no primary
+    lies within reach)."""
+    w_box = float(np.float32(ll_box * 2.0 ** (SECONDARY_EXPAND - 1)))
+    gi = torch.nonzero(prim).squeeze(1)
+    g_ipos, g_lab = ghost_strips_multi(
+        (ipos[gi], label[gi]), ipos[gi], mesh, bounds, w_box,
+        _hops_for(bounds, w_box, mesh.size))
+    ng = g_ipos.shape[0]
+    ones = torch.ones(ng, dtype=torch.bool, device=ipos.device)
+    att = fof_secondary(torch.cat([ipos, g_ipos]),
+                        torch.cat([sec, ~ones]), torch.cat([prim, ones]),
+                        torch.cat([label, g_lab]), 1.0,
+                        float(np.float32(ll_box)), cfg,
+                        max_expand=SECONDARY_EXPAND)[:ipos.shape[0]]
+    return torch.where(sec, att, label)
+
+
 def fof_counts(label, mesh, offset, counts, min_group_length):
     """Member count per label and the qualifying labels (>= min length),
     sorted, the same on every rank.  Labels are global row ids, so a
@@ -128,9 +162,10 @@ def fof_catalog_table(st, label, qual, mesh, offset, counts):
     onehot = (t[:, None] == torch.arange(6, device=dev)[None, :]).to(
         torch.float32)
     ones = torch.ones((rows.shape[0], 1), dtype=torch.float32, device=dev)
+    sfr = st["sfr"][rows][:, None] if "sfr" in st else torch.zeros_like(ones)
     vals = torch.cat([m, m * torch.cos(theta), m * torch.sin(theta),
-                      m * st["vel"][rows], m * onehot,
-                      torch.zeros_like(ones), onehot, ones], dim=1)
+                      m * st["vel"][rows], m * onehot, sfr, onehot, ones],
+                     dim=1)
     seg = torch.zeros((run_lab.shape[0], _NCOLS), dtype=torch.float32,
                       device=dev).index_add_(0, run_of_row, vals)
     # ---- route the partials to the label's owner ----
@@ -197,11 +232,13 @@ def sharded_fof(mesh, st, bounds, *, boxsize, mean_sep, params,
     """The distributed FOF (runfof, run.c:813 + fof_fof, fof.c:158-330 at
     scale): label rounds to convergence, member counts, catalogue.
 
-    st: this rank's columns {ipos, vel, mass, ptype}; bounds: the S slab
-    left edges; params: physics.fof.FOFParams.  stats: optional dict that
-    receives "rounds".  Returns (cat, sorted_labels, labels): cat and
-    sorted_labels as :func:`finalize_catalog`, labels this rank's global
-    group label per row (-1 ungrouped)."""
+    st: this rank's columns {ipos, vel, mass, ptype[, sfr]}; bounds: the
+    S slab left edges; params: physics.fof.FOFParams.  stats: optional
+    dict that receives "rounds".  Returns (cat, sorted_labels, labels):
+    cat and sorted_labels as :func:`finalize_catalog` (the catalogue's
+    StarFormationRate sums the sfr column when st has one), labels this
+    rank's global group label per row (-1 ungrouped), secondaries
+    attached."""
     S = mesh.size
     ll_box = params.linking_length * mean_sep / boxsize
     ptype = st["ptype"].long()
@@ -209,10 +246,6 @@ def sharded_fof(mesh, st, bounds, *, boxsize, mean_sep, params,
             & params.primary_link_types) > 0
     sec = ~prim & (((torch.ones_like(ptype) << ptype)
                     & params.secondary_link_types) > 0)
-    if bool(coll.psum(sec.sum(), mesh)):
-        raise ValueError("sharded FOF: secondary linking (gas, stars, "
-                         "black holes) is not yet ported to the sharded "
-                         "driver")
     n = st["ipos"].shape[0]
     offset, counts = row_offsets(n, mesh)
     gid = offset + torch.arange(n, device=mesh.device)
@@ -234,6 +267,9 @@ def sharded_fof(mesh, st, bounds, *, boxsize, mean_sep, params,
                            f"{max_rounds}")
     if stats is not None:
         stats["rounds"] = rnd + 1
+    if bool(coll.psum(sec.sum(), mesh)):
+        label = fof_attach_secondaries(st["ipos"], prim, sec, label, mesh,
+                                       bounds, ll_box, cfg)
     qual = fof_counts(label, mesh, offset, counts, params.min_group_length)
     g_lab, g_val = fof_catalog_table(st, label, qual, mesh, offset, counts)
     cat, sorted_labels = finalize_catalog(g_lab.cpu().numpy(),

@@ -1,14 +1,16 @@
 """Sharded snapshot and PIG output: one stripe file per rank.
 
-PyTorch port of mpgadget_tpu/parallel/snapshot.py (its dark-matter
-blocks), the analog of the reference's collective petaio writer
-(libgadget/petaio.c:33-68, :622-700 petaio_save_block): every block is
-created with one stripe file per rank, rank 0 writes the header with the
-per-rank row counts, each rank writes only its own rows, and rank 0
-records the stripes' checksums; a barrier separates the blocks.  Rows of
-species t appear in rank order (stripe s holds rank s's rows), so a
-snapshot written by S ranks reads back to the same rows as one written by
-one writer, after a sort by ID.
+PyTorch port of mpgadget_tpu/parallel/snapshot.py, the analog of the
+reference's collective petaio writer (libgadget/petaio.c:33-68, :622-700
+petaio_save_block): every block is created with one stripe file per rank,
+rank 0 writes the header with the per-rank row counts, each rank writes
+only its own rows, and rank 0 records the stripes' checksums; a barrier
+separates the blocks.  Rows of species t appear in rank order (stripe s
+holds rank s's rows), so a snapshot written by S ranks reads back to the
+same rows as one written by one writer, after a sort by ID.  The gas
+(type 0) and star (type 4) blocks are those of the single writer's
+registry (io/registry.py) that the sharded state carries, with the
+derived InternalEnergy of the gas.
 """
 
 import os
@@ -18,6 +20,7 @@ import torch
 
 from ..io.bigfile import BigFile
 from ..io import snapshot as snap_io
+from ..utils.constants import GAMMA_MINUS1
 from . import collectives as coll
 from .fof import group_index, row_offsets
 from .sort import sharded_sort
@@ -25,10 +28,13 @@ from .sort import sharded_sort
 MASK32 = 0xFFFFFFFF
 
 
-def species_block_table(st, *, atime, boxsize, ipos_offset):
-    """(block name, column, dtype, transform) of the dark-matter blocks
-    (write_snapshot + io/registry's base blocks), keyed on the sharded
-    columns; Potential when the state carries it (OutputPotential)."""
+def species_block_table(st, t, *, atime, boxsize, ipos_offset):
+    """(block name, column(s), dtype, transform) of species t's blocks
+    (write_snapshot + io/registry's blocks), keyed on the sharded columns:
+    the base blocks, Potential when the state carries it
+    (OutputPotential), the gas blocks for t = 0 (InternalEnergy from the
+    entropy and density columns) and the star blocks for t = 4, each only
+    where the state carries its column."""
     inv32 = boxsize / 2.0 ** 32
     off = np.asarray(ipos_offset, np.int64)
 
@@ -41,13 +47,43 @@ def species_block_table(st, *, atime, boxsize, ipos_offset):
         # reciprocal multiply, as the single writer (io/snapshot.py)
         return (v * vfac).astype("<f4")
 
+    a3inv = 1.0 / atime ** 3
+
+    def u_tr(ent_rho):
+        # InternalEnergy = entropy / (gamma-1) rho_phys^(gamma-1), as the
+        # single writer's _species_extra_blocks
+        return (ent_rho[:, 0] / GAMMA_MINUS1 * np.maximum(
+            ent_rho[:, 1] * a3inv, 1e-30) ** GAMMA_MINUS1).astype("<f4")
+
     table = [("Position", "ipos", "<f8", pos_tr),
              ("Velocity", "vel", "<f4", vel_tr),
              ("ID", "pid", "<u8", None),
-             ("Mass", "mass", "<f4", None)]
-    if "potential" in st:
-        table.append(("Potential", "potential", "<f4", None))
-    return table
+             ("Mass", "mass", "<f4", None),
+             ("Potential", "potential", "<f4", None)]
+    if t == 0:
+        table += [("SmoothingLength", "hsml", "<f4", None),
+                  ("Density", "density", "<f4", None),
+                  ("EgyWtDensity", "egywt", "<f4", None),
+                  ("ElectronAbundance", "ne", "<f4", None),
+                  ("StarFormationRate", "sfr", "<f4", None),
+                  ("DelayTime", "delay_time", "<f4", None),
+                  ("Metallicity", "metallicity", "<f4", None),
+                  ("InternalEnergy", ("entropy", "density"), "<f4", u_tr)]
+    elif t == 4:
+        table += [("StarFormationTime", "formation_time", "<f4", None),
+                  ("BirthDensity", "birth_density", "<f4", None),
+                  ("Metallicity", "birth_metallicity", "<f4", None)]
+
+    def carried(key):
+        return all(k in st for k in (key if isinstance(key, tuple)
+                                     else (key,)))
+    return [row for row in table if carried(row[1])]
+
+
+def table_columns(table):
+    """The state columns a block table reads."""
+    return {k for _, key, _, _ in table
+            for k in (key if isinstance(key, tuple) else (key,))}
 
 
 def write_block_sharded(bf, name, rows, counts, dtype, mesh,
@@ -78,10 +114,12 @@ def write_block_sharded(bf, name, rows, counts, dtype, mesh,
     coll.barrier(mesh)
 
 
-def _write_species(bf, st, table, mesh, prefix="", extra=()):
-    """Every species' blocks of this rank's rows st (dict of tensors),
-    plus extra (name, column, dtype, transform) blocks.  Returns the
-    total rows per type."""
+def _write_species(bf, st, tables, mesh, extra=()):
+    """Every species' blocks of this rank's rows st (dict of tensors):
+    tables[t] (species_block_table's rows), plus extra (name, column,
+    dtype, transform) blocks.  A row's column may be a tuple of columns,
+    which its transform reads side by side.  Returns the total rows per
+    type."""
     ptype = st["ptype"]
     ntot = np.zeros(6, np.uint64)
     for t in range(6):
@@ -92,11 +130,19 @@ def _write_species(bf, st, table, mesh, prefix="", extra=()):
         ntot[t] = sum(counts)
         if ntot[t] == 0:
             continue
-        for name, key, dtype, tr in list(table) + list(extra):
-            write_block_sharded(bf, f"{prefix}{t}/{name}",
-                                st[key][sel].cpu().numpy(), counts, dtype,
-                                mesh, transform=tr)
+        for name, key, dtype, tr in list(tables[t]) + list(extra):
+            col = torch.stack([st[k][sel] for k in key], dim=1) \
+                if isinstance(key, tuple) else st[key][sel]
+            write_block_sharded(bf, f"{t}/{name}", col.cpu().numpy(),
+                                counts, dtype, mesh, transform=tr)
     return ntot
+
+
+def _tables(sim, st):
+    return [species_block_table(st, t, atime=sim.atime,
+                                boxsize=sim.cfg.boxsize,
+                                ipos_offset=sim._ipos_offset)
+            for t in range(6)]
 
 
 def write_snapshot_sharded(sim, mesh, st, label=None):
@@ -113,9 +159,7 @@ def write_snapshot_sharded(sim, mesh, st, label=None):
     coll.barrier(mesh)
     bf = BigFile(path)
     atime = sim.atime
-    table = species_block_table(st, atime=atime, boxsize=sim.cfg.boxsize,
-                                ipos_offset=sim._ipos_offset)
-    ntot = _write_species(bf, st, table, mesh)
+    ntot = _write_species(bf, st, _tables(sim, st), mesh)
     if mesh.rank == 0:
         hubble = sim.CP.hubble_function(atime)
         header = snap_io.SnapshotHeader(
@@ -179,14 +223,12 @@ def write_pig_sharded(sim, mesh, st, labels, sorted_labels, cat,
         # ranks in the sorted order (fof_distribute_particles analog)
         offset, _ = row_offsets(st["ipos"].shape[0], mesh)
         key = (gi[sel] << 34) | (sel + offset)
-        table = species_block_table(st, atime=atime,
-                                    boxsize=sim.cfg.boxsize,
-                                    ipos_offset=sim._ipos_offset)
-        cols = sorted({k for _, k, _, _ in table} | {"ptype"})
+        tables = _tables(sim, st)
+        cols = sorted(set().union(*map(table_columns, tables)) | {"ptype"})
         k_s, rows = sharded_sort(key, {k: st[k][sel] for k in cols}, mesh)
         rows["gi"] = k_s >> 34
         ntot = _write_species(
-            bf, rows, table, mesh,
+            bf, rows, tables, mesh,
             extra=[("GroupID", "gi", "<u4",
                     lambda g: (g + 1).astype("<u4"))])
     if mesh.rank == 0:

@@ -232,12 +232,13 @@ def check_supported(cfg: SimConfig, has_gas: bool):
 
 def check_sharded_supported(cfg: SimConfig, has_gas: bool):
     """Refuse, before the first step, a switch that the sharded driver
-    (Simulation.run_sharded) does not carry yet: the gas and everything
-    that needs it, and the dark-matter options.  The single-device run()
-    carries them all."""
-    gas = [("HydroOn", cfg.hydro_on), ("CoolingOn", cfg.cooling_on),
-           ("StarformationOn", cfg.starformation_on),
-           ("WindOn", cfg.wind_on), ("BlackHoleOn", cfg.black_hole_on),
+    (Simulation.run_sharded) does not carry yet.  It carries the gas
+    (HydroOn), cooling with the tables it takes (TreeCoolFile,
+    MetalCoolFile, UVFluctuationFile) and star formation; it refuses
+    winds, black holes, metal return (which needs star formation there,
+    as in the JAX package), QSO lightup, the excursion set and the
+    dark-matter options.  The single-device run() carries them all."""
+    gas = [("WindOn", cfg.wind_on), ("BlackHoleOn", cfg.black_hole_on),
            ("MetalReturnOn", cfg.metal_return_on),
            ("QSOLightupOn", cfg.qso_lightup_on),
            ("ExcursionSetReionOn", cfg.excursion_set_on)]
@@ -247,9 +248,13 @@ def check_sharded_supported(cfg: SimConfig, has_gas: bool):
              ("PlaneOutputList", bool(cfg.plane_output_list))]
     for name, on in (gas if has_gas else []) + other:
         if on:
+            also = (" (and MetalReturnOn needs StarformationOn in the "
+                    "sharded driver: star slots)"
+                    if name == "MetalReturnOn" and not cfg.starformation_on
+                    else "")
             raise ValueError(f"{name} is not yet ported to the sharded "
                              "driver; run it with MPG_SHARDED=0 on one "
-                             "device")
+                             f"device{also}")
 
 
 class Simulation:
@@ -1834,41 +1839,54 @@ class Simulation:
 
     def run_sharded(self, mesh, max_steps=None, verbose=True,
                     hierarchical=False, layer_sync=False):
-        """Multi-rank main loop of the dark matter (run.c:358-800 at
-        scale; the JAX package's run_sharded with its gas, subgrid and
-        auxiliary parts left for later slices).
+        """Multi-rank main loop (run.c:358-800 at scale; the JAX package's
+        run_sharded with its winds, black holes, metal return and
+        auxiliary physics left for later slices).
 
         mesh: parallel.mesh.ShardMesh of this rank.  Every rank holds the
         whole host state (read from the same IC, as every MPI rank reads
-        the snapshot before the domain scatter, petaio.c:33-68) and keeps
-        the rows of its slab: parallel/driver.py's KDK step (global) or
-        per-timebin substeps with a PM refresh at each end of the interval
-        (hierarchical=True, the sharded step_hierarchical), over
-        count-balanced boundaries recomputed from the x histogram summed
-        over ranks after every step.  Timestep statistics are summed over
-        ranks, so no step gathers rows.  Sync points write striped
-        snapshots (parallel/snapshot.py) and, with SnapshotWithFOF, the
-        distributed FOF's PIG (parallel/fof.py).  The host mirror
-        (self.pdata) is refreshed from every rank's rows at the end.  No
-        per-step power spectrum is written (the JAX package's sharded run
-        writes none either).
+        the snapshot before the domain scatter, petaio.c:33-68), sets up
+        its gas there (setup_gas or the snapshot's, then a first
+        compute_hydro) and keeps the rows of its slab: parallel/driver.py's
+        KDK step (global) or per-timebin substeps with a PM refresh at each
+        end of the interval (hierarchical=True, the sharded
+        step_hierarchical), over count-balanced boundaries recomputed from
+        the x histogram summed over ranks after every step.  With gas the
+        step runs the sharded density and hydro force, the entropy
+        integration, and cooling or cooling with star formation (the new
+        stars appended to the rank that formed them); a density strip too
+        narrow for the converged hsml runs the same step again with a
+        strip 1.5 times wider, which the rest of the run keeps.  Timestep
+        statistics are summed over ranks, so no step gathers rows.  Sync
+        points write striped snapshots (parallel/snapshot.py) and, with
+        SnapshotWithFOF, the distributed FOF's PIG (parallel/fof.py).
+        Rank 0 writes sfr.txt from the sums over ranks, a line for each
+        step that formed stellar mass (total_sm > 0, sfr_eff.c:356).  The
+        host mirror (self.pdata, self.sph, self.stars) is refreshed from
+        every rank's rows at the end.  No per-step power spectrum is
+        written (the JAX package's sharded run writes none either).
 
         layer_sync=True synchronises the device at each layer boundary of
         the step, so that ``self.walltime`` splits the step's seconds by
-        layer; ``self.sharded_log`` gets one dict per PM step.  Raises
+        layer; ``self.sharded_log`` gets one dict per PM step,
+        ``self.sharded_rows`` this rank's rows by type at the end and
+        ``self.sharded_formed`` the stars this rank formed.  Raises
         ValueError before the first step for a switch this driver does not
         carry (check_sharded_supported)."""
         check_sharded_supported(self.cfg, self.has_gas)
         from .parallel import collectives as coll
         from .parallel.decomp import balanced_boundaries
-        from .parallel.driver import (MAXB, Layers, assign_bins,
-                                      ghost_hops, pm_refresh, sharded_step)
+        from .parallel.driver import (MAXB, GasStep, Layers, assign_bins,
+                                      pm_refresh, sharded_step)
         from .parallel.fof import sharded_fof
         from .parallel.mesh import (default_n_local, fetch_global,
                                     shard_particles)
         from .parallel.snapshot import (write_snapshot_sharded,
                                         write_pig_sharded)
+        from .parallel.sph import STRIP_WIDEN
         from .physics.fof import FOFParams
+        from .timeline import round_down_power_of_two
+        from .utils.constants import GAMMA
         from .utils.hci import (HCIManager, HCI_STOP, HCI_TERMINATE,
                                 HCI_CHECKPOINT, HCI_TIMEOUT,
                                 HCI_AUTO_CHECKPOINT)
@@ -1881,7 +1899,18 @@ class Simulation:
         log2s = int(np.log2(S))
         assert 1 << log2s == S, "rank count must be a power of two"
         with_potential = bool(self.cfg.output_potential)
+        with_gas = bool(self.has_gas and self.cfg.hydro_on)
+        with_sfr = bool(with_gas and self.cfg.starformation_on)
+        with_cooling = bool(with_gas and self.cfg.cooling_on
+                            and not with_sfr)
         os.makedirs(self.cfg.output_dir, exist_ok=True)
+        if with_gas and not self._gas_initialized:
+            if self._gas_restore:
+                self._restore_gas()
+            else:
+                self.setup_gas()
+        if with_gas:
+            self.compute_hydro(dloga=0.0)
         if self._tree_grav is None:
             self.compute_forces(measure_power=False)
         tg = self._tree_grav
@@ -1905,6 +1934,29 @@ class Simulation:
             cols["pm_pot"] = pd.potential
             if hierarchical:
                 cols["tree_pot"] = torch.zeros_like(pd.potential)
+        if with_gas:
+            sph = self.sph
+            cols.update(
+                gas_mask=self.gas_mask, hsml=pd.hsml, entropy=sph.entropy,
+                dtent=sph.dt_entropy, density=sph.density,
+                egywt=sph.egy_wt_density, divv=sph.div_vel,
+                curlv=sph.curl_vel, dhsml_egy=sph.dhsml_egy_factor,
+                dt_hsml=pd.dt_hsml, hydro_acc=sph.hydro_accel,
+                maxsig=sph.max_signal_vel)
+        if with_cooling or with_sfr:
+            if self._cooling is None:
+                self._init_cooling()
+            cols.update(ne=self.sph.ne, metallicity=self.sph.metallicity)
+        if with_sfr:
+            if self._sfr is None:
+                self._init_sfr()
+            if self.stars is None:
+                from .physics.stars import StarData
+                self.stars = StarData.zeros(pd.capacity, self.device)
+            cols.update(sfr=self.sph.sfr, delay_time=self.sph.delay_time,
+                        formation_time=self.stars.formation_time,
+                        birth_density=self.stars.birth_density,
+                        birth_metallicity=self.stars.metallicity)
         n_local = default_n_local(pd.capacity, S)
         st = shard_particles(cols, pd.valid.cpu(), mesh, n_local)
         for k, v in st.items():
@@ -1922,18 +1974,61 @@ class Simulation:
                       gconst=self.CP.GravInternal, asmth=self.cfg.asmth,
                       with_potential=with_potential, hist_bits=hist_bits,
                       layers=lay)
+        f32 = np.float32
+        gas = None
+        if with_gas:
+            from .sph.hydra import HydroParams
+            gas = GasStep(
+                self._density_params(),
+                HydroParams(
+                    kernel_type=self.cfg.density_kernel_type,
+                    art_bulk_visc=self.cfg.art_bulk_visc,
+                    density_independent=self.cfg.density_independent_sph,
+                    density_contrast_limit=self.cfg.density_contrast_limit),
+                self.cfg.density_independent_sph, self._min_egy_spec,
+                sfr_fn=self._sharded_sfr_fn() if with_sfr else None,
+                cooling_fn=(self._sharded_cooling_fn() if with_cooling
+                            else None))
+
+        def source_scalars(scal, ti_key, a1):
+            """The source terms' host scalars at a1: the redshift, the
+            global UV background (float32, as the JAX package's step) and,
+            with star formation, the draws' key of the step."""
+            if not (with_sfr or with_cooling):
+                return scal
+            z1 = 1.0 / a1 - 1.0
+            scal["redshift"] = float(f32(z1))
+            uv = self._treecool.get_global_uvbg(z1)
+            scal["uvbg"] = type(uv)(*(float(f32(v)) for v in (
+                uv.gJH0, uv.gJHe0, uv.gJHep, uv.epsH0, uv.epsHe0,
+                uv.epsHep, uv.self_shield_dens)))
+            if with_sfr:
+                from .utils import threefry
+                scal["key"] = threefry.prng_key(
+                    (self.cfg.random_seed + ti_key) % (2 ** 31))
+            return scal
 
         def step(st, scal):
-            return sharded_step(st, bounds, scal, mesh, tg=tg,
-                                hops_ghost=ghost_hops(bounds, rcut_box),
-                                rcut=self.cfg.rcut,
-                                hierarchical=hierarchical, **common)
+            """One step; a density strip too narrow for the converged hsml
+            runs it again with a wider one (kept for the rest of the
+            run)."""
+            while True:
+                new, stats = sharded_step(st, bounds, scal, mesh, tg=tg,
+                                          rcut=self.cfg.rcut,
+                                          hierarchical=hierarchical,
+                                          gas=gas, **common)
+                if stats.get("strip_ok", True):
+                    return new, stats
+                gas.margin *= STRIP_WIDEN
+                if verbose:
+                    message(f"[sharded] density strip too narrow: margin "
+                            f"{gas.margin:.4g}")
 
         def dloga_from_stats(stats, atime, pm_only=False):
             """The host timestep policy from statistics summed over ranks
-            (get_long_range_timestep_dloga + the acceleration criterion,
-            timestep.c:1063-1300); pm_only keeps the displacement
-            criterion alone (the hierarchical PM interval)."""
+            (get_long_range_timestep_dloga + the acceleration and Courant
+            criteria, timestep.c:1063-1300); pm_only keeps the
+            displacement criterion alone (the hierarchical PM interval)."""
             par = self.cfg.timestep
             hubble = self.CP.hubble_function(atime)
             dloga = par.MaxSizeTimestep
@@ -1962,30 +2057,68 @@ class Simulation:
                 eta_eps = 2 * par.ErrTolIntAccuracy * atime * tg.softening
                 dloga = min(dloga, float(
                     np.sqrt(eta_eps / (amax / atime ** 2)) * hubble))
+            if with_gas:
+                fac3 = atime ** (3 * (1 - GAMMA) / 2.0)
+                hos = stats["min_h_over_sig"]
+                if np.isfinite(hos):
+                    dloga = min(dloga, 2 * par.CourantFac * atime * hos
+                                / fac3 * hubble)
+                hod = stats["min_h_over_dth"]
+                if np.isfinite(hod):
+                    dloga = min(dloga, par.CourantFac * atime * atime
+                                * hod * hubble)
             return max(dloga, par.MinSizeTimestep)
 
         def mirror_to_host():
             """Every rank's rows, in rank order, into the host state
-            (outputs and the final state only)."""
+            (outputs and the final state only); the host arrays grow when
+            new stars outnumber the free rows."""
             rows = {k: fetch_global(v, mesh) for k, v in st.items()}
             n = rows["ipos"].shape[0]
             cap = max(int(self.pdata.capacity), n)
+
+            def put(field_arr, key):
+                full = field_arr.clone()
+                full[:n] = rows[key].to(self.device, full.dtype)
+                return full
+
             new = ParticleData.zeros(cap, device=self.device)
-            upd = {}
             names = dict(ipos="ipos", vel="vel", mass="mass", pid="pid",
                          ptype="ptype", grav_accel="grav_acc")
             if hierarchical:
                 names.update(grav_pm="pm_acc", timebin="bins")
             if with_potential:
                 names["potential"] = "pm_pot"
-            for field_, key in names.items():
-                full = getattr(new, field_).clone()
-                full[:n] = rows[key].to(self.device, full.dtype)
-                upd[field_] = full
+            if with_gas:
+                names.update(hsml="hsml", dt_hsml="dt_hsml")
+            upd = {f: put(getattr(new, f), k) for f, k in names.items()}
             valid = torch.zeros(cap, dtype=torch.bool, device=self.device)
             valid[:n] = True
             upd["valid"] = valid
             self.pdata = new.replace(**upd)
+            if with_gas:
+                from .sph.state import SphData
+                sph = SphData.zeros(cap, self.device)
+                names = dict(entropy="entropy", dt_entropy="dtent",
+                             density="density", egy_wt_density="egywt",
+                             div_vel="divv", curl_vel="curlv",
+                             dhsml_egy_factor="dhsml_egy",
+                             hydro_accel="hydro_acc",
+                             max_signal_vel="maxsig")
+                if with_cooling or with_sfr:
+                    names.update(ne="ne", metallicity="metallicity")
+                if with_sfr:
+                    names.update(sfr="sfr", delay_time="delay_time")
+                self.sph = sph.replace(**{f: put(getattr(sph, f), k)
+                                          for f, k in names.items()})
+            if with_sfr:
+                from .physics.stars import StarData
+                stars = StarData.zeros(cap, self.device)
+                names = dict(formation_time="formation_time",
+                             birth_density="birth_density",
+                             metallicity="birth_metallicity")
+                self.stars = stars.replace(**{
+                    f: put(getattr(stars, f), k) for f, k in names.items()})
 
         def do_fof():
             npart = int(coll.psum((st["ptype"] == 1).sum(), mesh))
@@ -2019,6 +2152,29 @@ class Simulation:
             if sp.write_fof or self.cfg.snapshot_with_fof:
                 do_fof()
 
+        self.sharded_formed = 0
+
+        def write_sfr_line(stats):
+            """sfr.txt from the sums over ranks, in the reference's
+            8-column layout (write_sfr, sfr_eff.c:381), on rank 0 and only
+            when the step formed stellar mass (sfr_eff.c:356)."""
+            if not with_sfr:
+                return
+            self.sharded_formed += stats["formed_here"]
+            if mesh.rank != 0 or not stats["sm_sum"] > 0:
+                return
+            sm, dt = stats["sm_sum"], stats["sf_dtime_sum"]
+            n_sf = int(round(stats["sf_count"]))
+            rate = (sm * n_sf / dt * self._sfr.UnitSfr_in_solar_per_year
+                    if dt > 0 else 0.0)
+            mean_dt = dt / n_sf if n_sf > 0 else 0.0
+            with open(os.path.join(self.cfg.output_dir, "sfr.txt"),
+                      "a") as fh:
+                fh.write(f"{self.atime:.12g} {sm:g} {stats['sfr_sum']:g} "
+                         f"{rate:g} {stats['mass_formed_sum']:g} "
+                         f"{mean_dt:g} {n_sf} "
+                         f"{int(round(stats['n_spawned']))}\n")
+
         # ---- HCI: stop / checkpoint / terminate files and TimeLimitCPU,
         # queried at PM boundaries; rank 0 decides and the others follow
         hci = HCIManager(self.cfg.output_dir,
@@ -2045,15 +2201,18 @@ class Simulation:
         loga = self.timeline.loga_from_ti
         par_ts = self.cfg.timestep
         soft_h = 2.8 * self.cfg.gravity_softening * self._dm_mean_sep()
-        f32 = np.float32
 
         def bin_tables(ti, dti_s, maxbin, a1s, pop):
             """Per-bin kick factors and alignment masks of one substep
             (apply_half_kick's factors, timestep.c); the factors (each a
             quadrature on the host) only for the bins that hold rows
-            (pop: rows per bin, summed over ranks)."""
-            gko = np.zeros(MAXB + 1, f32)
-            gkc = np.zeros(MAXB + 1, f32)
+            (pop: rows per bin, summed over ranks).  With gas the hydro
+            kicks, the entropy's dloga per half bin and each bin's full
+            dloga (the source terms' interval)."""
+            z = np.zeros(MAXB + 1, f32)
+            gko, gkc = z.copy(), z.copy()
+            hko, hkc, dlo, dlc, dlf = (z.copy(), z.copy(), z.copy(),
+                                       z.copy(), z.copy())
             ti2 = ti + dti_s
             for b in range(1, maxbin + 1):
                 if not pop[b]:
@@ -2061,9 +2220,16 @@ class Simulation:
                 db = 1 << b
                 if ti % db == 0:
                     gko[b] = self.tf.gravkick(ti, ti + db // 2)
+                    if with_gas:
+                        hko[b] = self.tf.hydrokick(ti, ti + db // 2)
+                        dlo[b] = loga(ti + db // 2) - loga(ti)
                 if ti2 % db == 0:
                     gkc[b] = self.tf.gravkick(ti2 - db // 2, ti2)
-            return {
+                    if with_gas:
+                        hkc[b] = self.tf.hydrokick(ti2 - db // 2, ti2)
+                        dlc[b] = loga(ti2) - loga(ti2 - db // 2)
+                        dlf[b] = loga(ti2) - loga(max(ti2 - db, 0))
+            scal = {
                 "ddrift": self.tf.drift(ti, ti2), "atime": a1s,
                 "hubble": float(self.CP.hubble_function(a1s)),
                 "gk_open": gko, "gk_close": gkc,
@@ -2075,6 +2241,13 @@ class Simulation:
                 "max_dloga": par_ts.MaxSizeTimestep,
                 "dloga_tick": float(self.timeline._interval_dloga(ti)),
                 "maxbin": maxbin}
+            if with_gas:
+                scal.update(
+                    hk_open=hko, hk_close=hkc, dlg_open=dlo, dlg_close=dlc,
+                    dlg_full=dlf, dloga_full=loga(ti2) - loga(ti),
+                    courant_fac=par_ts.CourantFac,
+                    fac3=a1s ** (3 * (1 - GAMMA) / 2.0))
+            return source_scalars(scal, ti, a1s)
 
         def log_step(t_start, n_sub, n_closing, c0):
             self.sharded_log.append(dict(
@@ -2096,6 +2269,11 @@ class Simulation:
             last = pm_stats if hierarchical else stats
             if last is None:
                 dti = self.find_pm_timestep()
+                if with_gas and not hierarchical:
+                    dti_h = round_down_power_of_two(
+                        self.timeline.dti_from_dloga(
+                            self.find_hydro_timestep_dloga(), t0))
+                    dti = min(dti, max(dti_h, 1))
             else:
                 dti = get_pm_timestep_ti(
                     dloga_from_stats(last, a0, pm_only=hierarchical),
@@ -2106,14 +2284,23 @@ class Simulation:
             t1 = t0 + dti
             mid = t0 + dti // 2
             if not hierarchical:
-                st, stats = step(st, {
-                    "dk1": self.tf.gravkick(t0, mid),
-                    "ddrift": self.tf.drift(t0, t1),
-                    "dk2": self.tf.gravkick(mid, t1)})
+                a1 = float(np.exp(loga(t1)))
+                scal = {"dk1": self.tf.gravkick(t0, mid),
+                        "ddrift": self.tf.drift(t0, t1),
+                        "dk2": self.tf.gravkick(mid, t1), "atime": a1,
+                        "hubble": float(self.CP.hubble_function(a1))}
+                if with_gas:
+                    scal.update(hk1=self.tf.hydrokick(t0, mid),
+                                dloga1=loga(mid) - loga(t0),
+                                hk2=self.tf.hydrokick(mid, t1),
+                                dloga2=loga(t1) - loga(mid),
+                                dloga_full=loga(t1) - loga(t0))
+                st, stats = step(st, source_scalars(scal, t0, a1))
                 self.ti_current = t1
                 self.force_evals += stats["n_valid"]
                 n_sub, n_closing = 1, [stats["n_valid"]]
                 hist = stats["hist"]
+                write_sfr_line(stats)
             else:
                 # opening PM half kick with the carried long-range field
                 st["vel"] = st["vel"] + st["pm_acc"] * float(
@@ -2126,7 +2313,10 @@ class Simulation:
                     st, a0, 2 * par_ts.ErrTolIntAccuracy * a0 * soft_h,
                     float(self.CP.hubble_function(a0)),
                     par_ts.MaxSizeTimestep,
-                    float(self.timeline._interval_dloga(t0)), maxbin)
+                    float(self.timeline._interval_dloga(t0)), maxbin,
+                    courant=((par_ts.CourantFac,
+                              a0 ** (3 * (1 - GAMMA) / 2.0))
+                             if with_gas else None))
                 nloc = st["bins"].shape[0]
                 if par_ts.ForceEqualTimesteps:
                     mb0 = int(coll.pmin(st["bins"].min().long() if nloc
@@ -2148,6 +2338,7 @@ class Simulation:
                     n_sub += 1
                     n_closing.append(sstats["n_closing"])
                     self.force_evals += sstats["n_closing"]
+                    write_sfr_line(sstats)
                     bounds = balanced_boundaries(
                         sstats["hist"].cpu().numpy(), S)
                     minb = sstats["min_act_bin"]
@@ -2167,8 +2358,68 @@ class Simulation:
                         f"{nsteps}] a={self.atime:.5f} substeps={n_sub}")
             if max_steps and nsteps >= max_steps:
                 break
+        self.sharded_rows = torch.bincount(st["ptype"].long().cpu(),
+                                           minlength=6).tolist()
         mirror_to_host()
         return nsteps
+
+    def _sharded_uvbg(self, uv, ipos, redshift):
+        """The UV background of a rank's rows: the step's global rates,
+        gated row by row by the UV fluctuation table when there is one."""
+        from .physics.cooling import local_uvbg
+        if self._uvf is not None:
+            return local_uvbg(uv, self._uvf.zreion(ipos), redshift)
+        return uv
+
+    def _sharded_sfr_fn(self):
+        """The sharded step's star formation (the JAX package's sfr_fn):
+        cooling, the effective EOS and stochastic star formation of the
+        listed rows, over per-row intervals, with the step's key (the
+        draws are per ID, so the same stars form at any rank count)."""
+        from .physics import sfr as sfrmod
+        from .physics.cooling import do_cooling
+
+        def sfr_fn(st, gas, dloga, scal):
+            z = scal["redshift"]
+            uv = self._sharded_uvbg(scal["uvbg"], st["ipos"], z)
+
+            def cool_fn(u, rho_phys, dt, ne, rows, metallicity):
+                return do_cooling(self._cooling, z, u, rho_phys, dt, uv, ne,
+                                  self._min_egy_spec, self._cooling_units,
+                                  rows=rows, metallicity=metallicity)
+
+            return sfrmod.cooling_and_starformation(
+                self._sfr, self._cooling, self._cooling_units, scal["key"],
+                density=st["density"], entropy=st["entropy"], ne=st["ne"],
+                metallicity=st["metallicity"], delay_time=st["delay_time"],
+                mass=st["mass"], pid=st["pid"], valid_gas=gas, redshift=z,
+                atime=float(np.float32(scal["atime"])),
+                hubble=float(np.float32(scal["hubble"])), dloga=dloga,
+                uvbg=uv, do_cooling_fn=cool_fn)
+        return sfr_fn
+
+    def _sharded_cooling_fn(self):
+        """The sharded step's cooling without star formation (the
+        cooling_direct path; the JAX package's cooling_fn)."""
+        from .physics.cooling import do_cooling
+        from .utils.constants import GAMMA_MINUS1
+
+        def cooling_fn(st, gas, dloga, scal):
+            z = scal["redshift"]
+            uv = self._sharded_uvbg(scal["uvbg"], st["ipos"], z)
+            a = np.float32(scal["atime"])
+            rho_phys = torch.clamp(st["density"], min=1e-30) / float(
+                a * a * a)
+            u = st["entropy"] / GAMMA_MINUS1 * rho_phys ** GAMMA_MINUS1
+            dt = torch.broadcast_to(torch.as_tensor(
+                dloga, dtype=u.dtype, device=u.device)
+                / float(np.float32(scal["hubble"])), u.shape).contiguous()
+            u_new, ne = do_cooling(self._cooling, z, u, rho_phys, dt, uv,
+                                   st["ne"], self._min_egy_spec,
+                                   self._cooling_units, rows=gas,
+                                   metallicity=st["metallicity"])
+            return GAMMA_MINUS1 * u_new / rho_phys ** GAMMA_MINUS1, ne
+        return cooling_fn
 
     def _run_excursion_set(self):
         """The excursion-set UVBG update at the UVBGTimestep cadence

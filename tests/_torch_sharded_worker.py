@@ -327,3 +327,237 @@ def endrun_case(rank, size, outdir):
         endrun(3, "deliberate failure on rank 1")
     coll.barrier(mesh)          # never completes: rank 1 is gone
     Path(outdir, "rank0_passed").write_text("unexpected")
+
+
+# ---- the sharded gas -------------------------------------------------------
+
+GAS_IC = REPO / "tests" / "torch_star" / "IC"
+# tests/test_torch_star_run.py's run (lya's gas physics, its star-forming
+# thresholds lowered so that stars form at z ~ 9 in a 5 Mpc/h box of 8^3
+# gas), with DensityIndependentSphOn 1: the JAX package's sharded density
+# always sums the entropy-weighted density, so that only this formulation
+# compares with its run_sharded; a snapshot and a PIG (FOF with gas and
+# stars attached as secondaries) at GAS_TIME_MAX.
+GAS_PARAMS = """
+InitCondFile = {ic}
+OutputDir = {out}
+OutputList = {tmax}
+TimeMax = {tmax}
+TimeLimitCPU = 10000
+Omega0 = 0.288
+OmegaLambda = 0.712
+OmegaBaryon = 0.0472
+HubbleParam = 0.7
+HydroOn = 1
+DensityIndependentSphOn = 1
+DensityKernelType = cubic
+CoolingOn = 1
+StarformationOn = 1
+TreeCoolFile =
+InitGasTemp = 270.
+MinGasTemp = 100
+CritOverDensity = 1
+CritPhysDensity = 1e-4
+Generations = 64
+WindOn = 0
+BlackHoleOn = 0
+MetalReturnOn = 0
+MassiveNuLinRespOn = 0
+SnapshotWithFOF = 1
+FOFHaloMinLength = 4
+SplitGravityTimestepsOn = 1
+Nmesh = 16
+"""
+GAS_TIME_MAX = 0.11
+GAS_BOX = 5000.0      # the IC's BoxSize (kpc/h)
+# mode: (paramfile overrides, PM steps (None: to GAS_TIME_MAX))
+GAS_MODES = {"hier": ({}, None),
+             "global": ({"SplitGravityTimestepsOn": 0}, 2),
+             "cool": ({"StarformationOn": 0}, 1)}
+GAS_STATE = ("ipos", "vel", "mass", "ptype", "hsml", "entropy", "density",
+             "egy_wt_density", "ne", "sfr", "formation_time",
+             "birth_density")
+
+
+def gas_paramtext(out, mode, **extra):
+    text = GAS_PARAMS.format(ic=GAS_IC, out=out, tmax=GAS_TIME_MAX)
+    for k, v in dict(GAS_MODES[mode][0], **extra).items():
+        text += f"\n{k} = {v}"
+    return text
+
+
+def build_gas_run(outdir, mode, **extra):
+    """A gas run case's Simulation on the CPU."""
+    from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.params import create_gadget_parameter_set
+    ps = create_gadget_parameter_set()
+    ps.parse_string(gas_paramtext(os.path.join(outdir, mode), mode,
+                                  **extra))
+    ps.validate()
+    return build_simulation(ps, device="cpu")[0]
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def gas_final_state(sim):
+    """The host mirror of a finished run (either package), by ID."""
+    pd = sim.pdata
+    v = _host(pd.valid)
+    cols = {"pid": pd.pid, "ipos": pd.ipos, "vel": pd.vel, "mass": pd.mass,
+            "ptype": pd.ptype, "hsml": pd.hsml}
+    for k in ("entropy", "density", "egy_wt_density", "ne", "sfr"):
+        cols[k] = getattr(sim.sph, k)
+    if sim.stars is not None:
+        cols["formation_time"] = sim.stars.formation_time
+        cols["birth_density"] = sim.stars.birth_density
+    out = {k: _host(c)[v] for k, c in cols.items()}
+    out["ipos"] = out["ipos"].astype(np.int64)
+    o = np.argsort(out["pid"], kind="stable")
+    out = {k: c[o] for k, c in out.items()}
+    out["atime"] = np.float64(sim.atime)
+    return out
+
+
+def bigfile_blocks(path, types=(0, 1, 4)):
+    """Every block of a snapshot or PIG's species, sorted by ID, and the
+    FOFGroups table: {"<t>/<block>": array}."""
+    from mpgadget_tpu_torch.io import BigFile
+    bf = BigFile(str(path))
+    blocks = bf.blocks()
+    out = {}
+    for t in types:
+        if f"{t}/ID" not in bf:
+            continue
+        o = np.argsort(bf.open(f"{t}/ID").read(), kind="stable")
+        for name in blocks:
+            if name.startswith(f"{t}/"):
+                out[name] = bf.open(name).read()[o]
+    for name in blocks:
+        if name.startswith("FOFGroups/"):
+            out[name] = bf.open(name).read()
+    return out
+
+
+def gas_outputs(sim, outdir):
+    """What the gas record keeps of one run: the final state by ID, the
+    sfr.txt lines, and the blocks of its snapshots and PIGs."""
+    out = {f"state/{k}": v for k, v in gas_final_state(sim).items()}
+    sfr = Path(outdir) / "sfr.txt"
+    out["sfr_txt"] = np.array(sfr.read_text().split("\n")[:-1]
+                              if sfr.exists() else [], dtype=str)
+    for kind in ("PART", "PIG"):
+        for i, p in enumerate(sorted(Path(outdir).glob(f"{kind}_*"))):
+            for k, v in bigfile_blocks(p).items():
+                out[f"{kind}{i}/{k}"] = v
+    return out
+
+
+def gas_run_cases(rank, size, outdir, modes):
+    """run_sharded of each gas mode on this rank (rank 0 writes
+    gas_<mode>.npz: gas_outputs, and the sharded log)."""
+    mesh = _mesh()
+    for mode in modes:
+        sim = build_gas_run(outdir, mode)
+        sim.run_sharded(mesh, hierarchical=mode != "global",
+                        verbose=False, max_steps=GAS_MODES[mode][1])
+        if rank == 0:
+            res = gas_outputs(sim, os.path.join(outdir, mode))
+            res["substeps"] = np.asarray([e["substeps"]
+                                          for e in sim.sharded_log])
+            np.savez(os.path.join(outdir, f"gas_{mode}.npz"), **res)
+
+
+# ---- the sharded gas modules ------------------------------------------------
+
+GAS_HSML0 = 0.35     # of the gas's mean separation: too narrow a first
+                     # strip, so that the density solve runs again wider
+GAS_ATIME, GAS_HUBBLE, GAS_DLOGA = 0.1, 0.0316, 0.01   # the hydro call's
+
+
+def gas_module_inputs(seed=15):
+    """module_inputs with types: a quarter dark matter (the FOF's
+    primaries), an eighth stars, the rest gas, with a first hsml
+    GAS_HSML0 of the gas's mean separation and entropy variables near
+    one."""
+    d = module_inputs(seed)
+    pid = d["pid"]
+    ptype = np.zeros(N, np.int32)
+    ptype[pid % 4 == 1] = 1
+    ptype[pid % 8 == 3] = 4
+    ngas = int((ptype == 0).sum())
+    rng = np.random.RandomState(seed + 1)
+    d["ptype"] = ptype
+    d["hsml"] = np.where(ptype == 0, np.float32(
+        GAS_HSML0 * BOX / np.cbrt(ngas)), 0).astype(np.float32)
+    d["entvar"] = (1.0 + 0.2 * rng.rand(N)).astype(np.float32)
+    return d
+
+
+def sph_params():
+    """The density and hydro parameters of the module cases (cubic kernel,
+    either package's dataclasses)."""
+    from mpgadget_tpu_torch.sph.density import DensityParams
+    from mpgadget_tpu_torch.sph.hydra import HydroParams
+    from mpgadget_tpu_torch.sph.kernels import CUBIC
+    return DensityParams(kernel_type=CUBIC), HydroParams(kernel_type=CUBIC)
+
+
+def gas_module_cases(rank, size, outdir):
+    """The sharded gas modules of tests/test_torch_sharded_gas.py on this
+    rank, on the rows of its geometric slab; writes outdir/gas_r<rank>.npz:
+    the density (and the margin its strip needed), the hydro force on the
+    converged density, and the FOF labels with secondaries and its
+    catalogue."""
+    from mpgadget_tpu_torch.parallel import decomp
+    from mpgadget_tpu_torch.parallel.fof import sharded_fof
+    from mpgadget_tpu_torch.parallel.mesh import shard_particles
+    from mpgadget_tpu_torch.parallel.sph import (DENSITY_MARGIN,
+                                                 DENSITY_OUT, HYDRO_OUT,
+                                                 STRIP_WIDEN, sharded_hydro,
+                                                 sharded_sph_density)
+    from mpgadget_tpu_torch.physics.fof import FOFParams
+    mesh = _mesh()
+    S = size
+    d = gas_module_inputs()
+    cols = {k: torch.as_tensor(d[k]).to(torch.int64) if k == "ipos"
+            else torch.as_tensor(d[k])
+            for k in ("ipos", "pid", "mass", "vel", "ptype", "hsml",
+                      "entvar")}
+    st0 = shard_particles(cols, np.ones(N, bool), mesh, n_local_of(S))
+    st, _ = decomp.exchange_to_slabs(dict(st0), st0["ipos"], mesh)
+    geo = (np.arange(S, dtype=np.int64) * (2 ** 32 // S)).astype(np.int64)
+    gas = st["ptype"] == 0
+    dpar, hpar = sph_params()
+    out = {"pid": st["pid"].numpy()}
+    margin = DENSITY_MARGIN
+    while True:     # the strip re-run, as the JAX package's caller's
+        dens, ok = sharded_sph_density(st["ipos"], st["vel"], st["mass"],
+                                       gas, st["hsml"], st["entvar"], mesh,
+                                       geo, dpar, BOX, margin=margin)
+        if ok:
+            break
+        margin *= STRIP_WIDEN
+    out["margin"] = np.float64(margin)
+    for k in DENSITY_OUT:
+        out[f"dens_{k}"] = dens[k].numpy()
+    hcols = dict(ipos=st["ipos"], vel=st["vel"], mass=st["mass"],
+                 hsml=dens["hsml"], entvar=st["entvar"],
+                 density=dens["density"], egywt=dens["egy_wt_density"],
+                 divv=dens["div_vel"], curlv=dens["curl_vel"],
+                 dhsml_egy=dens["dhsml_egy_factor"])
+    h = sharded_hydro(hcols, gas, mesh, geo, hpar, BOX, GAS_ATIME,
+                      GAS_HUBBLE, GAS_DLOGA)
+    for k in HYDRO_OUT:
+        out[f"hydro_{k}"] = h[k].numpy()
+    params = FOFParams(linking_length=FOF_LL, min_group_length=FOF_MIN)
+    ndm = int((d["ptype"] == 1).sum())
+    cat, sorted_labels, labels = sharded_fof(
+        mesh, {k: st[k] for k in ("ipos", "vel", "mass", "ptype")}, geo,
+        boxsize=BOX, mean_sep=BOX / np.cbrt(ndm), params=params)
+    out["fof_label"] = labels.numpy()
+    for k in ("lengths", "masses", "len_by_type", "mass_by_type"):
+        out[f"fof_{k}"] = np.asarray(cat[k])
+    out["fof_sorted_labels"] = np.asarray(sorted_labels)
+    np.savez(os.path.join(outdir, f"gas_r{rank}.npz"), **out)

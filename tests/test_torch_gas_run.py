@@ -13,17 +13,20 @@ compute_hydro, then one hierarchical PM step
 (SplitGravityTimestepsOn switched on).  The port runs its plain versions
 on the CPU; tests/test_torch_cuda.py holds K4 and K5 to them on a card.
 
-The JAX package's run is committed as ``torch_gas/jax_run.npz`` (with its
-final SPH state), which the port's run from the same IC (the port's
-genic, made again by the fixture) is held to; ``test_jax_run_matches_
-its_record`` (slow) runs the JAX package and holds it to the record, and
-with MPG_WRITE_GAS_FIXTURE=1 writes the record anew:
+The IC is committed as ``torch_gas/IC`` and the JAX package's run from it
+as ``torch_gas/jax_run.npz`` (with its final SPH state), which the port's
+run from the same IC is held to.  (The IC is read, not made again: genic's
+FFTs round differently on different CPUs, which moved positions by up to
+53 ticks before any step.)  ``test_jax_run_matches_its_record`` (slow)
+runs the JAX package from the IC and holds it to the record, and with
+MPG_WRITE_GAS_FIXTURE=1 writes the IC and the record anew:
 
     MPG_WRITE_GAS_FIXTURE=1 python -m pytest -m slow \
         tests/test_torch_gas_run.py
 """
 
 import os
+import shutil
 from dataclasses import fields
 from pathlib import Path
 
@@ -45,7 +48,9 @@ from mpgadget_tpu_torch.sph.state import SphData
 # share the machine's cores
 torch.set_num_threads(1)
 
-RECORD = Path(__file__).resolve().parent / "torch_gas" / "jax_run.npz"
+FIXTURE = Path(__file__).resolve().parent / "torch_gas"
+IC = FIXTURE / "IC"
+RECORD = FIXTURE / "jax_run.npz"
 NG = 8
 TOL = 1e-5          # relative, by norm
 GENIC = """
@@ -129,11 +134,14 @@ def _params(create, ic, out, **override):
     return ps
 
 
-def make_ic(tmp):
-    """The IC: the port's genic at Ngrid 8 (GENIC)."""
+def make_ic():
+    """The committed IC, written anew: the port's genic at Ngrid 8
+    (GENIC)."""
     gps = create_genic_parameter_set()
-    gps.parse_string(GENIC.format(out=tmp / "ics", ng=NG))
+    gps.parse_string(GENIC.format(out=FIXTURE, ng=NG))
     gps.validate()
+    if IC.exists():
+        shutil.rmtree(IC)
     return run_genic(gps, device="cpu")
 
 
@@ -185,18 +193,22 @@ def read_record():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_gas_run")
-    ic = make_ic(tmp)
+    ic = str(IC)
     return {"ic": ic, "tmp": tmp, "jax": read_record(),
             "torch": run_package("torch", ic, tmp)}
 
 
 @pytest.mark.slow
 def test_jax_run_matches_its_record(tmp_path):
-    """The JAX package's run from the IC against its committed record:
-    every array within 1e-6 by norm.  With MPG_WRITE_GAS_FIXTURE=1 it
-    writes the record anew."""
-    run = run_package("jax", make_ic(tmp_path), tmp_path)
-    if os.environ.get("MPG_WRITE_GAS_FIXTURE"):
+    """The JAX package's run from the committed IC against its committed
+    record: every array within 1e-6 by norm.  With MPG_WRITE_GAS_FIXTURE=1
+    it writes the IC and the record anew."""
+    write = bool(os.environ.get("MPG_WRITE_GAS_FIXTURE"))
+    if write:
+        FIXTURE.mkdir(exist_ok=True)
+        make_ic()
+    run = run_package("jax", str(IC), tmp_path)
+    if write:
         write_record(run)
     rec = read_record()
     assert set(rec) == set(run)

@@ -190,7 +190,7 @@ def test_parallel_imports_no_jax_and_one_collectives_module():
     import sys
     repo = Path(__file__).resolve().parents[1]
     mods = ["collectives", "mesh", "decomp", "sort", "pfft", "treepm",
-            "driver", "fof", "snapshot"]
+            "driver", "fof", "snapshot", "sph"]
     code = ("import sys; import mpgadget_tpu_torch.utils.log; "
             + "; ".join(f"import mpgadget_tpu_torch.parallel.{m}"
                         for m in mods)

@@ -240,11 +240,17 @@ DM_SWITCHES = {"MassiveNuLinRespOn": "massive_nu_lin_resp_on",
                "PlaneOutputList": "plane_output_list"}
 
 
+# carried by the sharded driver since its gas: each is admitted alone, and
+# a switch it does not carry beside it is still refused
+CARRIED_GAS = ("HydroOn", "CoolingOn", "StarformationOn")
+
+
 @pytest.mark.parametrize("switch", GAS_SWITCHES + tuple(DM_SWITCHES))
 def test_run_sharded_refuses_what_it_does_not_carry(switch, tmp_path):
     from mpgadget_tpu_torch.main import build_simulation
     from mpgadget_tpu_torch.params import create_gadget_parameter_set
     from mpgadget_tpu_torch.parallel.mesh import make_sim_mesh
+    from mpgadget_tpu_torch.run import check_sharded_supported
     gas = switch in GAS_SWITCHES
     ic = REPO / "tests" / ("torch_subgrid" if gas else "torch_parity") / "IC"
     ps = create_gadget_parameter_set()
@@ -258,8 +264,13 @@ def test_run_sharded_refuses_what_it_does_not_carry(switch, tmp_path):
     if not gas:
         setattr(sim.cfg, DM_SWITCHES[switch],
                 "0.2" if switch == "PlaneOutputList" else True)
+    refused = switch
+    if switch in CARRIED_GAS:
+        check_sharded_supported(sim.cfg, True)
+        sim.cfg.wind_on = True
+        refused = "WindOn"
     calls = sim.tree_force_calls
-    with pytest.raises(ValueError, match=f"{switch} is not yet ported to "
+    with pytest.raises(ValueError, match=f"{refused} is not yet ported to "
                                          "the sharded driver"):
         sim.run_sharded(make_sim_mesh("cpu"))
     assert sim.tree_force_calls == calls and sim.ti_current == 0

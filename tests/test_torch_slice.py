@@ -288,25 +288,28 @@ def test_restart_flag_99_raises(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, mpgadget_tpu_torch.main, mpgadget_tpu_torch.run; "
-            "import mpgadget_tpu_torch.gravity.treepm; "
-            "import mpgadget_tpu_torch.physics.fof; "
-            "import mpgadget_tpu_torch.sph.density, "
-            "mpgadget_tpu_torch.sph.hydra, mpgadget_tpu_torch.sph.state; "
-            "import mpgadget_tpu_torch.genic.main, "
-            "mpgadget_tpu_torch.genic.glass; "
-            "import mpgadget_tpu_torch.physics.winds, "
-            "mpgadget_tpu_torch.physics.blackhole, "
-            "mpgadget_tpu_torch.physics.metal_return, "
-            "mpgadget_tpu_torch.physics.yield_tables; "
-            "import mpgadget_tpu_torch.physics.uvbg, "
-            "mpgadget_tpu_torch.physics.qso_lightup; "
+    """Every module of the port imports, and none of them brings in JAX or
+    the JAX package, nor names either in its source."""
+    import re
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "mpgadget_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    assert "mpgadget_tpu_torch.parallel.sph" in mods
+    code = ("import sys, importlib; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mpgadget_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+    use = re.compile(r"^\s*(import|from)\s+(jax\b|mpgadget_tpu\b(?!_torch))",
+                     re.M)
+    named = sorted(str(p.relative_to(REPO))
+                   for p in (REPO / "mpgadget_tpu_torch").rglob("*.py")
+                   if use.search(p.read_text()))
+    assert not named, named
 
 
 @pytest.mark.parametrize("rel", COPIED)

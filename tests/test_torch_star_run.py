@@ -32,19 +32,23 @@ the hierarchical step).  The tree itself is not the cause: on the JAX
 run's own state the port's tree force equals the JAX package's
 (test_tree_force_on_the_jax_state).
 
-The JAX package's three runs are committed as ``torch_star/jax_runs.npz``
-(with the spawn run's final particle and star state and its tree force on
-that state): they cost the suite ~100 s of JAX compiling and running.  In
-the suite the port runs from the IC (the port's genic, made again by the
-fixture) and is held to the record; ``test_jax_runs_match_their_record``
-(slow) runs the JAX package and holds it to the record, and with
-MPG_WRITE_STAR_FIXTURE=1 writes the record anew:
+The IC is committed as ``torch_star/IC`` and the JAX package's three runs
+from it as ``torch_star/jax_runs.npz`` (with the spawn run's final
+particle and star state and its tree force on that state): they cost the
+suite ~100 s of JAX compiling and running.  In the suite the port runs
+from the committed IC and is held to the record.  (The IC is read, not
+made again: genic's FFTs round differently on different CPUs, which moved
+the hierarchical step's positions by up to 71 ticks.)
+``test_jax_runs_match_their_record`` (slow) runs the JAX package from the
+IC and holds it to the record, and with MPG_WRITE_STAR_FIXTURE=1 writes
+the IC and the record anew:
 
     MPG_WRITE_STAR_FIXTURE=1 python -m pytest -m slow \
         tests/test_torch_star_run.py
 """
 
 import os
+import shutil
 from dataclasses import fields
 from pathlib import Path
 
@@ -66,7 +70,9 @@ from mpgadget_tpu_torch.run import SimConfig, check_supported
 
 torch.set_num_threads(1)
 
-RECORD = Path(__file__).resolve().parent / "torch_star" / "jax_runs.npz"
+FIXTURE = Path(__file__).resolve().parent / "torch_star"
+IC = FIXTURE / "IC"
+RECORD = FIXTURE / "jax_runs.npz"
 
 NG = 8
 TOL = 2e-5          # relative, by norm
@@ -154,11 +160,14 @@ def _params(create, ic, out, **override):
     return ps
 
 
-def make_ic(tmp):
-    """The IC: the port's genic at Ngrid 8 (GENIC)."""
+def make_ic():
+    """The committed IC, written anew: the port's genic at Ngrid 8
+    (GENIC)."""
     gps = create_genic_parameter_set()
-    gps.parse_string(GENIC.format(out=tmp / "ics", ng=NG))
+    gps.parse_string(GENIC.format(out=FIXTURE, ng=NG))
     gps.validate()
+    if IC.exists():
+        shutil.rmtree(IC)
     return run_genic(gps, device="cpu")
 
 
@@ -238,7 +247,7 @@ def read_record():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_star_run")
-    ic = make_ic(tmp)
+    ic = str(IC)
     out = {"ic": ic, "tmp": tmp}
     for name, run in (("jax", read_record()),
                       ("torch", run_package("torch", ic, tmp))):
@@ -249,11 +258,16 @@ def runs(tmp_path_factory):
 
 @pytest.mark.slow
 def test_jax_runs_match_their_record(tmp_path):
-    """The JAX package's three runs from the IC against their committed
-    record: every array within 1e-6 by norm, the same sfr.txt lines.  With
-    MPG_WRITE_STAR_FIXTURE=1 it writes the record anew."""
-    run = run_package("jax", make_ic(tmp_path), tmp_path)
-    if os.environ.get("MPG_WRITE_STAR_FIXTURE"):
+    """The JAX package's three runs from the committed IC against their
+    committed record: every array within 1e-6 by norm, the same sfr.txt
+    lines.  With MPG_WRITE_STAR_FIXTURE=1 it writes the IC and the record
+    anew."""
+    write = bool(os.environ.get("MPG_WRITE_STAR_FIXTURE"))
+    if write:
+        FIXTURE.mkdir(exist_ok=True)
+        make_ic()
+    run = run_package("jax", str(IC), tmp_path)
+    if write:
         write_record(run)
     rec = read_record()
     assert set(rec) == set(run)
