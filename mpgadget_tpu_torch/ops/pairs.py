@@ -89,8 +89,10 @@ def _wrap(d):
 
 def compact_leaves(tree, leaf_cap):
     """DFS-ordered compacted leaf list (int32[leaf_cap], count, overflow);
-    unused slots hold tree.capacity - 1."""
+    unused slots hold tree.capacity - 1.  leaf_cap beyond the tree's
+    capacity is cut to it (a small tree: no more leaves than nodes)."""
     C = tree.capacity
+    leaf_cap = min(int(leaf_cap), C)
     iota = torch.arange(C, device=tree.skip.device)
     is_leaf = tree.is_leaf & (iota < tree.n_nodes)
     order = torch.argsort((~is_leaf).to(torch.int8), stable=True)

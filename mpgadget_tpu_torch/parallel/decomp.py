@@ -110,6 +110,17 @@ def unpack_rows(buf, spec):
     return out
 
 
+def all_gather_rows(arrays, mesh):
+    """Every rank's rows of the columns (tuple or dict, one leading row
+    dimension, lengths differing between ranks) on every rank, in rank
+    order: one all_gather_v of the packed rows.  Returns (columns,
+    rows per rank)."""
+    keys, cols = _as_list(arrays)
+    buf, spec = pack_rows(cols)
+    g, counts = coll.all_gather_v(buf, mesh)
+    return _as_input(keys, unpack_rows(g, spec)), counts
+
+
 def _as_list(arrays):
     if isinstance(arrays, dict):
         return list(arrays.keys()), list(arrays.values())

@@ -7,10 +7,12 @@ reach any rank), the tree (K2 walk, K1 pair sums) and the pencil-FFT PM,
 the SPH density and hydro force (parallel/sph.py: K3, K4, K5 on each
 rank), the half-kick / drift / half-kick structure with the entropy
 integration (apply_hydro_half_kick), the Strang-split cooling and star
-formation (K6) with the new stars, and timestep statistics summed over
-ranks, so that the host policy never gathers particle rows.  Global steps
-and the hierarchical per-timebin substeps (timestep.c:298-503) are both
-here.  Winds, black holes and metal return are not carried yet.
+formation (K6) with the new stars and the sh03 winds they drive, and
+timestep statistics summed over ranks, so that the host policy never
+gathers particle rows.  Global steps and the hierarchical per-timebin
+substeps (timestep.c:298-503) are both here.  The neighbour winds, black
+holes and metal return run between steps (parallel/winds.py,
+blackhole.py, metals.py), from Simulation.run_sharded.
 
 Each rank holds its rows in a dict of tensors (variable-length, all rows
 valid; new stars are appended).  No capacity is carried, so a step cannot
@@ -152,7 +154,7 @@ def _entropy_update(entropy, dtent, dloga, density, min_egy_spec, atime,
 # columns a spawned star copies from its parent gas row; every other column
 # of the new row starts at zero (the JAX package's free rows)
 SPAWN_COPY = ("ipos", "vel", "hsml", "dt_hsml", "amag", "grav_acc", "dtent",
-              "density", "pm_acc", "bins")
+              "density", "metals", "pm_acc", "bins")
 
 
 def spawn_rows(st, make_star, convert, star_mass, atime):
@@ -160,7 +162,10 @@ def spawn_rows(st, make_star, convert, star_mass, atime):
     physics/sfr.py): whole conversions flip ptype in place; partial ones
     append a new star row, in row order, and take its mass from the gas.
     Rows are variable-length, so nothing can overflow.  The birth record
-    (formation time, birth density and metallicity) is set for both.
+    (formation time, birth density and metallicity) is set for both; with
+    metal return a star keeps its parent's species as its birth
+    composition, its kernel as the first search radius of the return
+    (the stellar hsml seed, slotsmanager.c:105) and no mass returned yet.
     Returns (st, new star rows on this rank)."""
     spawn = make_star & ~convert
     idx = torch.nonzero(spawn).squeeze(1)
@@ -171,6 +176,10 @@ def spawn_rows(st, make_star, convert, star_mass, atime):
     birth = {"formation_time": torch.full_like(st["density"], af),
              "birth_density": st["density"],
              "birth_metallicity": st["metallicity"]}
+    if "star_hsml" in st:
+        birth.update(star_hsml=st["hsml"],
+                     total_mass_returned=torch.zeros_like(st["hsml"]),
+                     last_enrichment_myr=torch.zeros_like(st["hsml"]))
     for k, v in birth.items():
         st[k] = torch.where(convert, v, st[k])
     new = {k: v.new_zeros((idx.shape[0],) + tuple(v.shape[1:]))
@@ -224,15 +233,21 @@ class GasStep:
     re-run, and kept), and the source terms: sfr_fn(st, gas, dloga, scal)
     -> cooling_and_starformation's outputs, or cooling_fn(st, gas, dloga,
     scal) -> (entropy, ne); gas the rows to update, dloga a float32 value
-    or a per-row tensor."""
+    or a per-row tensor.  wind_fn(st, out, dloga, scal) -> (vel, entropy,
+    delay_time): the sh03 subgrid winds on the star-forming gas before the
+    new stars spawn.  decouple: WindOn, so that gas with DelayTime > 0
+    feels no hydro force (winds.c:113-136, as the single-device loop)."""
 
     def __init__(self, dpar, hpar, do_egy_density, min_egy_spec,
-                 margin=DENSITY_MARGIN, sfr_fn=None, cooling_fn=None):
+                 margin=DENSITY_MARGIN, sfr_fn=None, cooling_fn=None,
+                 wind_fn=None, decouple=False):
         self.dpar, self.hpar = dpar, hpar
         self.do_egy_density = bool(do_egy_density)
         self.min_egy_spec = float(min_egy_spec)
         self.margin = margin
         self.sfr_fn, self.cooling_fn = sfr_fn, cooling_fn
+        self.wind_fn = wind_fn
+        self.decouple = bool(decouple)
 
 
 def _table(scal, name, dev):
@@ -266,6 +281,13 @@ def _source_terms(st, gas_src, dl, scal, gas, mesh):
         torch.where(on_sf, dt_sf, 0.0).sum(), on_sf.sum().to(torch.float32),
         torch.where(make, torch.where(out["convert"], st["mass"],
                                       out["star_mass"]), 0.0).sum()])
+    if gas.wind_fn is not None:
+        # subgrid winds kick the star-forming gas itself before the new
+        # stars spawn (winds_make_after_sf, winds.c:454)
+        vel, ent, delay = gas.wind_fn(st, out, dl, scal)
+        st["vel"] = torch.where(gas_src[:, None], vel, st["vel"])
+        st["entropy"] = torch.where(gas_src, ent, st["entropy"])
+        st["delay_time"] = torch.where(gas_src, delay, st["delay_time"])
     st, nsp = spawn_rows(st, make, out["convert"] & gas_src,
                          out["star_mass"], scal["atime"])
     part = torch.cat([part.to(torch.float64), torch.tensor(
@@ -452,6 +474,14 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
                           float(f32(scal["atime"])),
                           float(f32(scal["hubble"])),
                           float(f32(scal["dloga_full"])))
+        if gas.decouple:
+            # decoupled wind gas feels no hydro force (winds.c:113-136,
+            # the single-device rule; the JAX package's sharded step has
+            # no such mask)
+            dec = st["delay_time"] > 0
+            h["hydro_accel"] = torch.where(dec[:, None], 0.0,
+                                           h["hydro_accel"])
+            h["dt_entropy"] = torch.where(dec, 0.0, h["dt_entropy"])
         st["hydro_acc"] = torch.where(
             gate[:, None], h["hydro_accel"],
             torch.where(g[:, None], st["hydro_acc"], 0.0))

@@ -1,8 +1,7 @@
 """Distributed friends-of-friends over the slab decomposition.
 
 PyTorch port of mpgadget_tpu/parallel/fof.py (primary linking, the
-secondary attach, counts and catalogue; BH seeding comes with the sharded
-black holes),
+secondary attach, counts, catalogue and the black-hole seeding),
 the redesign of the reference's distributed FOF (libgadget/fof.c): the
 reference links primaries with treewalks whose exports hop ranks until no
 label changes (fof_fof, fof.c:158-330) and compiles the catalogue with an
@@ -44,7 +43,7 @@ import torch
 
 from ..physics.fof import FOFParams, fof_label, fof_secondary
 from . import collectives as coll
-from .decomp import exchange_by_dest, ghost_strips_multi
+from .decomp import all_gather_rows, exchange_by_dest, ghost_strips_multi
 
 INT_MAX = torch.iinfo(torch.int64).max
 
@@ -138,13 +137,24 @@ def fof_counts(label, mesh, offset, counts, min_group_length):
     return torch.sort(coll.all_gather_v(q, mesh)[0]).values
 
 
-def fof_catalog_table(st, label, qual, mesh, offset, counts):
+SEED_NONE = INT_MAX      # seed_gid of a group without gas
+
+
+def fof_catalog_table(st, label, qual, mesh, offset, counts, with_bh=False):
     """Per-group sums routed to the label's owner rank and reduced there
     (build_fof_catalog).  Returns the all-gathered (labels, sums
-    [ngroups, _NCOLS] float32) of the qualifying groups, each owner's
-    groups by descending count."""
+    [ngroups, _NCOLS] float32, seeding extras) of the qualifying groups,
+    each owner's groups by descending count.
+
+    With with_bh (BlackHoleOn; st then has a "density" column) the extras
+    hold, per group, has_bh (a member is a black hole), seed_density (the
+    largest density of its gas members, -1 without gas) and seed_gid: the
+    global row of that member, offset + row on its rank (row_offsets), the
+    smallest where densities tie, SEED_NONE without gas.  The JAX package
+    numbers rows shard * n_local + row over its padded layout; both orders
+    are (rank, row), so both pick the same row.  Without with_bh the
+    extras are None."""
     dev = label.device
-    S = mesh.size
     pos = torch.clamp(torch.searchsorted(qual, label), 0,
                       max(qual.shape[0] - 1, 0))
     grouped = (label >= 0) & (qual[pos] == label) if qual.shape[0] else \
@@ -155,6 +165,7 @@ def fof_catalog_table(st, label, qual, mesh, offset, counts):
     order = torch.sort(lab, stable=True).indices
     rows, lab = rows[order], lab[order]
     run_lab, run_of_row = torch.unique_consecutive(lab, return_inverse=True)
+    nrun = run_lab.shape[0]
     m = st["mass"][rows][:, None]
     theta = st["ipos"][rows].to(torch.float32) * float(
         np.float32(2.0 * np.pi / 2.0 ** 32))
@@ -166,29 +177,59 @@ def fof_catalog_table(st, label, qual, mesh, offset, counts):
     vals = torch.cat([m, m * torch.cos(theta), m * torch.sin(theta),
                       m * st["vel"][rows], m * onehot, sfr, onehot, ones],
                      dim=1)
-    seg = torch.zeros((run_lab.shape[0], _NCOLS), dtype=torch.float32,
+    seg = torch.zeros((nrun, _NCOLS), dtype=torch.float32,
                       device=dev).index_add_(0, run_of_row, vals)
+    cols = [run_lab, seg]
+    if with_bh:
+        # the densest gas member of each run and its global row
+        dens = torch.where(t == 0, st["density"][rows], -1.0)
+        dmax = torch.full((nrun,), -1.0, dtype=torch.float32,
+                          device=dev).scatter_reduce(0, run_of_row, dens,
+                                                     "amax")
+        hit = (dens >= dmax[run_of_row]) & (dens > 0)
+        gmin = torch.full((nrun,), SEED_NONE, dtype=torch.int64,
+                          device=dev).scatter_reduce(
+            0, run_of_row, torch.where(hit, offset + rows, SEED_NONE),
+            "amin")
+        cols += [dmax, gmin]
     # ---- route the partials to the label's owner ----
     ends = torch.tensor(np.cumsum(counts), dtype=torch.int64, device=dev)
     dest = torch.searchsorted(ends, run_lab, right=True)
-    (r_lab, r_seg), _ = exchange_by_dest((run_lab, seg), dest, mesh)
+    recv, _ = exchange_by_dest(tuple(cols), dest, mesh)
+    r_lab, r_seg = recv[:2]
     # ---- owner-side reduction into root-row accumulators ----
     n_me = int(counts[mesh.rank])
     acc = torch.zeros((n_me, _NCOLS), dtype=torch.float32, device=dev)
-    acc.index_add_(0, r_lab - offset, r_seg)
+    r_row = r_lab - offset
+    acc.index_add_(0, r_row, r_seg)
     cnt = acc[:, -1]
     own = torch.sort(-cnt, stable=True).indices
     own = own[cnt[own] > 0]
     g_lab, _ = coll.all_gather_v(own + offset, mesh)
     g_val, _ = coll.all_gather_v(acc[own], mesh)
-    return g_lab, g_val
+    if not with_bh:
+        return g_lab, g_val, None
+    r_dmax, r_gmin = recv[2:]
+    a_dmax = torch.full((n_me,), -1.0, dtype=torch.float32,
+                        device=dev).scatter_reduce(0, r_row, r_dmax, "amax")
+    a_gmin = torch.full((n_me,), SEED_NONE, dtype=torch.int64,
+                        device=dev).scatter_reduce(
+        0, r_row, torch.where(r_dmax >= a_dmax[r_row], r_gmin, SEED_NONE),
+        "amin")
+    (g_dmax, g_gmin), _ = all_gather_rows((a_dmax[own], a_gmin[own]), mesh)
+    # has_bh: the group's black-hole count (its one-hot column)
+    extras = {"has_bh": g_val[:, 17 + 5] > 0, "seed_density": g_dmax,
+              "seed_gid": g_gmin}
+    return g_lab, g_val, extras
 
 
-def finalize_catalog(g_lab, g_val, boxsize, min_group_length):
+def finalize_catalog(g_lab, g_val, boxsize, min_group_length, extras=None):
     """Host catalogue from the all-gathered group table: filter by
     minimum length, order by descending mass (the reference sorts the
     catalogue, fof.c:1127).  Returns (cat dict in the physics/fof.py
-    layout without group_index, labels in catalogue order)."""
+    layout without group_index, labels in catalogue order); with extras
+    (fof_catalog_table's) cat also holds has_bh, seed_density and seed_gid
+    in catalogue order."""
     vals = np.asarray(g_val, np.float64)
     counts = np.rint(vals[:, 23]).astype(np.int64)
     keep = counts >= min_group_length
@@ -210,6 +251,8 @@ def finalize_catalog(g_lab, g_val, boxsize, min_group_length):
         "len_by_type": np.rint(vals[:, 17:23]).astype(np.int64),
         "sfr": vals[:, 16],
     }
+    for k, v in (extras or {}).items():
+        cat[k] = np.asarray(v.cpu() if torch.is_tensor(v) else v)[keep][order]
     return cat, labels[order]
 
 
@@ -228,15 +271,18 @@ def group_index(label, sorted_labels):
 
 
 def sharded_fof(mesh, st, bounds, *, boxsize, mean_sep, params,
-                max_rounds=None, stats=None):
+                with_bh=False, max_rounds=None, stats=None):
     """The distributed FOF (runfof, run.c:813 + fof_fof, fof.c:158-330 at
     scale): label rounds to convergence, member counts, catalogue.
 
-    st: this rank's columns {ipos, vel, mass, ptype[, sfr]}; bounds: the
+    st: this rank's columns {ipos, vel, mass, ptype[, sfr][, density]};
+    bounds: the
     S slab left edges; params: physics.fof.FOFParams.  stats: optional
     dict that receives "rounds".  Returns (cat, sorted_labels, labels):
     cat and sorted_labels as :func:`finalize_catalog` (the catalogue's
-    StarFormationRate sums the sfr column when st has one), labels this
+    StarFormationRate sums the sfr column when st has one; with with_bh
+    it carries the seeding extras of fof_catalog_table, from st's density
+    column), labels this
     rank's global group label per row (-1 ungrouped), secondaries
     attached."""
     S = mesh.size
@@ -271,8 +317,39 @@ def sharded_fof(mesh, st, bounds, *, boxsize, mean_sep, params,
         label = fof_attach_secondaries(st["ipos"], prim, sec, label, mesh,
                                        bounds, ll_box, cfg)
     qual = fof_counts(label, mesh, offset, counts, params.min_group_length)
-    g_lab, g_val = fof_catalog_table(st, label, qual, mesh, offset, counts)
+    g_lab, g_val, extras = fof_catalog_table(st, label, qual, mesh, offset,
+                                             counts, with_bh)
     cat, sorted_labels = finalize_catalog(g_lab.cpu().numpy(),
                                           g_val.cpu().numpy(), boxsize,
-                                          params.min_group_length)
+                                          params.min_group_length, extras)
     return cat, sorted_labels, label
+
+
+def seed_convert(st, seed_gids, mesh, *, seed_mass, seed_dyn_mass, atime):
+    """The chosen gas rows become freshly seeded black holes (blackhole_make
+    via fof_seed, fof.c + blackhole.c:1100 at scale; build_seed_convert).
+    seed_gids: the global rows (fof_catalog_table's seed_gid: offset + row,
+    the offsets of row_offsets over the rows the FOF ran on) of the
+    groups that seed.  On a hit: type 5, out of the gas, the seed BH mass,
+    its own mass as Mtrack, the fixed dynamical mass when SeedBHDynMass >
+    0, the formation time.  Returns (st', seeded rows summed over
+    ranks)."""
+    n = st["ptype"].shape[0]
+    dev = st["ptype"].device
+    offset, _ = row_offsets(n, mesh)
+    gid = offset + torch.arange(n, device=dev)
+    seeds = torch.as_tensor(np.asarray(seed_gids, np.int64), device=dev)
+    hit = torch.isin(gid, seeds)
+    out = dict(st)
+    out["ptype"] = torch.where(hit, 5, st["ptype"]).to(st["ptype"].dtype)
+    out["gas_mask"] = st["gas_mask"] & ~hit
+    out["bh_mass"] = torch.where(hit, float(np.float32(seed_mass)),
+                                 st["bh_mass"])
+    out["bh_mtrack"] = torch.where(hit, st["mass"], st["bh_mtrack"])
+    if seed_dyn_mass > 0:
+        out["mass"] = torch.where(hit, float(np.float32(seed_dyn_mass)),
+                                  st["mass"])
+    if "formation_time" in st:
+        out["formation_time"] = torch.where(hit, float(np.float32(atime)),
+                                            st["formation_time"])
+    return out, int(coll.psum(hit.sum(), mesh))

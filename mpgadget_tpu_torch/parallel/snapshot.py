@@ -10,7 +10,8 @@ holds rank s's rows), so a snapshot written by S ranks reads back to the
 same rows as one written by one writer, after a sort by ID.  The gas
 (type 0) and star (type 4) blocks are those of the single writer's
 registry (io/registry.py) that the sharded state carries, with the
-derived InternalEnergy of the gas.
+derived InternalEnergy of the gas; with metal return the Metals of gas and
+stars and the stars' return bookkeeping, with black holes their blocks.
 """
 
 import os
@@ -33,8 +34,9 @@ def species_block_table(st, t, *, atime, boxsize, ipos_offset):
     (write_snapshot + io/registry's blocks), keyed on the sharded columns:
     the base blocks, Potential when the state carries it
     (OutputPotential), the gas blocks for t = 0 (InternalEnergy from the
-    entropy and density columns) and the star blocks for t = 4, each only
-    where the state carries its column."""
+    entropy and density columns), the star blocks for t = 4 and the black
+    hole blocks for t = 5 (parallel/snapshot.py:160-200 of the JAX
+    package), each only where the state carries its column."""
     inv32 = boxsize / 2.0 ** 32
     off = np.asarray(ipos_offset, np.int64)
 
@@ -68,11 +70,25 @@ def species_block_table(st, t, *, atime, boxsize, ipos_offset):
                   ("StarFormationRate", "sfr", "<f4", None),
                   ("DelayTime", "delay_time", "<f4", None),
                   ("Metallicity", "metallicity", "<f4", None),
+                  ("Metals", "metals", "<f4", None),
                   ("InternalEnergy", ("entropy", "density"), "<f4", u_tr)]
     elif t == 4:
         table += [("StarFormationTime", "formation_time", "<f4", None),
                   ("BirthDensity", "birth_density", "<f4", None),
-                  ("Metallicity", "birth_metallicity", "<f4", None)]
+                  ("Metallicity", "birth_metallicity", "<f4", None),
+                  ("Metals", "metals", "<f4", None),
+                  ("TotalMassReturned", "total_mass_returned", "<f4", None),
+                  ("LastEnrichmentMyr", "last_enrichment_myr", "<f4",
+                   None)]
+    elif t == 5:
+        table += [("BlackholeMass", "bh_mass", "<f4", None),
+                  ("BlackholeAccretionRate", "bh_mdot", "<f4", None),
+                  ("BlackholeDensity", "bh_density", "<f4", None),
+                  ("BlackholeMtrack", "bh_mtrack", "<f4", None),
+                  ("BlackholeProgenitors", "bh_progs", "<i4", None),
+                  ("BlackholeKineticFdbkEnergy", "bh_ke", "<f4", None),
+                  ("BHVelDisp", "bh_vdisp", "<f4", None),
+                  ("StarFormationTime", "formation_time", "<f4", None)]
 
     def carried(key):
         return all(k in st for k in (key if isinstance(key, tuple)

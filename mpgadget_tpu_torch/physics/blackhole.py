@@ -160,12 +160,13 @@ def bh_neighbor_sums(ipos, mass, hsml, velpred, entropy, is_bh, is_gas,
     return {k: v[inv] for k, v in out.items()}
 
 
-def bh_dynfric_sums(ipos, mass, hsml, velpred, is_bh, src_mask,
-                    boxsize, kernel_type=2):
-    """Dynamical-friction environment sums (blackhole_dynfric_ngbiter,
-    bhdynfric.c:233-270): kernel-weighted density, mean velocity and mean
-    squared velocity of the background around each BH.  Returns a dict
-    of [N]: rho, vel [N,3], rmsvel (normalized)."""
+def bh_dynfric_raw(ipos, mass, hsml, velpred, is_bh, src_mask, boxsize,
+                   kernel_type=2):
+    """The dynamical-friction environment's kernel-weighted sums around
+    each BH (blackhole_dynfric_ngbiter, bhdynfric.c:233-270): rho, the
+    mass-weighted velocity vx, vy, vz and squared speed v2 of the sources
+    in src_mask.  Returns a dict of [N] (partial sums where the sources
+    are one rank's rows)."""
     from ..ops import pairs
     from ..sph import kernels as K
     include = is_bh | src_mask
@@ -195,12 +196,27 @@ def bh_dynfric_sums(ipos, mass, hsml, velpred, is_bh, src_mask,
          "v": velpred[perm], "issrc": src_mask[perm].to(torch.float32)},
         {k: "sum" for k in ("rho", "vx", "vy", "vz", "v2")}, 32,
         pairs.leaf_eval_cap(tree, 16))
-    rho = out["rho"][inv]
+    return {k: v[inv] for k, v in out.items()}
+
+
+def dynfric_environment(s):
+    """(rho, mean velocity [N,3], rms speed) from :func:`bh_dynfric_raw`'s
+    sums."""
+    rho = s["rho"]
     safe = torch.clamp(rho, min=1e-30)
-    vel = torch.stack([out["vx"][inv], out["vy"][inv], out["vz"][inv]],
-                      dim=-1) / safe[:, None]
-    rmsvel = torch.sqrt(torch.clamp(out["v2"][inv] / safe, min=0.0))
+    vel = torch.stack([s["vx"], s["vy"], s["vz"]], dim=-1) / safe[:, None]
+    rmsvel = torch.sqrt(torch.clamp(s["v2"] / safe, min=0.0))
     return {"rho": rho, "vel": vel, "rmsvel": rmsvel}
+
+
+def bh_dynfric_sums(ipos, mass, hsml, velpred, is_bh, src_mask,
+                    boxsize, kernel_type=2):
+    """Dynamical-friction environment sums (blackhole_dynfric_ngbiter,
+    bhdynfric.c:233-270): kernel-weighted density, mean velocity and mean
+    squared velocity of the background around each BH.  Returns a dict
+    of [N]: rho, vel [N,3], rmsvel (normalized)."""
+    return dynfric_environment(bh_dynfric_raw(
+        ipos, mass, hsml, velpred, is_bh, src_mask, boxsize, kernel_type))
 
 
 def dynfric_accel(rho, vel_sur, rmsvel, mass_dyn, vel, atime, G,

@@ -137,33 +137,31 @@ def winds_decouple_update(par: WindParams, delay_time, density, dtime,
     return torch.where(recouple, 0.0, delay)
 
 
-def dm_velocity_dispersion(ipos, vel, mass, is_dm, is_gas, boxsize,
-                           mean_sep, nsearch_radius=2.0,
-                           radius_per_particle=None):
-    """1D DM velocity dispersion around gas particles (winds_find_vel_disp,
-    veldisp.c): a neighbour-pair reduction of sum(v), sum(v^2) and the
-    count over DM within the search radius.
-
-    radius_per_particle: optional f32[N] per-TARGET radius in internal
-    units (each BH's own Hsml, veldisp.c:60-76); overrides the fixed
-    nsearch_radius * mean_sep."""
+def dm_dispersion_sums(ipos, vel, mass, is_dm, is_target, boxsize,
+                       radius_box=None, radius_per_particle=None,
+                       caller="vdisp"):
+    """The sums behind the 1D DM velocity dispersion (veldisp.c:35-76):
+    per target row the count, sum(v) and sum(v^2) of the DM within the
+    search radius, a neighbour-pair reduction over a tree of DM and the
+    targets.  radius_box: the fixed radius in box units; or
+    radius_per_particle, f32[N] per-TARGET radius in internal units (each
+    BH's own Hsml).  Returns {"n", "vx", "vy", "vz", "v2"}, [N] each in
+    the input order (partial sums where the DM is one rank's rows)."""
     from ..ops import pairs
     from ..sph.density import group_radius, sorted_tree
     n = ipos.shape[0]
-    # the tree holds the gas rows, so that they can be targets; sources
-    # are filtered to DM in the pair function
+    # the tree holds the targets too; sources are filtered to DM in the
+    # pair function
     perm, inv, pos_box, _, tree, (nodes, gc, gh) = sorted_tree(
-        ipos, mass, is_dm | is_gas, 32)
+        ipos, mass, is_dm | is_target, 32)
     if radius_per_particle is not None:
         rad_s = radius_per_particle[perm] * float(np.float32(1.0 / boxsize))
         gradius = group_radius(tree, nodes, rad_s, 32)
     else:
-        radius = nsearch_radius * mean_sep / boxsize
-        rad_s = torch.full((n,), radius, dtype=torch.float32,
+        rad_s = torch.full((n,), radius_box, dtype=torch.float32,
                            device=ipos.device)
-        gradius = torch.full((gc.shape[0],), radius, dtype=torch.float32,
-                             device=ipos.device)
-    caller = "BH vdisp" if radius_per_particle is not None else "vdisp"
+        gradius = torch.full((gc.shape[0],), radius_box,
+                             dtype=torch.float32, device=ipos.device)
     nbr, _ = pairs.spanned(
         caller, "K3", pairs.find_neighbors_auto, tree, nodes, gc, gh,
         gradius, None, 96, symmetric=False, cache_key=("vdisp", n))
@@ -180,12 +178,39 @@ def dm_velocity_dispersion(ipos, vel, mass, is_dm, is_gas, boxsize,
         caller, "pair_reduce", pairs.pair_reduce, pair_fn, nbr, tree,
         pos_box, {"rad": rad_s},
         {"v": vel[perm], "isdm": is_dm[perm].to(torch.float32)},
-        {k: "sum" for k in ("n", "vx", "vy", "vz", "v2")}, 32,
+        {k: "sum" for k in DISPERSION_SUMS}, 32,
         pairs.leaf_eval_cap(tree, 16))
-    cnt = torch.clamp(out["n"], min=1.0)
-    vmean2 = (out["vx"] ** 2 + out["vy"] ** 2 + out["vz"] ** 2) / cnt ** 2
-    var3d = torch.clamp(out["v2"] / cnt - vmean2, min=0.0)
-    return torch.sqrt(var3d / 3.0)[inv]
+    return {k: v[inv] for k, v in out.items()}
+
+
+DISPERSION_SUMS = ("n", "vx", "vy", "vz", "v2")
+
+
+def dispersion_from_sums(s):
+    """The 1D dispersion sqrt(max(<v^2> - <v>^2, 0) / 3) from
+    :func:`dm_dispersion_sums`' sums (summed over ranks where sharded)."""
+    cnt = torch.clamp(s["n"], min=1.0)
+    vmean2 = (s["vx"] ** 2 + s["vy"] ** 2 + s["vz"] ** 2) / cnt ** 2
+    var3d = torch.clamp(s["v2"] / cnt - vmean2, min=0.0)
+    return torch.sqrt(var3d / 3.0)
+
+
+def dm_velocity_dispersion(ipos, vel, mass, is_dm, is_gas, boxsize,
+                           mean_sep, nsearch_radius=2.0,
+                           radius_per_particle=None):
+    """1D DM velocity dispersion around gas particles (winds_find_vel_disp,
+    veldisp.c): a neighbour-pair reduction of sum(v), sum(v^2) and the
+    count over DM within the search radius.
+
+    radius_per_particle: optional f32[N] per-TARGET radius in internal
+    units (each BH's own Hsml, veldisp.c:60-76); overrides the fixed
+    nsearch_radius * mean_sep."""
+    caller = "BH vdisp" if radius_per_particle is not None else "vdisp"
+    s = dm_dispersion_sums(
+        ipos, vel, mass, is_dm, is_gas, boxsize,
+        radius_box=nsearch_radius * mean_sep / boxsize,
+        radius_per_particle=radius_per_particle, caller=caller)
+    return dispersion_from_sums(s)
 
 
 def pair_uniform(a_ids, b_ids):
@@ -202,59 +227,66 @@ def pair_uniform(a_ids, b_ids):
     return x.to(torch.float32) * (2.0 ** -32)
 
 
-def winds_via_neighbors(par: WindParams, key, *, ipos, mass, hsml, pid,
-                        vel, entropy, density, delay_time, is_gas,
-                        new_star, star_vdisp, boxsize, atime):
-    """Non-subgrid wind kicks: gas NEIGHBOURS of newly formed stars are
-    stochastically ejected (winds_and_feedback + the sfr_wind_weight /
-    feedback ngbiters, winds.c:299-567).
-
-    Three pair passes on one tree over gas + new stars: (1) each star's
-    total gas weight inside its Hsml; (2) each gas particle's nearest
-    hitting star (a 'max' of BIGR - r: kick candidates resolve to the
-    closest star, winds.c:320-345); (3) that star's kick velocity and
-    heat gathered to the gas.  Returns (vel, entropy, delay_time,
-    kicked)."""
+def wind_setup(ipos, mass, hsml, pid, delay_time, is_gas, new_star,
+               boxsize):
+    """The tree over gas + new stars that every pass of
+    :func:`winds_via_neighbors` walks, with its sorted features: eligible
+    gas (not decoupled), its mass, the stars' hsml (box units) and the
+    ids reduced mod 2^24 (exact in float32 features)."""
     from ..ops import pairs
-    from ..sph.density import group_radius, sorted_tree
-    n = ipos.shape[0]
+    from ..sph.density import sorted_tree
     G = 32
     perm, inv, pos_box, _, tree, (nodes, gc, gh) = sorted_tree(
         ipos, mass, is_gas | new_star, G)
-    LE = pairs.leaf_eval_cap(tree, 16)
-    inv_box = 1.0 / boxsize
-
-    is_gas_s = is_gas[perm]
+    eligible_s = is_gas[perm] & (delay_time[perm] <= 0)
     new_star_s = new_star[perm]
-    eligible_s = is_gas_s & (delay_time[perm] <= 0)
-    gmass_s = torch.where(eligible_s, mass[perm], 0.0)
-    hsml_s = torch.where(new_star_s, hsml[perm], 0.0) * inv_box
-    # ids reduced mod 2^24 so that they stay exact in float32 features
-    pid_s = pid[perm] & 0xFFFFFF
-    gradius = group_radius(tree, nodes, hsml_s, G)
+    return dict(n=ipos.shape[0], G=G, perm=perm, inv=inv, pos_box=pos_box,
+                tree=tree, nodes=nodes, gc=gc, gh=gh,
+                LE=pairs.leaf_eval_cap(tree, 16), new_star_s=new_star_s,
+                eligible_s=eligible_s,
+                gmass_s=torch.where(eligible_s, mass[perm], 0.0),
+                hsml_s=torch.where(new_star_s, hsml[perm], 0.0)
+                * (1.0 / boxsize),
+                pid_s=pid[perm] & 0xFFFFFF)
 
-    # -- pass 1: per-star total gas weight (sfr_wind_weight, wk = 1) ---
+
+def wind_weights(w):
+    """Pass 1 (sfr_wind_weight, winds.c:299-318, wk = 1): each new star's
+    eligible gas mass inside its hsml, [N] in sorted order."""
+    from ..ops import pairs
+    from ..sph.density import group_radius
+    gradius = group_radius(w["tree"], w["nodes"], w["hsml_s"], w["G"])
+
     def weight_fn(dx, r, tmask, smask, tfeat, sfeat):
         inside = (r < tfeat["hsml"]) & (sfeat["gm"] > 0)
         return {"w": torch.where(inside, sfeat["gm"], 0.0)}
 
-    nbr, ll = pairs.spanned(
-        "wind weight", "K3", pairs.find_neighbors_auto, tree, nodes, gc,
-        gh, gradius, None, 256, symmetric=False,
-        cache_key=("wind_weight", n))
-    total_weight_s = pairs.spanned(
+    nbr, w["ll"] = pairs.spanned(
+        "wind weight", "K3", pairs.find_neighbors_auto, w["tree"],
+        w["nodes"], w["gc"], w["gh"], gradius, None, 256, symmetric=False,
+        cache_key=("wind_weight", w["n"]))
+    return pairs.spanned(
         "wind weight", "pair_reduce", pairs.pair_reduce, weight_fn, nbr,
-        tree, pos_box, {"hsml": hsml_s}, {"gm": gmass_s}, {"w": "sum"},
-        G, LE)["w"]
+        w["tree"], w["pos_box"], {"hsml": w["hsml_s"]}, {"gm": w["gmass_s"]},
+        {"w": "sum"}, w["G"], w["LE"])["w"]
 
-    # -- passes 2 + 3: gas <- star candidate kicks ----------------------
+
+def wind_hits(par: WindParams, w, total_weight_s, vd_s, mass_s, atime):
+    """Passes 2 and 3 (winds.c:320-345): each gas row's nearest hitting
+    star (a 'max' of BIGR - r: kick candidates resolve to the closest
+    star) and that star's kick velocity and heat gathered to it.  vd_s,
+    mass_s: the stars' dispersion and mass in sorted order (zero off the
+    stars).  Returns (v, ut, n) in the input order: the kick speed, heat
+    and number of (equally near) kicking stars of each row."""
+    from ..ops import pairs
+    tree, G, LE = w["tree"], w["G"], w["LE"]
+    n = w["n"]
     lf_ids, n_lf, _ = pairs.compact_leaves(tree, 2 * n + 64)
-    hmax = pairs.node_hmax(tree, lf_ids, n_lf, hsml_s)
-    vd_s = torch.where(new_star_s, star_vdisp[perm], 0.0)
+    hmax = pairs.node_hmax(tree, lf_ids, n_lf, w["hsml_s"])
     wvel_s, windeff_s, utherm_s = get_wind_kick(par, vd_s, atime)
-    p_s = windeff_s * mass[perm] / torch.clamp(total_weight_s, min=1e-30)
-    star_ok_s = new_star_s & (total_weight_s > 0) & (wvel_s > 0) \
-        & (star_vdisp[perm] > 0)
+    p_s = windeff_s * mass_s / torch.clamp(total_weight_s, min=1e-30)
+    star_ok_s = w["new_star_s"] & (total_weight_s > 0) & (wvel_s > 0) \
+        & (vd_s > 0)
 
     def hit(r, tfeat, sfeat):
         u = pair_uniform(sfeat["sid"].to(torch.int64),
@@ -268,42 +300,75 @@ def winds_via_neighbors(par: WindParams, key, *, ipos, mass, hsml, pid,
         h = hit(r, tfeat, sfeat)
         return {"rkey": torch.where(h, BIGR - r, -float("inf"))}
 
-    zeros = torch.zeros(gc.shape[0], dtype=torch.float32, device=gc.device)
+    zeros = torch.zeros(w["gc"].shape[0], dtype=torch.float32,
+                        device=w["gc"].device)
     nbr2, _ = pairs.spanned(
-        "wind kick", "K3", pairs.find_neighbors_auto, tree, nodes, gc, gh,
-        zeros, hmax, ll, symmetric=True, cache_key=("wind_kick", n))
-    tidf = pid_s.to(torch.float32)
-    tfeats = {"tid": tidf, "elig": eligible_s.to(torch.float32)}
-    sfeats = {"sid": tidf, "hsml": hsml_s,
+        "wind kick", "K3", pairs.find_neighbors_auto, tree, w["nodes"],
+        w["gc"], w["gh"], zeros, hmax, w.get("ll", 256), symmetric=True,
+        cache_key=("wind_kick", n))
+    tidf = w["pid_s"].to(torch.float32)
+    tfeats = {"tid": tidf, "elig": w["eligible_s"].to(torch.float32)}
+    sfeats = {"sid": tidf, "hsml": w["hsml_s"],
               "ok": star_ok_s.to(torch.float32), "p": p_s}
     rkey_s = pairs.spanned(
         "wind kick", "pair_reduce", pairs.pair_reduce, near_fn, nbr2, tree,
-        pos_box, tfeats, sfeats, {"rkey": "max"}, G, LE)["rkey"]
+        w["pos_box"], tfeats, sfeats, {"rkey": "max"}, G, LE)["rkey"]
 
     def kick_fn(dx, r, tmask, smask, tfeat, sfeat):
         h = hit(r, tfeat, sfeat)
         # r is the same float32 value the max pass computed for the pair
         sel = h & (torch.abs((BIGR - r) - tfeat["rkey"]) < 1e-9)
-        w = sel.to(torch.float32)
-        return {"v": w * sfeat["v"], "ut": w * sfeat["ut"], "n": w}
+        wt = sel.to(torch.float32)
+        return {"v": wt * sfeat["v"], "ut": wt * sfeat["ut"], "n": wt}
 
     out3 = pairs.spanned(
         "wind kick", "pair_reduce", pairs.pair_reduce, kick_fn, nbr2, tree,
-        pos_box, dict(tfeats, rkey=rkey_s),
+        w["pos_box"], dict(tfeats, rkey=rkey_s),
         dict(sfeats, v=torch.where(star_ok_s, wvel_s, 0.0),
              ut=torch.where(star_ok_s, utherm_s, 0.0)),
         {"v": "sum", "ut": "sum", "n": "sum"}, G, LE)
-    nsel = torch.clamp(out3["n"], min=1.0)
-    v_g = (out3["v"] / nsel)[inv]
-    ut_g = (out3["ut"] / nsel)[inv]
-    kicked = (out3["n"] > 0)[inv] & is_gas & (delay_time <= 0)
+    inv = w["inv"]
+    return out3["v"][inv], out3["ut"][inv], out3["n"][inv]
 
-    # -- wind_do_kick (winds.c:454-489) ---------------------------------
+
+def wind_do_kick(par: WindParams, key, *, v, ut, nsel, kicked, pid, vel,
+                 entropy, density, delay_time, atime):
+    """wind_do_kick (winds.c:454-489) on the rows in kicked: an isotropic
+    kick of the mean kick speed v / nsel, the heat ut / nsel, and the
+    decoupling time.  Returns (vel, entropy, delay_time)."""
+    nsel = torch.clamp(nsel, min=1.0)
+    v_g = v / nsel
+    ut_g = ut / nsel
     direction = _directions(key, pid)
     vel_new = vel + torch.where(kicked[:, None], v_g[:, None] * direction,
                                 0.0)
     enttou = _entropy_per_u(density, atime)
     ent_new = entropy + torch.where(
         kicked, ut_g / torch.clamp(enttou, min=1e-30), 0.0)
-    return (vel_new, ent_new, _delay(par, v_g, delay_time, kicked, atime),
-            kicked)
+    return vel_new, ent_new, _delay(par, v_g, delay_time, kicked, atime)
+
+
+def winds_via_neighbors(par: WindParams, key, *, ipos, mass, hsml, pid,
+                        vel, entropy, density, delay_time, is_gas,
+                        new_star, star_vdisp, boxsize, atime):
+    """Non-subgrid wind kicks: gas NEIGHBOURS of newly formed stars are
+    stochastically ejected (winds_and_feedback + the sfr_wind_weight /
+    feedback ngbiters, winds.c:299-567).
+
+    Three pair passes on one tree over gas + new stars (:func:`wind_setup`):
+    (1) each star's total gas weight inside its Hsml (:func:`wind_weights`);
+    (2) each gas particle's nearest hitting star and (3) that star's kick
+    velocity and heat gathered to the gas (:func:`wind_hits`).  Returns
+    (vel, entropy, delay_time, kicked)."""
+    w = wind_setup(ipos, mass, hsml, pid, delay_time, is_gas, new_star,
+                   boxsize)
+    perm = w["perm"]
+    total_weight_s = wind_weights(w)
+    vd_s = torch.where(w["new_star_s"], star_vdisp[perm], 0.0)
+    v, ut, nsel = wind_hits(par, w, total_weight_s, vd_s, mass[perm], atime)
+    kicked = (nsel > 0) & is_gas & (delay_time <= 0)
+    vel_new, ent_new, delay_new = wind_do_kick(
+        par, key, v=v, ut=ut, nsel=nsel, kicked=kicked, pid=pid, vel=vel,
+        entropy=entropy, density=density, delay_time=delay_time,
+        atime=atime)
+    return vel_new, ent_new, delay_new, kicked

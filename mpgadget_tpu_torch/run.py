@@ -231,16 +231,34 @@ def check_supported(cfg: SimConfig, has_gas: bool):
 
 
 def check_sharded_supported(cfg: SimConfig, has_gas: bool):
-    """Refuse, before the first step, a switch that the sharded driver
-    (Simulation.run_sharded) does not carry yet.  It carries the gas
+    """Refuse, before the first step, what the sharded driver
+    (Simulation.run_sharded) does not carry.  It carries the gas
     (HydroOn), cooling with the tables it takes (TreeCoolFile,
-    MetalCoolFile, UVFluctuationFile) and star formation; it refuses
-    winds, black holes, metal return (which needs star formation there,
-    as in the JAX package), QSO lightup, the excursion set and the
+    MetalCoolFile, UVFluctuationFile), star formation, the winds (sh03
+    in the step, vs08 and ofjt10 from the new stars' neighbours), black
+    holes and metal return.  As the JAX package's run_sharded, it refuses
+    winds without star formation or subgrid winds other than sh03's fixed
+    efficiency, and metal return without star formation (star rows).  It
+    refuses, still to come, QSO lightup, the excursion set and the
     dark-matter options.  The single-device run() carries them all."""
-    gas = [("WindOn", cfg.wind_on), ("BlackHoleOn", cfg.black_hole_on),
-           ("MetalReturnOn", cfg.metal_return_on),
-           ("QSOLightupOn", cfg.qso_lightup_on),
+    from .physics import winds as windmod
+    if has_gas and cfg.hydro_on and cfg.wind_on:
+        subgrid = bool(cfg.wind_model & windmod.WIND_SUBGRID)
+        if not cfg.starformation_on or (
+                subgrid and not cfg.wind_model
+                & windmod.WIND_FIXED_EFFICIENCY):
+            raise ValueError(
+                "WindOn needs StarformationOn in the sharded driver and, "
+                "for subgrid winds, fixed efficiency (sh03), as in the JAX "
+                "package's run_sharded; run other combinations with "
+                "MPG_SHARDED=0 on one device")
+    if has_gas and cfg.hydro_on and cfg.metal_return_on \
+            and not cfg.starformation_on:
+        raise ValueError("MetalReturnOn needs StarformationOn in the sharded "
+                         "driver (star rows), as in the JAX package's "
+                         "run_sharded; run it with MPG_SHARDED=0 on one "
+                         "device")
+    gas = [("QSOLightupOn", cfg.qso_lightup_on),
            ("ExcursionSetReionOn", cfg.excursion_set_on)]
     other = [("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
              ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
@@ -248,13 +266,9 @@ def check_sharded_supported(cfg: SimConfig, has_gas: bool):
              ("PlaneOutputList", bool(cfg.plane_output_list))]
     for name, on in (gas if has_gas else []) + other:
         if on:
-            also = (" (and MetalReturnOn needs StarformationOn in the "
-                    "sharded driver: star slots)"
-                    if name == "MetalReturnOn" and not cfg.starformation_on
-                    else "")
             raise ValueError(f"{name} is not yet ported to the sharded "
                              "driver; run it with MPG_SHARDED=0 on one "
-                             f"device{also}")
+                             "device")
 
 
 class Simulation:
@@ -1109,6 +1123,27 @@ class Simulation:
 
     # -- metal return and black holes ------------------------------------
 
+    def _metal_return_tables(self):
+        """The metal return's age table and parameters (made on first
+        use; the excursion set shares the age table)."""
+        from .physics import metal_return as mrmod
+        if self._age_table is None:
+            self._age_table = mrmod.AgeTable(
+                self.CP.hubble_function, self.cfg.units,
+                self.CP.HubbleParam, device=self.device)
+        if getattr(self, "_mr_params", None) is None:
+            self._mr_params = mrmod.MetalReturnParams(
+                sn1a_n0=self.cfg.metals_sn1a_n0,
+                sph_weighting=self.cfg.metals_sph_weighting,
+                max_ngb_deviation=self.cfg.metals_max_ngb_deviation)
+        return self._age_table, self._mr_params
+
+    def _rho_crit_baryon(self):
+        """The critical density times OmegaBaryon, internal units (the
+        kinetic BH channel's star-forming density scale)."""
+        return self.CP.OmegaBaryon * 3 * self.CP.Hubble ** 2 \
+            / (8 * np.pi * self.CP.GravInternal)
+
     def apply_metal_return(self, dloga):
         """Stellar mass & metal return to the neighbour gas (metal_return(),
         metal_return.c:423-500)."""
@@ -1118,14 +1153,8 @@ class Simulation:
             return
         atime1 = self.atime
         atime0 = float(np.exp(np.log(atime1) - dloga))
-        if self._age_table is None:
-            self._age_table = mrmod.AgeTable(
-                self.CP.hubble_function, self.cfg.units,
-                self.CP.HubbleParam, device=self.device)
-            self._mr_params = mrmod.MetalReturnParams(
-                sn1a_n0=self.cfg.metals_sn1a_n0,
-                sph_weighting=self.cfg.metals_sph_weighting,
-                max_ngb_deviation=self.cfg.metals_max_ngb_deviation)
+        self._metal_return_tables()
+        if self._star_hsml is None:
             self._star_hsml = torch.where(is_star, self.pdata.hsml, 0.0)
         # seed the star hsml from the particle hsml (gas-inherited) or the
         # mean spacing where zero
@@ -1240,8 +1269,7 @@ class Simulation:
                                 self.bh.bh_mass))
         ke_energy = keflag = None
         if par.kinetic_on:
-            rho_crit_b = self.CP.OmegaBaryon * 3 * self.CP.Hubble ** 2 \
-                / (8 * np.pi * self.CP.GravInternal)
+            rho_crit_b = self._rho_crit_baryon()
             ke_energy, keflag = bhmod.kinetic_update(
                 par, self.bh.bh_mass, self.bh.mdot, self.bh.bh_density,
                 self.bh.vdisp, sums["mgas"], self.bh.kinetic_energy, dtime,
@@ -1840,8 +1868,8 @@ class Simulation:
     def run_sharded(self, mesh, max_steps=None, verbose=True,
                     hierarchical=False, layer_sync=False):
         """Multi-rank main loop (run.c:358-800 at scale; the JAX package's
-        run_sharded with its winds, black holes, metal return and
-        auxiliary physics left for later slices).
+        run_sharded with its light cone, planes, QSO lightup, excursion
+        set and neutrinos left for a later slice).
 
         mesh: parallel.mesh.ShardMesh of this rank.  Every rank holds the
         whole host state (read from the same IC, as every MPI rank reads
@@ -1854,33 +1882,46 @@ class Simulation:
         the x histogram summed over ranks after every step.  With gas the
         step runs the sharded density and hydro force, the entropy
         integration, and cooling or cooling with star formation (the new
-        stars appended to the rank that formed them); a density strip too
-        narrow for the converged hsml runs the same step again with a
-        strip 1.5 times wider, which the rest of the run keeps.  Timestep
-        statistics are summed over ranks, so no step gathers rows.  Sync
-        points write striped snapshots (parallel/snapshot.py) and, with
-        SnapshotWithFOF, the distributed FOF's PIG (parallel/fof.py).
-        Rank 0 writes sfr.txt from the sums over ranks, a line for each
-        step that formed stellar mass (total_sm > 0, sfr_eff.c:356).  The
-        host mirror (self.pdata, self.sph, self.stars) is refreshed from
-        every rank's rows at the end.  No per-step power spectrum is
-        written (the JAX package's sharded run writes none either).
+        stars appended to the rank that formed them, sh03's subgrid winds
+        before they spawn); a density strip too narrow for the converged
+        hsml runs the same step again with a strip 1.5 times wider, which
+        the rest of the run keeps.  After each global step, or each PM
+        step of the hierarchical run, the subgrid passes run in the JAX
+        package's order: the neighbour winds of the new stars (vs08,
+        ofjt10: parallel/winds.py), the black holes (parallel/blackhole.py,
+        which takes swallowed gas and merged BHs out of the rows) and the
+        metal return (parallel/metals.py); decoupled wind gas feels no
+        hydro force (the single-device rule).  Timestep statistics are
+        summed over ranks, so no step gathers rows.  Sync points write
+        striped snapshots (parallel/snapshot.py) and, with SnapshotWithFOF,
+        the distributed FOF's PIG (parallel/fof.py), after which
+        BlackHoleOn seeds a BH in each halo above the seeding thresholds
+        that holds none (parallel/fof.seed_convert).  Rank 0 writes sfr.txt
+        from the sums over ranks, a line for each step that formed stellar
+        mass (total_sm > 0, sfr_eff.c:356).  The host mirror (self.pdata,
+        self.sph, self.stars, self.bh) is refreshed from every rank's rows
+        at the end.  No per-step power spectrum is written, nor
+        blackholes.txt or BH-Details (the JAX package's sharded run writes
+        none of them either).
 
         layer_sync=True synchronises the device at each layer boundary of
         the step, so that ``self.walltime`` splits the step's seconds by
         layer; ``self.sharded_log`` gets one dict per PM step,
         ``self.sharded_rows`` this rank's rows by type at the end and
-        ``self.sharded_formed`` the stars this rank formed.  Raises
-        ValueError before the first step for a switch this driver does not
-        carry (check_sharded_supported)."""
+        ``self.sharded_formed`` the stars this rank formed;
+        ``self.wind_kicks``, ``bh_swallowed``, ``bh_mergers`` and
+        ``bh_seeded`` count over all ranks.  Raises ValueError before the
+        first step for a switch this driver does not carry
+        (check_sharded_supported)."""
         check_sharded_supported(self.cfg, self.has_gas)
         from .parallel import collectives as coll
         from .parallel.decomp import balanced_boundaries
         from .parallel.driver import (MAXB, GasStep, Layers, assign_bins,
                                       pm_refresh, sharded_step)
-        from .parallel.fof import sharded_fof
+        from .parallel.fof import SEED_NONE, seed_convert, sharded_fof
         from .parallel.mesh import (default_n_local, fetch_global,
                                     shard_particles)
+        from .physics import winds as windmod
         from .parallel.snapshot import (write_snapshot_sharded,
                                         write_pig_sharded)
         from .parallel.sph import STRIP_WIDEN
@@ -1898,11 +1939,18 @@ class Simulation:
         S = mesh.size
         log2s = int(np.log2(S))
         assert 1 << log2s == S, "rank count must be a power of two"
-        with_potential = bool(self.cfg.output_potential)
         with_gas = bool(self.has_gas and self.cfg.hydro_on)
         with_sfr = bool(with_gas and self.cfg.starformation_on)
         with_cooling = bool(with_gas and self.cfg.cooling_on
                             and not with_sfr)
+        subgrid = bool(self.cfg.wind_model & windmod.WIND_SUBGRID)
+        wind_sharded = bool(with_sfr and self.cfg.wind_on and subgrid)
+        wind_neighbors = bool(with_sfr and self.cfg.wind_on and not subgrid)
+        with_metals = bool(with_sfr and self.cfg.metal_return_on)
+        with_bh = bool(with_gas and self.cfg.black_hole_on)
+        # the BH reposition reads the potential column (bhdynfric.c:199)
+        with_potential = bool(self.cfg.output_potential
+                              or (with_bh and self.cfg.bh_reposition))
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         if with_gas and not self._gas_initialized:
             if self._gas_restore:
@@ -1957,6 +2005,33 @@ class Simulation:
                         formation_time=self.stars.formation_time,
                         birth_density=self.stars.birth_density,
                         birth_metallicity=self.stars.metallicity)
+        if with_metals:
+            # one [N, 9] species column: the gas's evolving metals, a
+            # star's birth composition (metal_return.c's NMETALS layout)
+            is_star0 = pd.valid & (pd.ptype == 4)
+            msep = float(np.float32(2.0 * self.cfg.boxsize / max(
+                1.0, np.cbrt(float(pd.num_valid)))))
+            sh0 = self._star_hsml if self._star_hsml is not None else \
+                torch.where(pd.hsml > 0, pd.hsml, msep)
+            cols.update(
+                metals=torch.where(is_star0[:, None], self.stars.metals,
+                                   self.sph.metals),
+                star_hsml=torch.where(is_star0, torch.where(
+                    sh0 > 0, sh0, msep), 0.0).to(torch.float32),
+                total_mass_returned=self.stars.total_mass_returned,
+                last_enrichment_myr=self.stars.last_enrichment_myr)
+        if with_bh:
+            self._ensure_bh()
+            bh = self.bh
+            cols.update(bh_mass=bh.bh_mass, bh_mdot=bh.mdot,
+                        bh_density=bh.bh_density, bh_mtrack=bh.mtrack,
+                        bh_progs=bh.count_progs, bh_ke=bh.kinetic_energy,
+                        bh_vdisp=bh.vdisp)
+            if with_sfr:
+                # one formation-time column: a BH row's seeding time
+                cols["formation_time"] = torch.where(
+                    pd.valid & (pd.ptype == 5), bh.formation_time,
+                    cols["formation_time"])
         n_local = default_n_local(pd.capacity, S)
         st = shard_particles(cols, pd.valid.cpu(), mesh, n_local)
         for k, v in st.items():
@@ -1988,7 +2063,9 @@ class Simulation:
                 self.cfg.density_independent_sph, self._min_egy_spec,
                 sfr_fn=self._sharded_sfr_fn() if with_sfr else None,
                 cooling_fn=(self._sharded_cooling_fn() if with_cooling
-                            else None))
+                            else None),
+                wind_fn=self._sharded_wind_fn() if wind_sharded else None,
+                decouple=with_sfr and self.cfg.wind_on)
 
         def source_scalars(scal, ti_key, a1):
             """The source terms' host scalars at a1: the redshift, the
@@ -2117,10 +2194,42 @@ class Simulation:
                 names = dict(formation_time="formation_time",
                              birth_density="birth_density",
                              metallicity="birth_metallicity")
+                if with_metals:
+                    names.update(metals="metals",
+                                 total_mass_returned="total_mass_returned",
+                                 last_enrichment_myr="last_enrichment_myr")
                 self.stars = stars.replace(**{
                     f: put(getattr(stars, f), k) for f, k in names.items()})
+            if with_metals:
+                # the species column: the gas's metals, the stars' birth
+                # composition
+                pt = self.pdata.ptype[:, None]
+                self.sph = self.sph.replace(metals=torch.where(
+                    pt == 0, self.stars.metals, self.sph.metals))
+                self.stars = self.stars.replace(metals=torch.where(
+                    pt == 4, self.stars.metals, 0.0))
+                self._star_hsml = put(torch.zeros(
+                    cap, dtype=torch.float32, device=self.device),
+                    "star_hsml")
+            if with_bh:
+                from .physics.blackhole import BhData
+                bh = BhData.zeros(cap, self.device)
+                names = dict(bh_mass="bh_mass", mdot="bh_mdot",
+                             bh_density="bh_density", mtrack="bh_mtrack",
+                             count_progs="bh_progs",
+                             kinetic_energy="bh_ke", vdisp="bh_vdisp")
+                if with_sfr:
+                    names["formation_time"] = "formation_time"
+                self.bh = bh.replace(**{
+                    f: put(getattr(bh, f), k) for f, k in names.items()})
 
         def do_fof():
+            """The distributed FOF of the rows as they stand (their owners
+            per ``owned``), its PIG and, with BlackHoleOn, the seeding
+            (fof_seed, run.c:626-630): the densest gas row of each halo
+            above MinFoFMassForNewSeed and MinMStarForNewSeed that holds
+            no BH becomes one."""
+            nonlocal st
             npart = int(coll.psum((st["ptype"] == 1).sum(), mesh))
             mean_sep = self.cfg.boxsize / max(1.0, np.cbrt(npart))
             params = FOFParams(
@@ -2131,14 +2240,34 @@ class Simulation:
             lay("FOF")
             fstats = {}
             cat, sorted_labels, labels = sharded_fof(
-                mesh, st, bounds, boxsize=self.cfg.boxsize,
-                mean_sep=mean_sep, params=params, stats=fstats)
+                mesh, st, owned, boxsize=self.cfg.boxsize,
+                mean_sep=mean_sep, params=params, with_bh=with_bh,
+                stats=fstats)
             lay("IO")
             write_pig_sharded(self, mesh, st, labels, sorted_labels, cat)
             lay(None)
+            seeded = 0
+            if with_bh and cat["ngroups"]:
+                par = self._bh_params()
+                pick = ((cat["masses"] > par.min_fof_mass_for_seed)
+                        & (cat["mass_by_type"][:, 4]
+                           > par.min_mstar_for_seed)
+                        & ~cat["has_bh"] & (cat["seed_gid"] != SEED_NONE))
+                if pick.any():
+                    lay("BH")
+                    st, seeded = seed_convert(
+                        st, cat["seed_gid"][pick], mesh,
+                        seed_mass=par.seed_mass,
+                        seed_dyn_mass=par.seed_bh_dyn_mass,
+                        atime=self.atime)
+                    lay(None)
+                self.bh_seeded.append(seeded)
+                if verbose and seeded:
+                    message(f"[sharded fof] seeded {seeded} black holes")
             self.sharded_fofs.append(dict(a=self.atime,
                                           ngroups=cat["ngroups"],
-                                          rounds=fstats["rounds"]))
+                                          rounds=fstats["rounds"],
+                                          seeded=seeded))
 
         self.sharded_fofs = []
 
@@ -2249,6 +2378,68 @@ class Simulation:
                     fac3=a1s ** (3 * (1 - GAMMA) / 2.0))
             return source_scalars(scal, ti, a1s)
 
+        bh_par = self._bh_params() if with_bh else None
+        metal_margin = None
+
+        def subgrid_passes(t0, t1):
+            """The interval's subgrid passes on the rows as the step left
+            them (their owners per ``owned``), in the JAX package's order:
+            the new stars' neighbour winds, the black holes, the metal
+            return.  The draws' keys are the JAX package's: the winds'
+            from the step's first tick folded with 77, the BHs' from
+            ti_current (the step's end) + 5."""
+            nonlocal st, metal_margin
+            from .utils import threefry
+            a0, a1 = float(np.exp(loga(t0))), float(np.exp(loga(t1)))
+            dtime = (loga(t1) - loga(t0)) / float(self.CP.hubble_function(a1))
+            if wind_neighbors:
+                from .parallel.winds import sharded_winds
+                lay("Winds")
+                key = threefry.fold_in(threefry.prng_key(
+                    (self.cfg.random_seed + t0) % (2 ** 31)), 77)
+                upd, ws = sharded_winds(
+                    st, {"atime": a1, "dtime": dtime,
+                         "aform_min": a0 * (1.0 + 1e-7), "key": key}, mesh,
+                    self._winds, boxsize=self.cfg.boxsize,
+                    mean_sep=self._dm_mean_sep())
+                st.update(upd)
+                self.wind_kicks += ws["n_kicked"]
+            if with_bh:
+                from .parallel.blackhole import sharded_bh
+                lay("BH")
+                key = threefry.prng_key(
+                    (self.cfg.random_seed + self.ti_current + 5) % (2 ** 31))
+                st, bs = sharded_bh(
+                    st, {"atime": a1, "dtime": dtime, "key": key,
+                         "bh_soft": self.cfg.gravity_softening
+                         * self._dm_mean_sep()}, mesh, bh_par,
+                    boxsize=self.cfg.boxsize, gconst=self.CP.GravInternal,
+                    unit_time_in_s=self.cfg.units.UnitTime_in_s,
+                    hubble_param=self.CP.HubbleParam,
+                    unit_velocity=self.cfg.units.UnitVelocity_in_cm_per_s,
+                    uu_in_cgs=self.cfg.units.UnitInternalEnergy_in_cgs,
+                    rho_crit_baryon=self._rho_crit_baryon(),
+                    kernel_type=self.cfg.density_kernel_type,
+                    reposition=self.cfg.bh_reposition,
+                    # the mergers' boundness test takes the full force
+                    acc=(st["grav_acc"] + st["pm_acc"]) if hierarchical
+                    else None)
+                self.bh_swallowed += bs["n_swallowed"]
+                self.bh_mergers += bs["n_merged"]
+            if with_metals:
+                from .parallel.metals import MARGIN, sharded_metal_return
+                lay("MetalReturn")
+                upd, ms = sharded_metal_return(
+                    st, mesh, owned, float(f32(a0)), float(f32(a1)),
+                    *self._metal_return_tables(), self.cfg.boxsize,
+                    self.CP.HubbleParam, margin=metal_margin or MARGIN)
+                st.update(upd)
+                if ms["reruns"] and verbose:
+                    message(f"[sharded] metal-return strip too narrow: "
+                            f"margin {ms['margin']:.4g}")
+                metal_margin = ms["margin"]
+            lay(None)
+
         def log_step(t_start, n_sub, n_closing, c0):
             self.sharded_log.append(dict(
                 a=self.atime, substeps=n_sub, n_closing=n_closing,
@@ -2295,6 +2486,7 @@ class Simulation:
                                 hk2=self.tf.hydrokick(mid, t1),
                                 dloga2=loga(t1) - loga(mid),
                                 dloga_full=loga(t1) - loga(t0))
+                owned = bounds
                 st, stats = step(st, source_scalars(scal, t0, a1))
                 self.ti_current = t1
                 self.force_evals += stats["n_valid"]
@@ -2331,6 +2523,7 @@ class Simulation:
                 while ti < t1:
                     dti_s = min(1 << minb, t1 - ti)
                     a1s = float(np.exp(loga(ti + dti_s)))
+                    owned = bounds
                     st, sstats = step(st, bin_tables(ti, dti_s, maxbin,
                                                      a1s, pop))
                     ti += dti_s
@@ -2349,9 +2542,12 @@ class Simulation:
                 st.update(upd)
                 hist = pm_stats["hist"]
             nsteps += 1
-            bounds = balanced_boundaries(hist.cpu().numpy(), S)
+            subgrid_passes(t0, t1)
             log_step(step_t0, n_sub, n_closing, c0)
             sync_outputs()
+            # the next step's boundaries: the passes and the outputs above
+            # read the rows where this step's exchange put them (owned)
+            bounds = balanced_boundaries(hist.cpu().numpy(), S)
             hci.update_longest_step(_time.monotonic() - step_t0)
             if verbose:
                 message(f"[sharded{'-hier' if hierarchical else ''} step "
@@ -2397,6 +2593,30 @@ class Simulation:
                 hubble=float(np.float32(scal["hubble"])), dloga=dloga,
                 uvbg=uv, do_cooling_fn=cool_fn)
         return sfr_fn
+
+    def _sharded_wind_fn(self):
+        """The sh03 subgrid winds of the sharded step (the JAX package's
+        wind_fn): winds_subgrid on the star-forming gas with no dispersion
+        (fixed efficiency), keyed fold_in(step key, 77), then the
+        decoupling timers over each row's interval."""
+        from .physics import winds as windmod
+        from .utils import threefry
+
+        def wind_fn(st, out, dloga, scal):
+            atime = float(np.float32(scal["atime"]))
+            vel, ent, delay, _ = windmod.winds_subgrid(
+                self._winds, threefry.fold_in(scal["key"], 77), sm=out["sm"],
+                mass=st["mass"], pid=st["pid"],
+                vdisp=torch.zeros_like(st["mass"]), vel=st["vel"],
+                entropy=st["entropy"], density=st["density"],
+                delay_time=st["delay_time"], eligible=out["on_eeqos"],
+                atime=atime)
+            dt = torch.as_tensor(dloga, dtype=torch.float32,
+                                 device=st["mass"].device) \
+                / float(np.float32(scal["hubble"]))
+            return vel, ent, windmod.winds_decouple_update(
+                self._winds, delay, st["density"], dt, atime)
+        return wind_fn
 
     def _sharded_cooling_fn(self):
         """The sharded step's cooling without star formation (the

@@ -17,7 +17,9 @@ and star formation), end to end on gloo ranks on the CPU.
   the final state by ID (the same IDs, so the same stars: the draws are
   per ID; positions within 16 fixed-point ticks, every float column within
   2e-5 by norm, the cooling's tolerance, tests/test_torch_star_run.py),
-  sfr.txt, and every block of the snapshot and the PIG.  The slow test
+  sfr.txt, and every block of the snapshot; the PIG is held to the JAX
+  package's distributed FOF of the same run's final rows
+  (jax_pig_witness, in the same record).  The slow test
   ``test_jax_gas_run_record`` computes it anew and checks it
   (MPG_WRITE_SHARDED_FIXTURE=1 writes it):
 
@@ -159,19 +161,69 @@ def canonical_groups(d, kind="PIG0"):
     return out
 
 
+def jax_pig(rec):
+    """The JAX side of the hierarchical run's PIG: the groups and members
+    of jax_pig_witness (the JAX package's distributed FOF of its final
+    rows), each member's other blocks from the JAX package's snapshot of
+    those rows (PART0; the PIG writes the snapshot's blocks and GroupID)."""
+    w = {k[len("hier/PIGwitness/"):]: v for k, v in rec.items()
+         if k.startswith("hier/PIGwitness/")}
+    want = {f"PIG0/{k}": v for k, v in w.items()
+            if k.startswith("FOFGroups/")}
+    for t in (0, 1, 4):
+        part = {k[len(f"hier/PART0/{t}/"):]: v for k, v in rec.items()
+                if k.startswith(f"hier/PART0/{t}/")}
+        wt = {k[len(f"{t}/"):]: v for k, v in w.items()
+              if k.startswith(f"{t}/")}
+        # a star by ID and formation time: spawned stars' IDs repeat
+        cols = ("ID", "StarFormationTime") if t == 4 else ("ID",)
+        row = {k: i for i, k in enumerate(zip(*(part[c].tolist()
+                                                for c in cols)))}
+        sel = np.array([row[k] for k in zip(*(wt[c].tolist()
+                                              for c in cols))], np.int64)
+        for block, v in part.items():
+            want[f"PIG0/{t}/{block}"] = v[sel]
+        want[f"PIG0/{t}/GroupID"] = wt["GroupID"]
+    return want
+
+
+def by_member(d, kind="PIG0"):
+    """A PIG's member blocks in the order of (ID, StarFormationTime)."""
+    out = dict(d)
+    for t in range(6):
+        if f"{kind}/{t}/ID" not in d:
+            continue
+        keys = (d[f"{kind}/{t}/ID"],)
+        if f"{kind}/{t}/StarFormationTime" in d:
+            keys = (d[f"{kind}/{t}/StarFormationTime"],) + keys
+        o = np.lexsort(keys)
+        for k, v in d.items():
+            if k.startswith(f"{kind}/{t}/"):
+                out[k] = v[o]
+    return out
+
+
 @pytest.mark.parametrize("kind", ["PART0", "PIG0"])
 def test_gas_snapshot_and_pig_blocks_match_jax(runs, kind):
     """Every block of the hierarchical run's striped snapshot and PIG, by
     ID (gas, dark matter, stars and the FOFGroups table, its groups by
     their smallest member): the same rows and groups, the floats within
-    2e-5 by norm, the positions within 16 ticks; one stripe per rank."""
+    2e-5 by norm, the positions within 16 ticks; one stripe per rank.
+    The snapshot is held to the JAX package's; the PIG to the JAX
+    package's distributed FOF of its run's final rows, each shard holding
+    its own slab's rows (jax_pig_witness): its run_sharded ghosts the rows
+    of its FOF by the next step's slab boundaries instead, and at 4 shards
+    splits a group there (80 groups in its PIG, 79 in the witness;
+    ROADMAP.md section 3)."""
     from mpgadget_tpu_torch.io import BigFile
     S, out, rec = runs
     got = dict(np.load(out / "gas_hier.npz"))
-    want = {k[len("hier/"):]: v for k, v in rec.items()
-            if k.startswith("hier/")}
-    if kind == "PIG0":
-        got, want = canonical_groups(got), canonical_groups(want)
+    if kind == "PART0":
+        want = {k[len("hier/"):]: v for k, v in rec.items()
+                if k.startswith("hier/")}
+    else:
+        want = jax_pig(rec)
+        got, want = (by_member(canonical_groups(d)) for d in (got, want))
     compare_columns(got, want, kind + "/")
     assert f"{kind}/4/StarFormationTime" in got
     assert f"{kind}/0/InternalEnergy" in got
@@ -290,8 +342,80 @@ def test_metal_return_needs_star_formation_when_sharded(tmp_path):
 
 # ---- the JAX record ---------------------------------------------------------
 
+def jax_pig_witness(sim, mesh):
+    """The JAX package's distributed FOF (parallel/fof.sharded_fof) of a
+    finished run's final rows, each shard holding the rows of its own slab
+    of the count-balanced boundaries of those rows (run_sharded's rule):
+    the FOFGroups table as its write_pig_sharded writes it, and each
+    member's ID and GroupID (stars also their StarFormationTime, since
+    their IDs repeat).  run_sharded's own PIG ghosts the rows by the next
+    step's boundaries instead (ROADMAP.md section 3)."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from mpgadget_tpu.parallel.decomp import balanced_boundaries
+    from mpgadget_tpu.parallel.fof import sharded_fof
+    from mpgadget_tpu.physics.fof import FOFParams
+    S = int(mesh.devices.size)
+    pd = sim.pdata
+    v = np.asarray(pd.valid)
+    rows = {"ipos": pd.ipos, "vel": pd.vel, "mass": pd.mass,
+            "ptype": pd.ptype, "pid": pd.pid, "sfr": sim.sph.sfr,
+            "ft": sim.stars.formation_time}
+    rows = {k: np.asarray(c)[v] for k, c in rows.items()}
+    x = rows["ipos"][:, 0]
+    bounds = balanced_boundaries(np.bincount(
+        (x >> np.uint32(20)).astype(np.int64), minlength=1 << 12), S)
+    shard = np.searchsorted(bounds, x, side="right") - 1
+    o = np.argsort(shard, kind="stable")
+    counts = np.bincount(shard, minlength=S)
+    n_local = int(counts.max())
+    slot = np.concatenate([r * n_local + np.arange(c)
+                           for r, c in enumerate(counts)])
+    lay = {}
+    for k, c in rows.items():
+        a = np.zeros((S * n_local,) + c.shape[1:], c.dtype)
+        a[slot] = c[o]
+        lay[k] = a
+    lay["valid"] = np.zeros(S * n_local, bool)
+    lay["valid"][slot] = True
+    sh = NamedSharding(mesh, P("x"))
+    st = {k: jax.device_put(lay[k], sh)
+          for k in ("ipos", "vel", "mass", "ptype", "valid", "sfr")}
+    cfg = sim.cfg
+    npart = int(((lay["ptype"] == 1) & lay["valid"]).sum())
+    cat, sorted_labels, _, labels = sharded_fof(
+        mesh, st, bounds, boxsize=cfg.boxsize,
+        mean_sep=cfg.boxsize / max(1.0, np.cbrt(npart)), n_local=n_local,
+        params=FOFParams(linking_length=cfg.fof_linking_length,
+                         min_group_length=cfg.fof_min_group_length,
+                         primary_link_types=cfg.fof_primary_link_types,
+                         secondary_link_types=cfg.fof_secondary_link_types))
+    rank = {int(lab): i for i, lab in enumerate(sorted_labels)}
+    gi = np.array([rank.get(int(lab), -1) for lab in np.asarray(labels)])
+    off = sim._ipos_offset.astype(np.float64) / 2.0 ** 32 * cfg.boxsize
+    ng = cat["ngroups"]
+    out = {"FOFGroups/GroupID": np.arange(1, ng + 1, dtype="<u4"),
+           "FOFGroups/Mass": cat["masses"].astype("<f4"),
+           "FOFGroups/MassCenterPosition":
+               np.mod(cat["cm"] - off, cfg.boxsize).astype("<f8"),
+           "FOFGroups/MassCenterVelocity":
+               (cat["vel"] / sim.atime).astype("<f4"),
+           "FOFGroups/LengthByType": cat["len_by_type"].astype("<u4"),
+           "FOFGroups/MassByType": cat["mass_by_type"].astype("<f4"),
+           "FOFGroups/StarFormationRate": cat["sfr"].astype("<f4")}
+    for t in (0, 1, 4):
+        m = lay["valid"] & (gi >= 0) & (lay["ptype"] == t)
+        k = np.argsort(lay["pid"][m], kind="stable")
+        out[f"{t}/ID"] = lay["pid"][m][k]
+        out[f"{t}/GroupID"] = (gi[m][k] + 1).astype("<u4")
+        if t == 4:
+            out["4/StarFormationTime"] = lay["ft"][m][k].astype("<f4")
+    return out
+
+
 def jax_gas_run(S, mode, outdir):
-    """The JAX package's run_sharded of a gas run case at S shards."""
+    """The JAX package's run_sharded of a gas run case at S shards (and,
+    of the hierarchical run, jax_pig_witness of its final rows)."""
     import jax
     from jax.sharding import Mesh
     from mpgadget_tpu.main import build_simulation as jax_build
@@ -303,7 +427,11 @@ def jax_gas_run(S, mode, outdir):
     mesh = Mesh(np.array(jax.devices("cpu")[:S]), ("x",))
     sim.run_sharded(mesh, hierarchical=mode != "global", verbose=False,
                     max_steps=W.GAS_MODES[mode][1])
-    return W.gas_outputs(sim, os.path.join(outdir, mode))
+    out = W.gas_outputs(sim, os.path.join(outdir, mode))
+    if mode == "hier":
+        out.update({f"PIGwitness/{k}": v
+                    for k, v in jax_pig_witness(sim, mesh).items()})
+    return out
 
 
 @pytest.mark.slow

@@ -240,9 +240,11 @@ DM_SWITCHES = {"MassiveNuLinRespOn": "massive_nu_lin_resp_on",
                "PlaneOutputList": "plane_output_list"}
 
 
-# carried by the sharded driver since its gas: each is admitted alone, and
-# a switch it does not carry beside it is still refused
-CARRIED_GAS = ("HydroOn", "CoolingOn", "StarformationOn")
+# carried by the sharded driver since its gas and its subgrid physics: each
+# is admitted alone, and a switch it does not carry beside it is still
+# refused
+CARRIED_GAS = ("HydroOn", "CoolingOn", "StarformationOn", "WindOn",
+               "BlackHoleOn", "MetalReturnOn")
 
 
 @pytest.mark.parametrize("switch", GAS_SWITCHES + tuple(DM_SWITCHES))
@@ -267,8 +269,8 @@ def test_run_sharded_refuses_what_it_does_not_carry(switch, tmp_path):
     refused = switch
     if switch in CARRIED_GAS:
         check_sharded_supported(sim.cfg, True)
-        sim.cfg.wind_on = True
-        refused = "WindOn"
+        sim.cfg.qso_lightup_on = True
+        refused = "QSOLightupOn"
     calls = sim.tree_force_calls
     with pytest.raises(ValueError, match=f"{refused} is not yet ported to "
                                          "the sharded driver"):
