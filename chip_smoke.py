@@ -110,7 +110,8 @@ fails the run (non-zero exit, no result line) if it fails:
    of P(k) against D1^2 at k <= GAS_PK_KMAX (rtol 0.18), each
    snapshot's Density,
    SmoothingLength, InternalEnergy and EgyWtDensity and each PIG read
-   back, and RestartFlag 3 through the CLI on the last gas snapshot;
+   back, and RestartFlag 3 through the CLI's body (main.run_cli, in this
+   process) on the last gas snapshot;
 15. K4 and K5 against their plain versions on the card, on the inputs
    of the run's own calls (K4: the first pass of the last density solve
    that targets every gas particle; K5: the last hydro call), and on a
@@ -135,8 +136,8 @@ fails the run (non-zero exit, no result line) if it fails:
    read just after: stars formed, no particle lost, the gas state finite
    and above the entropy floor, each snapshot's star count, stellar mass
    and type-4 blocks read back, sfr.txt's lines of 8 columns, and
-   RestartFlag 3 through the CLI on the last snapshot, whose PIG carries
-   its grouped stars' blocks;
+   RestartFlag 3 through the CLI's body on the last snapshot, whose PIG
+   carries its grouped stars' blocks;
 17. K6 against its plain version on the card, on the inputs of the lya
    run's last cooling call: every gas particle and the call's own closing
    subset in float32, every gas particle in float64, the net rate (the
@@ -190,12 +191,12 @@ fails the run (non-zero exit, no result line) if it fails:
    compute no dispersion), the total mass against the IC's (MASS_TOL),
    each snapshot's star and BH blocks and each PIG read back, K3's and
    ops/pairs.pair_reduce's card time by caller (SUBGRID_CALLERS), and
-   RestartFlag 3 through the CLI on the last snapshot;
+   RestartFlag 3 through the CLI's body on the last snapshot;
 24. winds and black holes on global steps: phase 23's snapshot at a =
    0.15 resumed through the CLI's body (RestartFlag 2) with
    GLOBAL_SWITCHES (SplitGravityTimestepsOn 0, the seeding and star
    formation thresholds lowered, Generations 64, outputs at a = 0.151
-   and 0.154) for at most GLOBAL_STEPS global steps: wind kicks,
+   and 0.152) for at most GLOBAL_STEPS global steps: wind kicks,
    decoupled rows without hydro force, a BH seeded that accretes,
    swallowing and mergers counted, BH-Details-R0 and the last
    snapshot's BH blocks read back (from_snapshot), and the card time by
@@ -211,18 +212,17 @@ fails the run (non-zero exit, no result line) if it fails:
    the total mass kept, the snapshots and PIGs read back;
 26. reionization on star-small: phase 23's snapshot at a = 0.15 resumed
    through the CLI's body (RestartFlag 2, hierarchical as shipped) to a =
-   0.17 (REION_TIME_MAX, the depth cut) with the metal table, a z_reion
-   grid (UVFluctuationFile), the excursion set (epoch z 6 to 5) and QSO
-   lightup on, each reading a
-   stand-in the smoke writes (write_reion_inputs: a TreeCool table, the
-   metal table, a z_reion grid at Nmesh 8 with a late patch at z_re 5,
-   a HeII history from z 5.6 to 4), QSOMinMass/QSOMaxMass bracketing the
-   PIG's largest halo and 1000 kpc/h bubbles (cuts, printed): the UVBG
-   updates and their xHI, gas rows with J21 > 0 and zreion set, the late
-   patch's rows without UV rates between the epoch's end (z 5.2) and z = 5
-   and
-   with them after, HeIII-ionized rows each inside a placed bubble, gas
-   with metallicity > 0, the mass against the snapshot's, J21,
+   0.162 (REION_TIME_MAX, the depth cut) with the metal table, a z_reion
+   grid (UVFluctuationFile), the excursion set (epoch z 6 to 5.35) and QSO
+   lightup on, each reading a stand-in the smoke writes
+   (write_reion_inputs: a TreeCool table, the metal table, a z_reion grid
+   at Nmesh 8 with a late patch at z_re 5.25, a HeII history from z 5.6 to
+   4), QSOMinMass/QSOMaxMass bracketing the PIG's largest halo and 1000
+   kpc/h bubbles (cuts, printed): the UVBG updates and their xHI, gas rows
+   with J21 > 0 and zreion set, the late patch's rows without UV rates
+   between the epoch's end (z 5.35) and z = 5.25 and with them after,
+   HeIII-ionized rows each inside a placed bubble, gas with metallicity >
+   0, the mass against the snapshot's, J21,
    ZReionized and HeIIIIonized read back from the last snapshot, the
    "UVBG" and "HeIII" seconds; then K6 with its per-row inputs on that
    run's last cooling call (per-row UV rates, metallicity, the metal
@@ -231,10 +231,12 @@ fails the run (non-zero exit, no result line) if it fails:
 27. the sharded driver: examples/dm-small/paramfile.gadget as it ships
    (64^3, Nmesh 128, hierarchical, to a = 0.25, snapshots and PIGs at
    0.15, 0.2 and 0.25) from phase 9's IC through Simulation.run_sharded,
-   started by python -m torch.distributed.run with this script as each
-   rank (--sharded-rank), twice: (a) one NCCL rank with MPG_SHARDED=1 and
-   (b) two gloo ranks sharing the card (MPG_DIST_BACKEND=gloo), each
-   under a time limit of its own: every rank on the card with K1, K2 and
+   with this script as each rank (--sharded-rank, started with the
+   environment torch.distributed.run gives a rank; one launch a
+   configuration runs phases 27-30 one after the other), twice: (a) one
+   NCCL rank with MPG_SHARDED=1 and (b) two gloo ranks sharing the card
+   (MPG_DIST_BACKEND=gloo), under a time limit: every rank on the card
+   with K1, K2 and
    K3 launched by the sharded steps and FOF; every ID once in each
    snapshot, the total mass the IC's, the PIGs (pig_check), and the last
    snapshot's P(k) against phase 10's on the bins below k_Nyquist/4
@@ -276,7 +278,28 @@ fails the run (non-zero exit, no result line) if it fails:
    24's.  Every rank on the card with K1-K6 launched; per configuration
    and part the PM steps, substeps, seconds, collective seconds and bytes
    per PM step, rank 0's walltime by layer (Winds, BH and MetalReturn
-   among them) and its K3 and pair_reduce card time by caller.
+   among them) and its K3 and pair_reduce card time by caller;
+30. the sharded driver with the options: in phase 27's two
+   configurations, each configuration's ranks started once for four runs
+   one after the other (options_sharded_phase): (1) phase 18's neutrino
+   run (its IC and paramfile: MNue 0.2, planes) to OPT_NU_TIME_MAX, every
+   rank's delta_tot history an entry a PM step, the P(k) file rank 0
+   wrote against phase 18's at that a below k_Nyquist/4
+   (OPT_SHARDED_TOL), the planes finite with zero mean; (2) phase 20's
+   hybrid run to OPT_HYBRID_TIME_MAX, on every rank the type-2 rows
+   without PM force at each PM refresh before NuPartTime and with it
+   after; (3) phase 21's light cone, one stripe a rank, every row inside
+   the shell the run crossed, as many rows as phase 21's within
+   OPT_SHARDED_TOL; (4) phase 26's reionization run, phase 23's a = 0.15
+   snapshot resumed to OPT_REION_TIME_MAX: K1-K6 launched on every rank,
+   the excursion set updated, gas with J21 > 0 each with zreion set,
+   HeIII rows each inside the bubble that ionized it, the mass, the last
+   snapshot's J21, ZReionized and HeIIIIonized blocks read back; per
+   configuration and run the PM steps, seconds, collectives and rank 0's
+   walltime by layer (Lightcone, Planes, HeIII, UVBG, PMgrav).
+
+Every phase prints its seconds ("phase N (...): s of the smoke"), and
+the line "phase seconds:" sums them before the kernel table.
 
 Bounds ("bound_ms") are the larger of bytes over the card's memory rate
 (3.35 TB/s) and FP32 operations over its FP32 peak (67 TFLOP/s, an FMA
@@ -509,6 +532,23 @@ def time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def once_ms(fn, device):
+    """(fn(), its milliseconds): CUDA events around the one call on the
+    card, the host clock elsewhere."""
+    import torch
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def graph_ms(fn, reps):
     """Mean milliseconds of the device work of one call of fn: the call
     is captured once in a CUDA graph and the graph replayed, so that the
@@ -586,7 +626,6 @@ def kernel_phase(nb, G, S, rs_inv, h_inv, rcut, counts=False, seed=7,
                           count, rcut)
     acc0 = torch.zeros((nb, 3, G), dtype=torch.float32, device=dev)
     pot0 = torch.zeros((nb, G), dtype=torch.float32, device=dev)
-    plain_reps = 3 if S <= 8192 else 1
     out = {}
     for wp in (False, True):
         args = (tx, ty, tz, sx, sy, sz, smt, acc0, pot0, rs_inv, h_inv, rcut,
@@ -594,8 +633,8 @@ def kernel_phase(nb, G, S, rs_inv, h_inv, rcut, counts=False, seed=7,
         kw = dict(with_potential=wp)
         acc, pot = pk.block_pair_accumulate(*args, **kw)
         torch.cuda.synchronize()
-        ref_acc, ref_pot = pk.block_pair_accumulate_reference(*args, **kw)
-        torch.cuda.synchronize()
+        (ref_acc, ref_pot), check_ms = once_ms(
+            lambda: pk.block_pair_accumulate_reference(*args, **kw), dev)
         check(bool(torch.isfinite(acc).all() & torch.isfinite(pot).all()),
               "pair kernel output not finite")
         abs_err = float((acc - ref_acc).abs().max())
@@ -605,8 +644,10 @@ def kernel_phase(nb, G, S, rs_inv, h_inv, rcut, counts=False, seed=7,
             rel = max(rel, pabs / max(float(ref_pot.abs().max()), 1e-30))
             abs_err = max(abs_err, pabs)
         ms = time_ms(lambda: pk.block_pair_accumulate(*args, **kw), 20)
-        plain_ms = time_ms(lambda: pk.block_pair_accumulate_reference(
-            *args, **kw), plain_reps)
+        # above S = 8192 (the slice's grown S) the plain version's one
+        # check call is its time (seconds a call); below, a mean of three
+        plain_ms = check_ms if S > 8192 else time_ms(
+            lambda: pk.block_pair_accumulate_reference(*args, **kw), 3)
         bound_ms, bound_by = pair_bound(nb, G, sources, wp, within)
         print(f"kernel block_pair_accumulate nb={nb} G={G} S={S} "
               f"counts={'per-block' if counts else 'all S'} "
@@ -1471,7 +1512,8 @@ MASS_RTOL = 1e-6
 
 
 def sharded_rank(argv):
-    """One rank of phases 27-29, started by torch.distributed.run: argv
+    """One rank of phases 27-30 (launch_ranks starts it with the
+    environment torch.distributed.run would give it): argv
     = [paramfile, json prefix, device ("cuda"; "cpu" for a rehearsal),
     options...], and after each "--next" another run's [paramfile, json
     prefix, device, options...] in the same process group; options:
@@ -1488,7 +1530,11 @@ def sharded_rank(argv):
     beside the single-device catalogue of the same rows (rank 0); with
     "star" (phase 29) the gas's means, the stars, BHs and their accretion
     rates, the rows this rank held, and the wind kicks, swallowed gas,
-    mergers and seeded BHs over all ranks."""
+    mergers and seeded BHs over all ranks; with "nu", "hybrid" and
+    "reion" (phase 30) the entries of the delta_tot history, each PM
+    refresh's largest type-2 PM acceleration on this rank
+    (option_spies), and the reionization counts with the distances of the
+    rows each bubble ionized on this rank (reion_rank_summary)."""
     sys.path.insert(0, HERE)
     import torch
     from mpgadget_tpu_torch.gravity import pairkernel as pk
@@ -1515,6 +1561,7 @@ def sharded_rank(argv):
     sync = torch.cuda.synchronize if device == "cuda" else (lambda d: None)
     try:
         for run in runs:
+            t_run = time.perf_counter()
             paramfile, prefix = run[:2]
             opts = dict(o.partition("=")[::2] for o in run[3:])
             snapshot = None
@@ -1542,13 +1589,17 @@ def sharded_rank(argv):
                 m.LAUNCHES = 0
             if "star" in opts:
                 subgrid_spans(device)
+            spies = option_spies(opts)
             sync(dev)
             t0 = time.perf_counter()
-            nsteps = sim.run_sharded(mesh, hierarchical=bool(
-                sim.cfg.split_gravity_timesteps and sim.cfg.tree_grav_on),
-                layer_sync=True, max_steps=int(opts.get("max_steps") or 0)
-                or None)
-            sync(dev)
+            try:
+                nsteps = sim.run_sharded(mesh, hierarchical=bool(
+                    sim.cfg.split_gravity_timesteps and sim.cfg.tree_grav_on),
+                    layer_sync=True, max_steps=int(opts.get("max_steps")
+                                                   or 0) or None)
+                sync(dev)
+            finally:
+                spied = spies.close()
             seconds = time.perf_counter() - t0
             res = dict(rank=mesh.rank, size=mesh.size,
                        backend=mesh.backend, device=str(dev), nsteps=nsteps,
@@ -1564,11 +1615,92 @@ def sharded_rank(argv):
                 res.update(star_rank_summary(sim))
                 res["spans"] = {c: {k: list(v) for k, v in d.items()}
                                 for c, d in read_spans(device).items()}
+            res.update(spied)
+            if "nu" in opts:
+                res["nu_entries"] = len(sim._nu_table_state.scalefact)
+            if "reion" in opts:
+                res.update(reion_rank_summary(sim))
+            # the run's seconds in this process, its set-up included
+            res["run_wall"] = time.perf_counter() - t_run
             with open(f"{prefix}_r{mesh.rank}.json", "w") as fh:
                 json.dump(res, fh)
     finally:
         coll.destroy_process_group()
     return 0
+
+
+class option_spies:
+    """Phase 30's per-rank spies for one run: with "hybrid" every PM
+    refresh's a, whether the type-2 rows were passive tracers and their
+    largest |PM acceleration| on this rank (parallel.driver.pm_refresh);
+    with "reion" per bubble the largest distance over radius of the rows
+    it ionized on this rank and their number
+    (physics.qso_lightup._ionize_bubble).  close() undoes them and returns
+    what they saw."""
+
+    def __init__(self, opts):
+        from mpgadget_tpu_torch.parallel import driver
+        from mpgadget_tpu_torch.physics import qso_lightup
+        self.undo, self.seen = [], {}
+        if "hybrid" in opts:
+            real = driver.pm_refresh
+            tracer = self.seen.setdefault("tracer_pm", [])
+
+            def refresh(st, mesh, scal, **kw):
+                upd, stats = real(st, mesh, scal, **kw)
+                t2 = st["ptype"] == 2
+                tracer.append((float(scal["atime"]),
+                               bool(scal.get("nu_tracer")),
+                               float(upd["pm_acc"][t2].abs().max())
+                               if bool(t2.any()) else 0.0))
+                return upd, stats
+            driver.pm_refresh = refresh
+            self.undo.append(lambda: setattr(driver, "pm_refresh", real))
+        if "reion" in opts:
+            import numpy as np
+            real_b = qso_lightup._ionize_bubble
+            bubbles = self.seen.setdefault("bubbles", [])
+
+            def ionize(ipos, is_gas, ionized, *a):
+                out = real_b(ipos, is_gas, ionized, *a)
+                center, radius = a[2], a[3]
+                new = (out[0] & ~ionized).cpu().numpy()
+                d = ipos.cpu().numpy()[new] / 2.0 ** 32 \
+                    - center.cpu().numpy().astype(np.float64)
+                d -= np.round(d)
+                r = np.sqrt((d ** 2).sum(1))
+                bubbles.append((float(r.max() / radius) if r.size else 0.0,
+                                int(r.size)))
+                return out
+            qso_lightup._ionize_bubble = ionize
+            self.undo.append(lambda: setattr(qso_lightup, "_ionize_bubble",
+                                             real_b))
+
+    def close(self):
+        for u in self.undo:
+            u()
+        self.undo = []
+        return self.seen
+
+
+def reion_rank_summary(sim):
+    """Phase 30 (4)'s part of a rank's json: the final state's gas rows
+    with J21 > 0, with zreion set, HeIII-ionized and with metallicity > 0,
+    and the gas (the host mirror, the same on every rank), the excursion
+    set's updates, the bubbles placed and the total mass."""
+    import torch
+    gas, sph = sim.gas_mask, sim.sph
+    n = torch.stack([(gas & (sph.local_j21 > 0)).sum(),
+                     (gas & (sph.zreion >= 0)).sum(),
+                     (gas & (sph.local_j21 > 0) & (sph.zreion < 0)).sum(),
+                     (gas & (sph.he_iii_ionized > 0)).sum(),
+                     (gas & (sph.metallicity > 0)).sum(),
+                     gas.sum()]).cpu().tolist()
+    return dict(zip(("n_j21", "n_zre", "n_j21_no_zre", "n_heiii", "n_metal",
+                     "ngas"), n),
+                uvbg_updates=[list(u) for u in sim.uvbg_updates],
+                qso_bubbles=sum(b for _, b in sim.qso_bubbles),
+                mass=total_mass(sim))
 
 
 def gas_rank_summary(sim, mesh):
@@ -1671,37 +1803,71 @@ def snapshot_power(path, device, nmesh=NMESH, ptype=1):
 
 def launch_ranks(what, nranks, env_over, argv, workdir, timeout, device,
                  kernels=None):
-    """python -m torch.distributed.run with this script as each of
-    nranks ranks (--sharded-rank argv..., one or more runs separated by
-    "--next"), env_over set over the environment (MPG_SHARDED,
-    MPG_DIST_BACKEND taken from it alone), under a time limit; every rank
-    of every run checked on the device and, on the card, each of its
-    kernels (those named in kernels; None: all it counts) launched.
-    Returns (for each run the ranks' json, the processes' wall
+    """nranks processes of this script (--sharded-rank argv..., one or more
+    runs separated by "--next"), each started directly with the
+    environment torch.distributed.run gives a rank (RANK, LOCAL_RANK,
+    WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT; no launcher
+    process), env_over set over the environment (MPG_SHARDED,
+    MPG_DIST_BACKEND taken from it alone), under a time limit: a rank that
+    fails ends the others.  Every rank of every run checked on the device
+    and, on the card, each of its kernels launched: kernels names them
+    (None: all it counts), one tuple for every run or a list of one entry
+    a run.  Returns (for each run the ranks' json, the processes' wall
     seconds)."""
+    import socket
     env = dict(os.environ, **env_over)
     for k in ("MPG_SHARDED", "MPG_DIST_BACKEND"):
         if k not in env_over:
             env.pop(k, None)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nranks),
-           os.path.join(HERE, "chip_smoke.py"), "--sharded-rank"] + argv
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+           "--sharded-rank"] + argv
+    procs, logs = [], []
     t0 = time.perf_counter()
+    for r in range(nranks):
+        renv = dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                    WORLD_SIZE=str(nranks), LOCAL_WORLD_SIZE=str(nranks),
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(os.path.join(workdir, f"rank{r}_port{port}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(cmd, cwd=workdir, env=renv,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    failed = None
     try:
-        proc = subprocess.run(cmd, cwd=workdir, env=env, text=True,
-                              capture_output=True, timeout=timeout)
-    except subprocess.TimeoutExpired as e:
-        raise SmokeFailure(f"{what}: over {timeout} s; "
-                           f"{(e.stdout or '')[-2000:]}")
+        while failed is None:
+            codes = [pr.poll() for pr in procs]
+            if any(c not in (None, 0) for c in codes):
+                failed = f"a rank failed (exit codes {codes})"
+            elif all(c == 0 for c in codes):
+                break
+            elif time.perf_counter() - t0 > timeout:
+                failed = f"over {timeout} s"
+            else:
+                time.sleep(0.2)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"{what}: a rank failed (exit "
-          f"{proc.returncode}): {proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    head = [ln for ln in proc.stdout.splitlines() if "[distributed]" in ln]
+    check(failed is None, f"{what}: {failed}: " + "\n".join(
+        f"rank {r}: ...{t[-3000:]}" for r, t in enumerate(texts)))
+    head = [ln for ln in texts[0].splitlines() if "[distributed]" in ln]
     print(f"{what}: {head[0] if head else 'no backend line'}", flush=True)
     prefixes = [argv[1]] + [argv[i + 2] for i, a in enumerate(argv)
                             if a == "--next"]
+    if kernels is None or isinstance(kernels[0], str):
+        kernels = [kernels] * len(prefixes)
     runs = []
-    for prefix in prefixes:
+    for prefix, kern in zip(prefixes, kernels):
         ranks = []
         for r in range(nranks):
             with open(f"{prefix}_r{r}.json") as fh:
@@ -1712,19 +1878,99 @@ def launch_ranks(what, nranks, env_over, argv, workdir, timeout, device,
                   f"{what} rank {rk['rank']} on {rk['device']}")
             check(rk["size"] == nranks, f"{what}: {rk['size']} ranks")
             if device == "cuda":
-                for kname in kernels or rk["launches"]:
+                for kname in kern or rk["launches"]:
                     check(rk["launches"][kname] > 0, f"{what} rank "
                           f"{rk['rank']}: {kname} kernel never launched")
         runs.append(ranks)
     return runs, wall
 
 
+class Launch:
+    """One configuration's launch that a sharded phase asks for (the
+    phases below are generators that yield these and receive (for each
+    run the ranks' json, the processes' wall seconds)): runs, each the
+    argv [paramfile, json prefix, device, options...] of one run, and
+    kernels, one entry a run (see launch_ranks)."""
+
+    def __init__(self, what, nranks, env_over, runs, timeout, kernels):
+        self.what, self.nranks, self.env_over = what, nranks, env_over
+        self.runs, self.timeout, self.kernels = runs, timeout, kernels
+
+    def argv(self):
+        out = []
+        for run in self.runs:
+            out += (["--next"] if out else []) + list(run)
+        return out
+
+
+def drive(gen, workdir, device):
+    """A sharded phase (a generator of Launch) run alone: each launch as
+    it asks.  Returns the phase's result."""
+    try:
+        req = next(gen)
+        while True:
+            req = gen.send(launch_ranks(
+                req.what, req.nranks, req.env_over, req.argv(), workdir,
+                req.timeout, device, req.kernels))
+    except StopIteration as e:
+        return e.value
+
+
+def drive_merged(phases, workdir, device, what="sharded phases"):
+    """Sharded phases (label -> generator of Launch, each asking for the
+    same configurations in the same order) with each configuration's runs
+    of every phase in one launch, one after the other: one process start
+    a configuration for all of them.  Returns (label -> result, label ->
+    seconds: its runs' seconds on rank 0 and its own checks, the
+    launches' seconds outside every run)."""
+    results, seconds, reqs = {}, {}, {}
+
+    def resume(label, gen, value):
+        t0 = time.perf_counter()
+        try:
+            reqs[label] = next(gen) if value is None else gen.send(value)
+        except StopIteration as e:
+            results[label] = e.value
+            reqs.pop(label, None)
+        seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
+
+    gens = dict(phases)
+    for label, gen in gens.items():
+        resume(label, gen, None)
+    outside = 0.0
+    while reqs:
+        labels = list(reqs)
+        first = reqs[labels[0]]
+        check(all(reqs[lb].nranks == first.nranks
+                  and reqs[lb].env_over == first.env_over for lb in labels),
+              f"{what}: the phases ask for different configurations")
+        runs, kernels = [], []
+        for lb in labels:
+            runs += reqs[lb].runs
+            kernels += reqs[lb].kernels
+        merged = Launch(f"{what} ({first.what})", first.nranks,
+                        first.env_over, runs,
+                        sum(reqs[lb].timeout for lb in labels), kernels)
+        got, wall = launch_ranks(merged.what, merged.nranks, merged.env_over,
+                                 merged.argv(), workdir, merged.timeout,
+                                 device, merged.kernels)
+        inside = 0.0
+        for lb in labels:
+            mine, got = got[:len(reqs[lb].runs)], got[len(reqs[lb].runs):]
+            t_runs = sum(ranks[0]["run_wall"] for ranks in mine)
+            inside += t_runs
+            seconds[lb] = seconds.get(lb, 0.0) + t_runs
+            resume(lb, gens[lb], (mine, wall))
+        outside += wall - inside
+    return results, seconds, outside
+
+
 def sharded_phase(workdir, hres, device="cuda", configs=SHARDED_CONFIGS,
                   nmesh=None):
     """Phase 27: dm-small as it ships through the sharded driver (see the
-    module's docstring), each configuration's ranks under
-    torch.distributed.run in a process group of their own.  device "cpu"
-    and a smaller nmesh rehearse it on the CPU (every rank on gloo)."""
+    module's docstring), a generator of each configuration's Launch, its
+    ranks in a process group of their own.  device "cpu" and a smaller
+    nmesh rehearse it on the CPU (every rank on gloo)."""
     import numpy as np
     from mpgadget_tpu_torch.io.bigfile import BigFile
     from mpgadget_tpu_torch.io import snapshot as snap_io
@@ -1748,10 +1994,9 @@ def sharded_phase(workdir, hres, device="cuda", configs=SHARDED_CONFIGS,
                                   f"InitCondFile = {ic}")
                      .replace("OutputDir = output", f"OutputDir = {out}"))
         prefix = os.path.join(workdir, f"sharded_{name}")
-        [ranks], wall = launch_ranks(
-            f"sharded {name}", nranks, env_over, [pf, prefix, device],
-            workdir, SHARDED_TIMEOUT, device,
-            kernels=("pair", "walk", "neighbors"))
+        [ranks], wall = yield Launch(
+            f"sharded {name}", nranks, env_over, [[pf, prefix, device]],
+            SHARDED_TIMEOUT, [("pair", "walk", "neighbors")])
         r0 = ranks[0]
         check(abs(r0["atime"] - 0.25) < 1e-9, f"sharded {name} stopped at "
               f"a={r0['atime']}")
@@ -2141,16 +2386,26 @@ def neighbor_phase(fres, l2_ns, seed=43, device="cuda"):
 
 
 def restart_phase(workdir, snapnum, in_process, device="cuda",
-                  paramfile=None):
+                  paramfile=None, cli=True):
     """RestartFlag 3 through the port's CLI, python -m
     mpgadget_tpu_torch.main paramfile.gadget 3 <snapnum>, in workdir (the
     paramfile's paths are relative): its PIG must read back and pass the
-    PIG checks.  On the CPU, where the CLI refuses to run, the calls it
-    makes run in-process.  paramfile: dm-small's by default."""
+    PIG checks.  cli=False runs the CLI's body (main.run_cli) in this
+    process instead, without a process start of its own (the gas phases;
+    phase 13 runs the CLI).  On the CPU, where the CLI refuses to run, the
+    calls it makes run in-process.  paramfile: dm-small's by default."""
     paramfile = paramfile or os.path.join(HERE, "examples", "dm-small",
                                           "paramfile.gadget")
     t0 = time.perf_counter()
-    if device == "cuda":
+    if device == "cuda" and not cli:
+        from mpgadget_tpu_torch.main import run_cli as cli_body
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            cli_body(paramfile, 3, snapnum, device=device)
+        finally:
+            os.chdir(cwd)
+    elif device == "cuda":
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
         out = subprocess.run(
@@ -2177,6 +2432,7 @@ def restart_phase(workdir, snapnum, in_process, device="cuda",
         os.path.join(workdir, ps["OutputDir"], f"PIG_{snapnum:03d}"),
         ps["FOFHaloMinLength"])
     how = ("the CLI process, its start included" if device == "cuda"
+           and cli else "the CLI's body in this process" if device == "cuda"
            else "the in-process calls")
     print(f"RestartFlag 3 on PART_{snapnum:03d}: {seconds:.6f} s for {how}"
           f"; PIG_{snapnum:03d} read back and consistent: {ng} groups "
@@ -3655,14 +3911,13 @@ LYA_SHARDED_TOL = {
 LYA_SFR_ROWS_TOL = 10
 
 
-def lya_sharded_phase(workdir, lres, device="cuda",
-                      configs=SHARDED_CONFIGS, nmesh=None):
+def lya_sharded_phase(workdir, lres, device="cuda", configs=SHARDED_CONFIGS,
+                      nmesh=None):
     """Phase 28: lya through the sharded driver (see the module's
     docstring), from phase 16's IC and paramfile copy (lres: lya_phase's
-    result, its workdir this one), each configuration's ranks under
-    torch.distributed.run in a process group of their own.  device "cpu"
-    rehearses it on the CPU (every rank on gloo; chip_smoke.LYA_TIME_MAX
-    cut as phase 16's)."""
+    result, its workdir this one), a generator of each configuration's
+    Launch.  device "cpu" rehearses it on the CPU (every rank on gloo;
+    chip_smoke.LYA_TIME_MAX cut as phase 16's)."""
     import numpy as np
     from mpgadget_tpu_torch.io.bigfile import BigFile
     from mpgadget_tpu_torch.io import snapshot as snap_io
@@ -3706,10 +3961,9 @@ def lya_sharded_phase(workdir, lres, device="cuda",
         with open(pf, "w") as fh:
             fh.write("\n".join(lines) + "\n")
         prefix = os.path.join(workdir, f"sharded_lya_{name}")
-        [ranks], wall = launch_ranks(
+        [ranks], wall = yield Launch(
             f"sharded lya {name}", nranks, env_over,
-            [pf, prefix, device, "gas"], workdir, LYA_SHARDED_TIMEOUT,
-            device)
+            [[pf, prefix, device, "gas"]], LYA_SHARDED_TIMEOUT, [None])
         r0 = ranks[0]
         check(abs(r0["atime"] - sim16.atime) < 1e-9, f"sharded lya {name} "
               f"stopped at a={r0['atime']}, phase 16 at {sim16.atime}")
@@ -3925,10 +4179,18 @@ def steffensen_exits(cr, nh, ienergy, ne_init, uvbg):
     from mpgadget_tpu_torch.physics import cooling
     x = [torch.where(ne_init <= 0, 1.0, ne_init)]
     fixed = []
+    repeated = torch.zeros_like(x[0], dtype=torch.bool)
     for _ in range(cooling.NE_ITERS):
         ne1 = cr._ne_internal(nh, ienergy, x[-1] * nh, cr.helium, uvbg) / nh
         fixed.append(same_elems(ne1 * nh, x[-1] * nh))
         x.append(cr.equilib_ne_step(nh, ienergy, x[-1], cr.helium, uvbg))
+        i = len(x) - 1
+        for q in range(1, min(cooling.NE_PERIOD, i) + 1):
+            repeated |= same_elems(x[i], x[i - q])
+        if bool(repeated.all()):
+            # every row's loop has stopped: later iterates change nothing
+            # below (no row reaches the cap)
+            break
     n, per = first_repeat(x, same_elems, cooling.NE_PERIOD)
     X = torch.stack(x, 1)
     safe = per.clamp(min=1)
@@ -3936,7 +4198,7 @@ def steffensen_exits(cr, nh, ienergy, ne_init, uvbg):
     at = torch.where((per > 0) & (m > 0), n - per + m, n)
     fin = X.gather(1, at[:, None])[:, 0]
     last = X.gather(1, (n - 1)[:, None])[:, 0]
-    taken = torch.arange(cooling.NE_ITERS, device=n.device)[None, :] \
+    taken = torch.arange(len(fixed), device=n.device)[None, :] \
         < n[:, None]
     image = ((~torch.stack(fixed, 1)) & taken).sum(1)
     closing = (~same_elems(fin * nh, last * nh)).long()
@@ -3994,6 +4256,12 @@ def cooling_exits(name, cr, redshift, uvbg, ins, rows, min_egy, units,
     nh = br.rho_cgs * (1 - cr.helium)
     states = [(br.u_lo, br.u_hi, ne)]
     its, evs = [], []
+
+    def same_state(a, b):
+        return same_elems(a[0], b[0]) & same_elems(a[1], b[1]) \
+            & same_elems(a[2], b[2])
+
+    repeated = torch.zeros_like(ne, dtype=torch.bool)
     for _ in range(cooling.BISECT_ITERS):
         lo, hi, e = states[-1]
         n, ev = steffensen_exits(cr, nh, 0.5 * (lo + hi), e, uvbg)
@@ -4001,10 +4269,13 @@ def cooling_exits(name, cr, redshift, uvbg, ins, rows, min_egy, units,
         evs.append(ev)
         states.append(cooling.bisection_step(cr, redshift, uvbg, br, lo, hi,
                                              e))
-    steps = first_repeat(
-        states, lambda a, b: same_elems(a[0], b[0]) & same_elems(a[1], b[1])
-        & same_elems(a[2], b[2]), cooling.BISECT_PERIOD)[0]
-    taken = torch.arange(cooling.BISECT_ITERS, device=steps.device)[None, :] \
+        i = len(states) - 1
+        for q in range(1, min(cooling.BISECT_PERIOD, i) + 1):
+            repeated |= same_state(states[i], states[i - q])
+        if bool(repeated.all()):
+            break       # every row has stopped (none at the cap)
+    steps = first_repeat(states, same_state, cooling.BISECT_PERIOD)[0]
+    taken = torch.arange(len(its), device=steps.device)[None, :] \
         < steps[:, None]
     its, evs = torch.stack(its, 1), torch.stack(evs, 1)
     per_step = evs * COOL_NE_OPS + its * COOL_STEFF_OPS + 4 \
@@ -4044,7 +4315,7 @@ def k6_bounds(nrows, ops, trans, esize, n_io, full, extra_bytes=0):
 
 
 def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
-                 reps=5, plain=None):
+                 reps=5, plain=None, exits=None):
     """K6's do_cooling on the given inputs (u, rho, dt, ne) and rows,
     against its plain version on the card: u_new and ne/nh within COOL_TOL
     on the listed rows, unlisted rows untouched, two launches
@@ -4053,7 +4324,9 @@ def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
     plain version's (one call) and the bound, from the operations the
     exits leave (cooling_exits), the full work's beside it.  plain: the
     plain version's (u_new, ne) on these rows from an earlier case on the
-    same inputs (elementwise, so the same values), not timed again."""
+    same inputs (elementwise, so the same values), not timed again;
+    exits: that case's exits on these rows, (census, operations and
+    transcendentals a row), not counted again."""
     import torch
     from mpgadget_tpu_torch.physics import cooling
     f64 = ins[0].dtype == torch.float64
@@ -4101,8 +4374,8 @@ def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
           f"K6 {name}: u_new rel {rel_u:.3e}, ne rel {rel_n:.3e} (abs "
           f"{float(err_n.max()):.3e}) against the plain version")
     nrows = int(u.shape[0])
-    exits, ops, trans = cooling_exits(name, cr, redshift, uvbg, ins, sel,
-                                      min_egy, units)
+    exits, ops, trans = exits or cooling_exits(name, cr, redshift, uvbg,
+                                               ins, sel, min_egy, units)
     b = k6_bounds(nrows, ops, trans, 8 if f64 else 4, 6,
                   cooling_work(True))
     plain_s = "not timed again" if plain_ms is None else \
@@ -4121,7 +4394,8 @@ def cooling_case(name, cr, redshift, uvbg, ins, rows, min_egy, units,
     return dict(ms=ms, simple_ms=simple_ms, plain_ms=plain_ms,
                 bound_share=b["bound_ms"] / ms, rows=nrows, exits=exits,
                 max_abs_err=float((u - urd).abs().max()), rel_u=rel_u,
-                ne_abs_err=float(err_n.max()), plain=(ur, nr), **b)
+                ne_abs_err=float(err_n.max()), plain=(ur, nr),
+                row_exits=(ops, trans), **b)
 
 
 def rate_case(name, cr, redshift, uvbg, dens, u, ne, rows, reps=5):
@@ -4214,7 +4488,9 @@ def cooling_phase(lres):
         "128 rows": cooling_case(
             "lya final state, 128 gas rows", cr, redshift, uvbg, ins,
             gas[:128], min_egy, units, reps=20,
-            plain=tuple(x[:128] for x in every["plain"])),
+            plain=tuple(x[:128] for x in every["plain"]),
+            exits=({"rows": 128, "as": "the all-gas case's first 128"},)
+            + tuple(x[:128] for x in every["row_exits"])),
         "closing": cooling_case(
             f"lya's smallest cooling call (closing gas, z={fa[1]:.3f})",
             fa[0], fa[1], fa[5], [fa[2], fa[3], fa[4], fa[6]],
@@ -4260,12 +4536,14 @@ MASS_TOL = 1e-5           # the total mass against the IC's, relative
 # 3 stars by a = 0.15 and none on 19 global steps after it) and
 # Generations 64 (star-small's 4: new stars 16 times as often, each a
 # 64th of a mean gas particle), so that stars spawn on the steps the phase
-# runs; an output at a = 0.151 and one at TimeMax; the depth
-# (GLOBAL_STEPS)
+# runs; an output at a = 0.151 and one at TimeMax, 0.152 (the depth cut,
+# since PR 17: 0.154 took 16 global steps; the seeded BHs accrete from the
+# step after 0.151 on, and the winds kick on the first steps); at most
+# GLOBAL_STEPS steps
 GLOBAL_SWITCHES = {"SplitGravityTimestepsOn": 0, "MinFoFMassForNewSeed": 0,
                    "MinMStarForNewSeed": -1, "CritOverDensity": 1,
                    "CritPhysDensity": 1e-3, "Generations": 64,
-                   "OutputList": "0.151,0.154", "TimeMax": 0.154}
+                   "OutputList": "0.151,0.152", "TimeMax": 0.152}
 GLOBAL_STEPS = 30         # at most this many global steps (the depth cut)
 # the callers of the subgrid passes' walks (K3) and pair sums, as
 # ops/pairs.spanned names them
@@ -4784,10 +5062,11 @@ def star_mass_returned(bf, hdr):
 
 def star_sharded_phase(workdir, star, glob, device="cuda",
                        configs=SHARDED_CONFIGS, nmesh_pk=64, parts="i ii"):
-    """Phase 29: star-small as it ships through the sharded driver, from
+    """Phase 29, a generator of each configuration's Launch: star-small
+    as it ships through the sharded driver, from
     phase 23's IC and paramfile copy (star: star_small_phase's result; glob:
     global_subgrid_phase's), in phase 27's two configurations, each rank
-    this script under torch.distributed.run: (i) to STAR_SHARDED_TIME_MAX,
+    this script (launch_ranks): (i) to STAR_SHARDED_TIME_MAX,
     held to phase 23's snapshot at that a; (ii) phase 23's a = 0.15
     snapshot resumed (RestartFlag 2) on at most GLOBAL_STEPS global steps
     with GLOBAL_SWITCHES, held to phase 24 (parts: "i" runs (i) alone).
@@ -4846,7 +5125,7 @@ def star_sharded_phase(workdir, star, glob, device="cuda",
         pf = paramfile(name, out, {"TimeMax": STAR_SHARDED_TIME_MAX})
         prefix = os.path.join(workdir, f"star_{name}")
         what = f"sharded star-small {name}"
-        argv = [pf, prefix, device, "star"]
+        argv = [[pf, prefix, device, "star"]]
         out2 = os.path.join(workdir, f"star_global_{name}")
         prefix2 = os.path.join(workdir, f"star_global_{name}")
         what2 = f"sharded global subgrid {name}"
@@ -4854,10 +5133,10 @@ def star_sharded_phase(workdir, star, glob, device="cuda",
             os.makedirs(out2)
             shutil.copytree(ref_snap, os.path.join(out2, ref_name[0]))
             pf2 = paramfile(f"global_{name}", out2, GLOBAL_SWITCHES)
-            argv += ["--next", pf2, prefix2, device, "star",
-                     f"restart={snapnum}", f"max_steps={GLOBAL_STEPS}"]
-        runs, wall = launch_ranks(what, nranks, env_over, argv, workdir,
-                                  STAR_SHARDED_TIMEOUT, device)
+            argv.append([pf2, prefix2, device, "star", f"restart={snapnum}",
+                         f"max_steps={GLOBAL_STEPS}"])
+        runs, wall = yield Launch(what, nranks, env_over, argv,
+                                  STAR_SHARDED_TIMEOUT, [None] * len(argv))
         ranks = runs[0]
         r0 = ranks[0]
         check(abs(r0["atime"] - STAR_SHARDED_TIME_MAX) < 1e-9,
@@ -4983,6 +5262,279 @@ def report_star_sharded(p29, card):
                         card)
 
 
+# -- phase 30: the sharded options --------------------------------------------
+
+# Phase 30 runs phases 18, 20, 21 and 26's configurations through the
+# sharded driver in phase 27's two configurations, each configuration's
+# ranks started once for the four runs.  Depth cuts (the widths are the
+# phases' own): the neutrino run to a = 0.2 (phase 18 runs to dm-small's
+# 0.25; the planes at 0.2), the hybrid run to 0.205 (phase 20: 0.22;
+# NuPartTime 0.2 stays inside it), the reionization run to 0.16 (phase 26:
+# 0.17; the excursion epoch and the HeII history both cover it).
+OPT_NU_TIME_MAX = 0.2
+OPT_HYBRID_TIME_MAX = 0.205
+OPT_REION_TIME_MAX = 0.16
+OPT_SHARDED_TIMEOUT = 900   # seconds for each configuration's ranks
+# about 3x what was measured on an NVIDIA H100 80GB HBM3 at 700 W (first
+# run, both configurations): the neutrino run's P(k) at a = 0.2 against
+# phase 18's on the bins below k_Nyquist/4, 1.28e-3 (the sharded run keeps
+# the box unshifted, phase 18 shifts it every PM step, as in phase 27);
+# the light cone's rows against phase 21's, relative: 1.6e-6 (19 of 11.6
+# million rows: float32 rounding at the shell's edges)
+OPT_SHARDED_TOL = {"pk": 4e-3, "lc_rows": 5e-6}
+
+
+def options_sharded_phase(workdir, nu, hyb, lcone, reion, star,
+                          device="cuda", configs=SHARDED_CONFIGS,
+                          nmesh_pk=None):
+    """Phase 30, a generator of each configuration's Launch: the
+    dark-matter options and reionization through the
+    sharded driver, in phase 27's two configurations, each configuration's
+    ranks (this script, --sharded-rank) started once for four runs: (1)
+    phase 18's neutrino run (its IC and paramfile, planes) to
+    OPT_NU_TIME_MAX: every rank's delta_tot history an entry a PM step
+    and one for the first forces, the P(k) rank 0 wrote at the end
+    against phase 18's at the same a on the bins below k_Nyquist/4, the
+    planes finite with zero mean; (2) phase 20's hybrid run to
+    OPT_HYBRID_TIME_MAX: on every rank the type-2 rows' PM acceleration
+    zero at each PM refresh before NuPartTime and not after; (3) phase 21's
+    light cone: one stripe a rank, every row inside the shell the run
+    crossed, as many rows as phase 21's within OPT_SHARDED_TOL; (4) phase
+    26's reionization run, phase 23's a = 0.15 snapshot resumed to
+    OPT_REION_TIME_MAX: K1-K6 launched on every rank, the excursion set
+    updated, gas with J21 > 0 each with zreion set, HeIII-ionized gas each
+    row inside the bubble that ionized it, the mass against the
+    snapshot's, the last snapshot's J21, ZReionized and HeIIIIonized
+    blocks read back.  device "cpu" rehearses it (every rank on gloo)."""
+    import shutil
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    os.makedirs(workdir, exist_ok=True)
+    nmesh_pk = nmesh_pk or nu["sim"].cfg.nmesh
+
+    def ic_of(res):
+        """The absolute IC path of a dm_variant run's paramfile."""
+        with open(res["paramfile"]) as fh:
+            ic = [ln.split("=", 1)[1].strip() for ln in fh
+                  if ln.split("=")[0].strip() == "InitCondFile"][-1]
+        return os.path.join(os.path.dirname(res["paramfile"]), ic)
+
+    name_pk = f"powerspectrum-{OPT_NU_TIME_MAX:0.4f}.txt"
+    p0 = np.loadtxt(os.path.join(nu["out"], name_pk))
+    box_mpc = (nu["sim"].cfg.boxsize * nu["sim"].cfg.units.UnitLength_in_cm
+               / 3.085678e24)
+    knyq = np.pi * nmesh_pk / box_mpc
+    nvalid = int(nu["sim"].pdata.num_valid)
+    lc_ref = lcone["sim"]._lightcone
+    lc_rows_ref = lc_ref.n_written
+    lo = lc_ref.get_horizon(lcone["sim"].atime)
+    hi = lc_ref.get_horizon(lcone["sim"].time_ic)
+    snapnum = reion["snapnum"]
+    src = os.path.join(star["out"], f"PART_{snapnum:03d}")
+    results = {}
+    for name, nranks, env_over in configs:
+        outs = {k: os.path.join(workdir, f"{k}_{name}")
+                for k in ("nu", "hybrid", "lightcone", "reion")}
+        pfs = {
+            "nu": paramfile_copy(nu["paramfile"], outs["nu"] + ".gadget", {
+                "InitCondFile": ic_of(nu), "OutputDir": outs["nu"],
+                "TimeMax": OPT_NU_TIME_MAX,
+                "OutputList": f"0.15,{OPT_NU_TIME_MAX}",
+                "PlaneOutputList": OPT_NU_TIME_MAX}),
+            "hybrid": paramfile_copy(
+                hyb["paramfile"], outs["hybrid"] + ".gadget", {
+                    "InitCondFile": ic_of(hyb), "OutputDir": outs["hybrid"],
+                    "TimeMax": OPT_HYBRID_TIME_MAX,
+                    "OutputList": OPT_HYBRID_TIME_MAX}),
+            "lightcone": paramfile_copy(
+                lcone["paramfile"], outs["lightcone"] + ".gadget", {
+                    "InitCondFile": ic_of(lcone),
+                    "OutputDir": outs["lightcone"]}),
+            "reion": paramfile_copy(
+                reion["paramfile"], outs["reion"] + ".gadget", {
+                    "OutputDir": outs["reion"],
+                    "TimeMax": OPT_REION_TIME_MAX,
+                    "OutputList": f"0.125,0.15,{OPT_REION_TIME_MAX}"})}
+        os.makedirs(outs["reion"])
+        shutil.copytree(src, os.path.join(outs["reion"],
+                                          os.path.basename(src)))
+        argv = [[pfs[key], os.path.join(workdir, f"p30_{key}_{name}"),
+                 device] + extra
+                for key, extra in (("nu", ["nu"]), ("hybrid", ["hybrid"]),
+                                   ("lightcone", []),
+                                   ("reion", ["reion",
+                                              f"restart={snapnum}"]))]
+        what = f"sharded options {name}"
+        runs, wall = yield Launch(what, nranks, env_over, argv,
+                                  OPT_SHARDED_TIMEOUT,
+                                  [("pair", "walk", "neighbors")] * 4)
+        res = dict(zip(("nu", "hybrid", "lightcone", "reion"),
+                       ({"ranks": r, "wall": wall} for r in runs)))
+        # ---- (1) neutrinos ----
+        r0 = runs[0][0]
+        check(abs(r0["atime"] - OPT_NU_TIME_MAX) < 1e-9,
+              f"{what} neutrinos stopped at a={r0['atime']}")
+        for rk in runs[0]:
+            check(rk["nu_entries"] == rk["nsteps"] + 1, f"{what} rank "
+                  f"{rk['rank']}: delta_tot history of {rk['nu_entries']} "
+                  f"entries for {rk['nsteps']} PM steps and the first forces")
+        p1 = np.loadtxt(os.path.join(outs["nu"], name_pk))
+        check(p1.shape == p0.shape and np.allclose(p1[:, 0], p0[:, 0],
+                                                   rtol=1e-5),
+              f"{what}: {name_pk} bins {p1.shape} against {p0.shape}")
+        low = p0[:, 0] < knyq / 4
+        dev_pk = float(np.max(np.abs(p1[low, 1] / p0[low, 1] - 1)))
+        planes = sorted(f for f in os.listdir(outs["nu"])
+                        if f.endswith(".fits"))
+        check(len(planes) == 3, f"{what}: planes written {planes}")
+        prms = []
+        for f in planes:
+            cards, pix = read_fits(os.path.join(outs["nu"], f))
+            rms = float(np.sqrt(np.mean(pix.astype(np.float64) ** 2)))
+            npart = int(cards["NPART"])
+            check(np.isfinite(pix).all() and rms > 0
+                  and abs(float(pix.astype(np.float64).mean())) < 1e-4 * rms
+                  and 0.999 * nvalid <= npart <= nvalid,
+                  f"{what}: plane {f}: rms {rms}, cards {cards}")
+            prms.append(rms)
+        res["nu"].update(pk_dev=dev_pk, planes=len(planes), plane_rms=prms)
+        print(f"{what} (1) neutrinos to a={r0['atime']:.6f}: {r0['nsteps']} "
+              f"PM steps, delta_tot history {r0['nu_entries']} entries; "
+              f"{name_pk} against phase 18's on {int(low.sum())} bins below "
+              f"k_Nyquist/4 = {knyq / 4:.6f} h/Mpc: largest relative "
+              f"difference {dev_pk:.6e} (tolerance {OPT_SHARDED_TOL['pk']}),"
+              f" all bins {float(np.max(np.abs(p1[:, 1] / p0[:, 1] - 1))):.6e};"
+              f" planes {planes}: finite, zero mean, rms "
+              + ", ".join(f"{x:.6e}" for x in prms) + " rad^2", flush=True)
+        check(dev_pk <= OPT_SHARDED_TOL["pk"], f"{what}: neutrino P(k) off "
+              f"phase 18's by {dev_pk:.3e}")
+        # ---- (2) hybrid neutrinos ----
+        r0 = runs[1][0]
+        check(abs(r0["atime"] - OPT_HYBRID_TIME_MAX) < 1e-9,
+              f"{what} hybrid stopped at a={r0['atime']}")
+        for rk in runs[1]:
+            seen = rk["tracer_pm"]
+            before = [x for x in seen if x[1]]
+            after = [x for x in seen if not x[1]]
+            check(before and after and all(x[2] == 0 for x in before)
+                  and all(x[2] > 0 for x in after)
+                  and all(x[0] <= 0.2 + 1e-9 for x in before)
+                  and all(x[0] > 0.2 for x in after),
+                  f"{what} hybrid rank {rk['rank']}: type-2 PM acceleration "
+                  f"at the PM refreshes {seen}")
+        res["hybrid"]["tracer_pm"] = [rk["tracer_pm"] for rk in runs[1]]
+        print(f"{what} (2) hybrid to a={r0['atime']:.6f}: {r0['nsteps']} PM "
+              f"steps; per rank the type-2 rows' largest |PM acceleration| "
+              + "; ".join(
+                  f"rank {rk['rank']}: 0 at {sum(x[1] for x in rk['tracer_pm'])}"
+                  f" refreshes before NuPartTime, "
+                  f"{min(x[2] for x in rk['tracer_pm'] if not x[1]):.6e}.."
+                  f"{max(x[2] for x in rk['tracer_pm'] if not x[1]):.6e} at "
+                  f"{sum(not x[1] for x in rk['tracer_pm'])} after"
+                  for rk in runs[1]), flush=True)
+        # ---- (3) the light cone ----
+        r0 = runs[2][0]
+        ldir = os.path.join(outs["lightcone"], "lightcone", "000")
+        stripes = sorted(os.listdir(ldir))
+        check(stripes == [f"lightcone-{r:05d}.raw" for r in range(nranks)],
+              f"{what}: light cone stripes {stripes}")
+        rows = np.concatenate([np.fromfile(os.path.join(ldir, f), np.float64)
+                               .reshape(-1, 4) for f in stripes])
+        d = np.linalg.norm(rows[:, :3], axis=1)
+        check(len(rows) > 0 and bool(
+            ((d >= lo * (1 - 1e-6)) & (d <= hi * (1 + 1e-6))).all()
+            & ((rows[:, 3] > 0) & (rows[:, 3] <= 1)).all()),
+              f"{what}: light cone rows outside the shell [{lo}, {hi}]")
+        lc_dev = abs(len(rows) / lc_rows_ref - 1)
+        res["lightcone"].update(rows=len(rows), dev=lc_dev,
+                                per_stripe=[os.path.getsize(
+                                    os.path.join(ldir, f)) // 32
+                                    for f in stripes])
+        print(f"{what} (3) light cone to a={r0['atime']:.6f}: {len(rows)} "
+              f"rows (phase 21: {lc_rows_ref}, relative {lc_dev:.6e}, "
+              f"tolerance {OPT_SHARDED_TOL['lc_rows']}), per stripe "
+              f"{res['lightcone']['per_stripe']}, all inside "
+              f"{lo / 1000:.3f}..{hi / 1000:.3f} Mpc/h", flush=True)
+        check(lc_dev <= OPT_SHARDED_TOL["lc_rows"], f"{what}: {len(rows)} "
+              f"light cone rows against phase 21's {lc_rows_ref}")
+        # ---- (4) reionization ----
+        r0 = runs[3][0]
+        check(abs(r0["atime"] - OPT_REION_TIME_MAX) < 1e-9,
+              f"{what} reionization stopped at a={r0['atime']}")
+        if device == "cuda":
+            for rk in runs[3]:
+                check(min(rk["launches"].values()) > 0, f"{what} "
+                      f"reionization rank {rk['rank']}: a kernel was not "
+                      f"launched: {rk['launches']}")
+        bub = [b for rk in runs[3] for b in rk.get("bubbles", [])]
+        worst = max((b[0] for b in bub), default=0.0)
+        m_err = r0["mass"] / reion["m_snap"] - 1
+        check(r0["uvbg_updates"] and r0["n_j21"] > 0 and r0["n_zre"] > 0
+              and r0["n_j21_no_zre"] == 0,
+              f"{what}: excursion set: updates {r0['uvbg_updates']}, gas "
+              f"with J21 > 0 {r0['n_j21']}, zreion set {r0['n_zre']}, J21 > 0"
+              f" without zreion {r0['n_j21_no_zre']}")
+        check(r0["n_heiii"] > 0 and r0["qso_bubbles"] > 0
+              and worst < 1 + 1e-5
+              and r0["n_heiii"] <= sum(b[1] for b in bub),
+              f"{what}: HeIII rows {r0['n_heiii']}, bubbles "
+              f"{r0['qso_bubbles']}, rows ionized by the bubbles "
+              f"{sum(b[1] for b in bub)}, largest distance over radius "
+              f"{worst}")
+        check(abs(m_err) < MASS_TOL, f"{what}: reionization mass "
+              f"{r0['mass']!r} against the snapshot's {reion['m_snap']!r}")
+        snaps = sorted(f for f in os.listdir(outs["reion"])
+                       if f.startswith("PART_") and f != os.path.basename(src))
+        check(snaps, f"{what}: the reionization run wrote no snapshot")
+        bf = BigFile(os.path.join(outs["reion"], snaps[-1]))
+        hdr = snap_io.read_header(bf)
+        blk = {}
+        for bname in ("J21", "ZReionized", "HeIIIIonized"):
+            v = bf.open(f"0/{bname}").read()
+            check(v.shape[0] == hdr.TotNumPart[0] and np.isfinite(
+                v.astype(np.float64)).all()
+                  and bf.open(f"0/{bname}").Nfile == nranks,
+                  f"{what}: {snaps[-1]} 0/{bname} does not read back")
+            blk[bname] = v
+        check(((blk["J21"] > 0) <= (blk["ZReionized"] >= 0)).all()
+              and (blk["J21"] > 0).sum() > 0
+              and (blk["HeIIIIonized"] > 0).sum() > 0,
+              f"{what}: {snaps[-1]}: J21 > 0 rows {(blk['J21'] > 0).sum()} "
+              f"without zreion, HeIII rows {(blk['HeIIIIonized'] > 0).sum()}")
+        res["reion"].update({k: r0[k] for k in (
+            "n_j21", "n_zre", "n_heiii", "n_metal", "ngas", "qso_bubbles",
+            "uvbg_updates")}, worst=worst, mass_err=m_err,
+            blocks={k: int((v > 0).sum()) for k, v in blk.items()})
+        print(f"{what} (4) reionization from phase 23's a = 0.15 to "
+              f"a={r0['atime']:.6f}: {r0['nsteps']} PM steps; UVBG updates "
+              f"{len(r0['uvbg_updates'])} (z, vol xHI, mass xHI) "
+              f"{r0['uvbg_updates']}; gas {r0['ngas']}: J21 > 0 "
+              f"{r0['n_j21']}, zreion set {r0['n_zre']}, HeIII "
+              f"{r0['n_heiii']} from {r0['qso_bubbles']} bubbles (phase 26: "
+              f"{reion['n_j21']}, {reion['n_zre']}, {reion['n_heiii']} to "
+              f"a={reion['atime']:.6f}), rows no farther than "
+              f"{worst:.6f} of their bubble's radius, Z > 0 "
+              f"{r0['n_metal']}; mass {m_err:+.3e} against the snapshot's; "
+              f"{snaps[-1]} blocks read back, rows > 0 {res['reion']['blocks']}",
+              flush=True)
+        results[name] = res
+    return results
+
+
+def report_options_sharded(p30, card):
+    """Phase 30's lines: per configuration and run the PM steps, seconds,
+    collectives and rank 0's walltime by layer (Lightcone, Planes, HeIII,
+    UVBG and PMgrav among them)."""
+    for name, r in p30.items():
+        for key, what in (("nu", f"neutrinos to a={OPT_NU_TIME_MAX}"),
+                          ("hybrid", f"hybrid to a={OPT_HYBRID_TIME_MAX}"),
+                          ("lightcone", "light cone in 500 Mpc/h"),
+                          ("reion", f"reionization to a="
+                                    f"{OPT_REION_TIME_MAX}")):
+            report_sharded({f"{name} ({key})": r[key]}, card, what)
+
+
 # -- phases 25-26: travis as it ships, and reionization on star-small -------
 
 # phase 25 runs travis to its TimeMax; its cuts beyond the spectrum
@@ -4992,24 +5544,24 @@ def report_star_sharded(p29, card):
 # phase 26: phase 23's snapshot at a = 0.15 resumed (RestartFlag 2,
 # hierarchical as shipped) to REION_TIME_MAX with the four switches on,
 # each reading a stand-in the smoke writes from a closed form; the
-# excursion epoch z 6 to 5.2 ends inside the run, and the late patch of the
-# z_reion grid switches on at REION_ZRE_LATE (a = 0.1667); QSOMinMass and
+# excursion epoch z 6 to 5.35 ends inside the run, and the late patch of
+# the z_reion grid switches on at REION_ZRE_LATE (a = 0.16); QSOMinMass and
 # QSOMaxMass bracket the largest halo of the snapshot's PIG
 # (REION_QSO_BRACKET) and the bubbles are REION_BUBBLE kpc/h (the 20 Mpc/h
 # default covers the 5 Mpc/h box).  The depth cut: star-small ends at
-# a = 0.2; 0.17 keeps the smoke within its time beside phase 23's run to
-# 0.2 and phase 27 (a FOF at every PM step of the HeII epoch: 285 s to 0.2,
-# 192 s to 0.19 and 152-184 s to 0.185 on an NVIDIA H100 80GB HBM3, 700
-# W), with the epoch's end (z 5.2) and the late patch (z_re 5, a = 0.1667)
-# moved before it
-REION_TIME_MAX = 0.17
+# a = 0.2; 0.162 keeps the smoke within its time (a FOF at every PM step of
+# the HeII epoch: 285 s to 0.2, 192 s to 0.19, 152-184 s to 0.185 and
+# 75-93 s to 0.17 on an NVIDIA H100 80GB HBM3, 700 W), with the epoch's end
+# (z 5.35, a = 0.1575) and the late patch (z_re 5.25, a = 0.16) moved
+# before it (to 0.17 until PR 17, with z 5.2 and 5)
+REION_TIME_MAX = 0.162
 REION_ZRE_EARLY = 20.0
-REION_ZRE_LATE = 5.0
+REION_ZRE_LATE = 5.25
 REION_ZRE_TOL = 1e-3
 REION_BUBBLE = 1000.0
 REION_QSO_BRACKET = (0.5, 2.0)
 REION_SWITCHES = {"ExcursionSetReionOn": 1, "ExcursionSetZStart": 6,
-                  "ExcursionSetZStop": 5.2, "QSOLightupOn": 1,
+                  "ExcursionSetZStop": 5.35, "QSOLightupOn": 1,
                   "QSOMeanBubble": REION_BUBBLE,
                   # star-small's outputs to the depth cut
                   "TimeMax": REION_TIME_MAX,
@@ -5433,7 +5985,8 @@ def reion_phase(workdir, star, device="cuda"):
                 dark=len(dark), lit=len(lit),
                 j21_calls=sum(c[1] == "J21" for c in uv.calls),
                 m_snap=m_snap, m_end=m_end, mass_err=mass_err,
-                blocks=blocks, snapshot=snaps[-1], snapnum=snapnum)
+                blocks=blocks, snapshot=snaps[-1], snapnum=snapnum,
+                paramfile=os.path.abspath(paramfile))
 
 
 def report_travis(trav, card):
@@ -5688,12 +6241,28 @@ def main():
         return 1
 
 
+T_START = time.perf_counter()
+PHASE_SECONDS = {}
+
+
+def timed(label, fn, *args, **kw):
+    """fn(*args, **kw) with its seconds added to PHASE_SECONDS[label] and
+    printed (a phase may be several calls)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    PHASE_SECONDS[label] = PHASE_SECONDS.get(label, 0.0) + dt
+    print(f"phase {label}: {dt:.3f} s of the smoke", flush=True)
+    return out
+
+
 def run():
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    t_run = time.perf_counter()
+    card = timed("1 (the card)", card_line)
     kind = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -5703,7 +6272,7 @@ def run():
     from mpgadget_tpu_torch.gravity.tree import TreeConfig
     from mpgadget_tpu_torch.gravity.treewalk import WalkConfig
     t0 = time.perf_counter()
-    kernels.build_all()
+    timed("2 (build)", kernels.build_all)
     print(f"build (nvcc per source, in parallel): "
           f"{time.perf_counter() - t0:.3f} s; per source "
           f"{kernels.BUILD_SECONDS}", flush=True)
@@ -5720,24 +6289,26 @@ def run():
     rcut = float(np.float32(6.0 * 1.5 / NMESH))
     soft = 2.8 * (1.0 / 30.0) * BOXSIZE / NGRID
     h_inv = float(np.float32(BOXSIZE / soft))
-    kres = [kernel_phase(nb, G, S, rs_inv, h_inv, rcut),
-            kernel_phase(nb, G, S, rs_inv, h_inv, rcut, counts=True)]
+    kres = [timed("3 (K1)", kernel_phase, nb, G, S, rs_inv, h_inv, rcut),
+            timed("3 (K1)", kernel_phase, nb, G, S, rs_inv, h_inv, rcut,
+                  counts=True)]
 
-    l2_ns = l2_phase()
+    l2_ns = timed("4 (L2)", l2_phase)
     with tempfile.TemporaryDirectory() as work:
-        wres = walk_phase(work, l2_ns)
+        wres = timed("5 (K2)", walk_phase, work, l2_ns)
 
-    accuracy_phase("cuda")
+    timed("6 (accuracy)", accuracy_phase, "cuda")
 
     with tempfile.TemporaryDirectory() as work:
-        res = slice_phase(work, "cuda")
+        res = timed("7 (slice)", slice_phase, work, "cuda")
     if (res["src_cap"], res["group"], res["capacity"] // res["group"]) \
             != (S, G, nb):
         # an overflow retry changed the kernel's shapes: compare there too
         nb2, S2 = res["capacity"] // res["group"], res["src_cap"]
-        kres += [kernel_phase(nb2, res["group"], S2, rs_inv, h_inv, rcut),
-                 kernel_phase(nb2, res["group"], S2, rs_inv, h_inv, rcut,
-                              counts=True)]
+        kres += [timed("7 (slice)", kernel_phase, nb2, res["group"], S2,
+                       rs_inv, h_inv, rcut),
+                 timed("7 (slice)", kernel_phase, nb2, res["group"], S2,
+                       rs_inv, h_inv, rcut, counts=True)]
     steps = res["step_seconds"]
     print(f"slice dm-small 64^3 Nmesh {NMESH} on {card}: {res['nsteps']} "
           f"global KDK steps to a={res['atime']:.6f}; "
@@ -5780,25 +6351,32 @@ def run():
     print(f"snapshot {res['snapshot']} read back; "
           f"{res['powerspectra']} power spectra written", flush=True)
 
-    cres = compaction_phase(l2_ns)
+    cres = timed("8 (compaction)", compaction_phase, l2_ns)
+    # the outputs that phases 27-30 read stay until their launches, which
+    # start each configuration's ranks once for the four phases
+    keep = tempfile.TemporaryDirectory()
+    work_dm = os.path.join(keep.name, "dm-small")
+    work_lya = os.path.join(keep.name, "lya")
+    work_star = os.path.join(keep.name, "star-small")
+    for d in (work_dm, work_lya, work_star):
+        os.makedirs(d)
+    work = work_dm
+    gres = timed("9 (genic)", genic_phase, work)
+    hres = timed("10 (hierarchical dm-small)", hier_phase, work)
+    fres = timed("11 (FOF)", fof_phase, hres["sim"], hres["snapnum"])
+    nres = timed("12 (K3)", neighbor_phase, fres, l2_ns)
+    rres = timed("13 (RestartFlag 3)", restart_phase, work,
+                 hres["snapnum"], fres["groups"])
+    nu = timed("18 (neutrinos)", neutrino_phase,
+               os.path.join(keep.name, "nu"),
+               os.path.join(work, "output"))
+    rflags = timed("19 (RestartFlags 1, 2, 4, 99)", restart_flags_phase,
+                   work, hres["snapnum"])
+    hyb = timed("20 (hybrid)", hybrid_phase, os.path.join(keep.name, "hyb"))
+    lcone = timed("21 (light cone)", lightcone_phase,
+                  os.path.join(keep.name, "lc"))
     with tempfile.TemporaryDirectory() as work:
-        gres = genic_phase(work)
-        hres = hier_phase(work)
-        fres = fof_phase(hres["sim"], hres["snapnum"])
-        nres = neighbor_phase(fres, l2_ns)
-        rres = restart_phase(work, hres["snapnum"], fres["groups"])
-        nu = neutrino_phase(os.path.join(work, "nu"),
-                            os.path.join(work, "output"))
-        rflags = restart_flags_phase(work, hres["snapnum"])
-        t0 = time.perf_counter()
-        shd = sharded_phase(work, hres)
-        t27 = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as work:
-        hyb = hybrid_phase(work)
-    with tempfile.TemporaryDirectory() as work:
-        lcone = lightcone_phase(work)
-    with tempfile.TemporaryDirectory() as work:
-        par = parity_phase(work)
+        par = timed("22 (parity)", parity_phase, work)
     dm_paths = {"neutrinos": nu, "hybrid": hyb, "lightcone": lcone,
                 "parity_1": par["runs"][0], "parity_2": par["runs"][1]}
     hsteps = hres["step_seconds"]
@@ -5833,31 +6411,27 @@ def run():
           f"K3 launches {hres['launches']['neighbors']} (run), "
           f"{fres['launches']} (final state) on {card}", flush=True)
 
-    report_sharded(shd, card)
-    print(f"phase 27 (sharded): {t27:.3f} s of the smoke", flush=True)
 
     with tempfile.TemporaryDirectory() as work:
-        gas = gas_run_phase(work)
+        gas = timed("14 (star-small without subgrid)", gas_run_phase, work)
         spy = gas["spy"]
         a = spy.last["density_sums"][0]
-        gk4 = sph_kernel_case("star-small final state", "density", a, a[6],
-                              l2_ns)
+        gk4 = timed("15 (K4, K5)", sph_kernel_case, "star-small final state",
+                    "density", a, a[6], l2_ns)
         a = spy.last["hydro_sums"][0]
-        gk5 = sph_kernel_case("star-small final state", "hydro", a,
-                              a[5].group_max, l2_ns)
-        grres = restart_phase(work, gas["snapnum"], "not run",
-                              paramfile=gas["paramfile"])
+        gk5 = timed("15 (K4, K5)", sph_kernel_case, "star-small final state",
+                    "hydro", a, a[5].group_max, l2_ns)
+        grres = timed("14 (star-small without subgrid)", restart_phase, work,
+                      gas["snapnum"], "not run", paramfile=gas["paramfile"],
+                      cli=False)
     with tempfile.TemporaryDirectory() as work:
-        big = big_gas_case(work, l2_ns)
-    with tempfile.TemporaryDirectory() as work:
-        lya = lya_phase(work)
-        k6 = cooling_phase(lya)
-        lrres = restart_phase(work, lya["snapnum"], "not run",
-                              paramfile=lya["paramfile"])
-        lya_pig = lya_pig_stars(work, lya["snapnum"])
-        t0 = time.perf_counter()
-        l28 = lya_sharded_phase(work, lya)
-        t28 = time.perf_counter() - t0
+        big = timed("15 (K4, K5)", big_gas_case, work, l2_ns)
+    work = work_lya
+    lya = timed("16 (lya)", lya_phase, work)
+    k6 = timed("17 (K6)", cooling_phase, lya)
+    lrres = timed("16 (lya)", restart_phase, work, lya["snapnum"],
+                  "not run", paramfile=lya["paramfile"], cli=False)
+    lya_pig = timed("16 (lya)", lya_pig_stars, work, lya["snapnum"])
     gst = gas["step_seconds"]
     gwt = gas["walltime"]
     print(f"star-small (2 x {gas['ngas']} particles, cuts "
@@ -5890,40 +6464,67 @@ def run():
           f"{lya['snapshots']}; RestartFlag 3 {lrres['seconds']:.6f} s, "
           f"{lrres['groups']} groups holding {lya_pig} stars", flush=True)
     print(f"lya sfr.txt last line: {lya['sfr_last']}", flush=True)
+
+    work = work_star
+    t0 = time.perf_counter()
+    star = timed("23 (star-small)", star_small_phase, work)
+    srres = timed("23 (star-small)", restart_phase, work,
+                  star["snapnum"], "not run",
+                  paramfile=star["paramfile"], cli=False)
+    t23 = time.perf_counter() - t0
+    report_star_small(star, srres, card)
+    t0 = time.perf_counter()
+    glob = timed("24 (global subgrid steps)", global_subgrid_phase,
+                 os.path.join(work, "global"), star)
+    t24 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reion = timed("26 (reionization)", reion_phase,
+                  os.path.join(work, "reion"), star)
+    t26 = time.perf_counter() - t0
+    k6r = timed("26 (reionization)", reion_cooling_case, reion)
+    # phases 27-30: each configuration's ranks started once for all four
+    labels = ("27 (sharded dm-small)", "28 (sharded lya)",
+              "29 (sharded star-small)", "30 (sharded options)")
+    t0 = time.perf_counter()
+    got, secs, outside = drive_merged({
+        labels[0]: sharded_phase(work_dm, hres),
+        labels[1]: lya_sharded_phase(work_lya, lya),
+        labels[2]: star_sharded_phase(
+            os.path.join(work_star, "sharded"), star, glob),
+        labels[3]: options_sharded_phase(
+            os.path.join(work_star, "options"), nu, hyb, lcone, reion,
+            star)}, keep.name, "cuda", "sharded phases 27-30")
+    t2730 = time.perf_counter() - t0
+    for lb in labels:
+        PHASE_SECONDS[lb] = secs[lb]
+        print(f"phase {lb}: {secs[lb]:.3f} s of the smoke (its runs in "
+              "the shared launches, rank 0, and its checks)", flush=True)
+    PHASE_SECONDS["27-30 (the shared launches' process start)"] = outside
+    print(f"phases 27-30 in {t2730:.3f} s: their launches' processes "
+          f"outside every run (start and exit) {outside:.3f} s", flush=True)
+    shd, l28, p29, p30 = (got[lb] for lb in labels)
+    keep.cleanup()
+    report_sharded(shd, card)
     report_sharded(l28["configs"], card,
                    f"lya (2 x {lya['ngas']} particles, TimeMax "
                    f"{LYA_TIME_MAX})")
-    print(f"phase 28 (sharded lya): {t28:.3f} s of the smoke", flush=True)
-
-    with tempfile.TemporaryDirectory() as work:
-        t0 = time.perf_counter()
-        star = star_small_phase(work)
-        srres = restart_phase(work, star["snapnum"], "not run",
-                              paramfile=star["paramfile"])
-        t23 = time.perf_counter() - t0
-        report_star_small(star, srres, card)
-        t0 = time.perf_counter()
-        glob = global_subgrid_phase(os.path.join(work, "global"), star)
-        t24 = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        reion = reion_phase(os.path.join(work, "reion"), star)
-        t26 = time.perf_counter() - t0
-        k6r = reion_cooling_case(reion)
-        t0 = time.perf_counter()
-        p29 = star_sharded_phase(os.path.join(work, "sharded"), star, glob)
-        t29 = time.perf_counter() - t0
     report_global(glob, card)
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
-        trav = travis_phase(work)
+        trav = timed("25 (travis)", travis_phase, work)
         t25 = time.perf_counter() - t0
     report_travis(trav, card)
     report_reion(reion, card)
     print(f"phases 23-26: {t23:.3f} s, {t24:.3f} s, {t25:.3f} s and "
           f"{t26:.3f} s of the smoke", flush=True)
     report_star_sharded(p29, card)
-    print(f"phase 29 (sharded star-small): {t29:.3f} s of the smoke",
-          flush=True)
+    report_options_sharded(p30, card)
+    total = time.perf_counter() - t_run
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in PHASE_SECONDS.items()})
+          + f"; the phases {sum(PHASE_SECONDS.values()):.3f} s, run() "
+          f"{total:.3f} s, the process {time.perf_counter() - T_START:.3f} "
+          f"s on {card}", flush=True)
     new = {"star_small_full": star["launches"],
            "subgrid_global": glob["launches"], "travis": trav["launches"],
            "reion": reion["launches"]}
@@ -5939,6 +6540,11 @@ def run():
         new[f"sharded_star_{name}"] = {k: sum(
             rk["launches"][k] for rk in r["ranks"] + r["global"]["ranks"])
             for k in r["ranks"][0]["launches"]}
+    for name, r in p30.items():     # phase 30, its four runs
+        for key, rr in r.items():
+            new[f"sharded_options_{name}_{key}"] = {
+                k: sum(rk["launches"][k] for rk in rr["ranks"])
+                for k in rr["ranks"][0]["launches"]}
 
     check("jax" not in sys.modules, "jax was imported")
     k1 = kres[1][False]             # per-block counts, S = 4096

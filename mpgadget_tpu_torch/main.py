@@ -212,6 +212,9 @@ def build_simulation(paramfile_or_ps, override=None, snapshot=None,
     return sim, ps
 
 
+CPU_TIMEOUT = 600.0     # seconds, the gloo group's on the CPU
+
+
 def init_distributed(device="cuda"):
     """Join the process group that ``torch.distributed.run`` describes
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; the reference's
@@ -252,10 +255,15 @@ def init_distributed(device="cuda"):
     if dev.type == "cuda":
         dev = torch.device("cuda", local % max(torch.cuda.device_count(), 1))
         torch.cuda.set_device(dev)
+    # on the CPU a rank waits at most MPG_DIST_TIMEOUT seconds (default
+    # CPU_TIMEOUT) in the rendezvous or a collective, then raises; on the
+    # card torch.distributed's default holds
+    timeout = os.environ.get("MPG_DIST_TIMEOUT") or (
+        CPU_TIMEOUT if dev.type == "cpu" else None)
     coll.init_process_group(
         backend,
         f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
-        world, rank)
+        world, rank, timeout=None if timeout is None else float(timeout))
     # leave the group before the interpreter exits: a gloo group torn down
     # by the exit itself can abort the process (SIGABRT, "terminate called
     # without an active exception") once its run has ended

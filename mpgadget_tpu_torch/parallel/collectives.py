@@ -20,6 +20,7 @@ each one also synchronises the device before and after itself and adds
 its host-clock seconds to ``STATS["seconds"]``.
 """
 
+import datetime
 import time
 
 import torch
@@ -273,11 +274,15 @@ def barrier(mesh):
         psum(torch.zeros(1, device=mesh.device), mesh)
 
 
-def init_process_group(backend, init_method, world_size, rank):
+def init_process_group(backend, init_method, world_size, rank,
+                       timeout=None):
     """``torch.distributed.init_process_group``; main.init_distributed is
-    the only caller."""
+    the only caller.  timeout: seconds that the rendezvous and each
+    collective may wait (None: torch.distributed's default)."""
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=float(timeout))}
     dist.init_process_group(backend=backend, init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, **kw)
     return dist.group.WORLD
 
 

@@ -9,8 +9,11 @@ rank), the half-kick / drift / half-kick structure with the entropy
 integration (apply_hydro_half_kick), the Strang-split cooling and star
 formation (K6) with the new stars and the sh03 winds they drive, and
 timestep statistics summed over ranks, so that the host policy never
-gathers particle rows.  Global steps and the hierarchical per-timebin
-substeps (timestep.c:298-503) are both here.  The neighbour winds, black
+gathers particle rows.  The PM bins each step's power on the slabs and
+sums the bins over ranks, scales the modes by the neutrino
+linear-response table (PMOptions), and leaves the hybrid neutrino
+tracers out of the sources before NuPartTime.  Global steps and the
+hierarchical per-timebin substeps (timestep.c:298-503) are both here.  The neighbour winds, black
 holes and metal return run between steps (parallel/winds.py,
 blackhole.py, metals.py), from Simulation.run_sharded.
 
@@ -31,7 +34,7 @@ from ..physics.sfr import SPAWN_PID_OFFSET
 from . import collectives as coll
 from .decomp import (exchange_to_slabs, ghost_hops, ghost_strips_multi,
                      count_histogram, slab_of, pack_rows, unpack_rows)
-from .pfft import pm_force_slab
+from .pfft import pm_force_slab, slab_measure_power
 from .sph import (DENSITY_MARGIN, density_local, global_hmax_box,
                   sharded_hydro, strip_overrun, strip_width)
 from .treepm import tree_force_retry
@@ -61,8 +64,23 @@ class Layers:
             self.wt.start(name)
 
 
+def _to_slabs(ipos, weights, mesh):
+    """Each row (position and weight) to the rank of its geometric mesh
+    slab through one split-size all_to_all: (the rows received, the
+    order and the counts that bring results back)."""
+    S = mesh.size
+    dest = slab_of(ipos, int(np.log2(S)))
+    order = torch.sort(dest, stable=True).indices
+    buf, spec = pack_rows([ipos[order], weights[order]])
+    rbuf, recv = coll.all_to_all(buf, mesh, torch.bincount(dest,
+                                                           minlength=S))
+    ip_r, w_r = unpack_rows(rbuf, spec)
+    return ip_r, w_r, order, recv
+
+
 def pm_force_multi(ipos, weights, nmesh, boxsize, gconst, asmth, mesh,
-                   with_potential=False):
+                   with_potential=False, nu_logk=None, nu_fac=None,
+                   nbins=0):
     """Sharded PM force for rows held under count-balanced ownership,
     whose geometric mesh slab may be any rank's.  Each row (position and
     weight) goes to the rank of its slab through one split-size
@@ -70,23 +88,63 @@ def pm_force_multi(ipos, weights, nmesh, boxsize, gconst, asmth, mesh,
     its acceleration (and potential) comes back through the reverse
     exchange.  The JAX package ring-gathers the rows of 2 hops neighbours
     instead and counts the hops on the host; both deposit the same rows
-    on each slab.  Returns (accel [n,3], potential [n] or None)."""
-    S = mesh.size
-    log2s = int(np.log2(S))
-    dest = slab_of(ipos, log2s)
-    order = torch.sort(dest, stable=True).indices
-    buf, spec = pack_rows([ipos[order], weights[order]])
-    rbuf, recv = coll.all_to_all(buf, mesh, torch.bincount(dest,
-                                                           minlength=S))
-    ip_r, w_r = unpack_rows(rbuf, spec)
-    acc_r, pot_r = pm_force_slab(ip_r, w_r, nmesh, boxsize, gconst, asmth,
-                                 mesh, compute_potential=with_potential)
+    on each slab.  nu_logk/nu_fac: the neutrino linear-response table
+    (float32 tensors) that scales the modes; nbins > 0 bins the
+    total-matter power on each slab and sums the bins over ranks.
+    Returns (accel [n,3], potential [n] or None, (p, n, k, norm) float64
+    or None)."""
+    ip_r, w_r, order, recv = _to_slabs(ipos, weights, mesh)
+    acc_r, pot_r, pk = pm_force_slab(ip_r, w_r, nmesh, boxsize, gconst,
+                                     asmth, mesh,
+                                     compute_potential=with_potential,
+                                     nu_logk=nu_logk, nu_fac=nu_fac,
+                                     nbins=nbins)
     out = torch.cat([acc_r, pot_r[:, None]], dim=1) if with_potential \
         else acc_r
     back, _ = coll.all_to_all(out.contiguous(), mesh, recv)
     res = torch.empty_like(back)
     res[order] = back
-    return res[:, :3], (res[:, 3] if with_potential else None)
+    return res[:, :3], (res[:, 3] if with_potential else None), pk
+
+
+def measure_power_multi(ipos, weights, nmesh, mesh, nbins):
+    """The power bins of the rows' deposit, summed over ranks (the
+    sharded measure_power of run._neutrino_response): the rows go to
+    their slabs as in :func:`pm_force_multi`.  Returns (p, n, k, norm)
+    float64, the same on every rank."""
+    ip_r, w_r, _, _ = _to_slabs(ipos, weights, mesh)
+    return slab_measure_power(ip_r, w_r, nmesh, mesh, nbins)
+
+
+class PMOptions:
+    """What the sharded PM of a step adds beyond gravity: nbins > 0 bins
+    the total-matter power (stats["pk"]); nu_response(ipos, weights,
+    atime) -> (logk, fac) gives the neutrino linear-response table from
+    the rows' CDM deposit (MassiveNuLinRespOn); with hybrid neutrinos a
+    step's scal["nu_tracer"] (before NuPartTime) takes the type-2 rows'
+    mass out of the tree and the PM deposit and gives them no PM force
+    (gravpm.c:83-85, 469-475; forcetree.c:162)."""
+
+    def __init__(self, nbins=0, nu_response=None):
+        self.nbins = int(nbins)
+        self.nu_response = nu_response
+
+    def table(self, ipos, weights, atime, dev):
+        """The neutrino table as float32 tensors on dev, or (None,
+        None)."""
+        if self.nu_response is None:
+            return None, None
+        logk, fac = self.nu_response(ipos, weights, atime)
+        return (torch.as_tensor(np.asarray(logk, np.float32), device=dev),
+                torch.as_tensor(np.asarray(fac, np.float32), device=dev))
+
+
+def _source_mass(st, scal):
+    """The rows' gravitating mass: the hybrid neutrino tracers' (type 2)
+    is zero before NuPartTime."""
+    if scal.get("nu_tracer"):
+        return torch.where(st["ptype"] == 2, 0.0, st["mass"])
+    return st["mass"]
 
 
 def _type_stats(st, mesh):
@@ -199,15 +257,24 @@ def spawn_rows(st, make_star, convert, star_mass, atime):
 
 
 def pm_refresh(st, mesh, scal, *, nmesh, boxsize, gconst, asmth,
-               with_potential=False, hist_bits=12, layers=None):
+               with_potential=False, hist_bits=12, layers=None, pm=None):
     """PM refresh and boundary half kick of a hierarchical interval
     (compute_forces(tree=False) + apply_PM_half_kick, run.c:605).  st:
-    this rank's rows; scal: {"fac": the closing gravkick factor}.  Returns
-    (updated columns {pm_acc, vel, amag[, pm_pot, potential]}, stats)."""
+    this rank's rows; scal: {"fac": the closing gravkick factor, "atime":
+    the refresh's a[, "nu_tracer"]}; pm: :class:`PMOptions`.  Returns
+    (updated columns {pm_acc, vel, amag[, pm_pot, potential]}, stats),
+    stats["pk"] the power bins when pm.nbins."""
     lay = layers or Layers(None, mesh.device)
+    pm = pm or PMOptions()
     lay("PMgrav")
-    acc_pm, pm_pot = pm_force_multi(st["ipos"], st["mass"], nmesh, boxsize,
-                                    gconst, asmth, mesh, with_potential)
+    w = _source_mass(st, scal)
+    nu_logk, nu_fac = pm.table(st["ipos"], w, scal.get("atime"),
+                               mesh.device)
+    acc_pm, pm_pot, pk = pm_force_multi(
+        st["ipos"], w, nmesh, boxsize, gconst, asmth, mesh, with_potential,
+        nu_logk=nu_logk, nu_fac=nu_fac, nbins=pm.nbins)
+    if scal.get("nu_tracer"):
+        acc_pm = torch.where((st["ptype"] == 2)[:, None], 0.0, acc_pm)
     lay("Kick")
     vel = st["vel"] + acc_pm * float(np.float32(scal["fac"]))
     full = st["grav_acc"] + acc_pm
@@ -221,6 +288,7 @@ def pm_refresh(st, mesh, scal, *, nmesh, boxsize, gconst, asmth,
     stats["hist"] = count_histogram(st["ipos"], mesh, hist_bits)
     stats["n_valid"] = int(coll.psum(torch.tensor(
         st["ipos"].shape[0], device=mesh.device), mesh))
+    stats["pk"] = pk
     lay(None)
     return upd, stats
 
@@ -302,7 +370,7 @@ def _source_terms(st, gas_src, dl, scal, gas, mesh):
 
 def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
                  asmth, rcut, hierarchical=False, with_potential=False,
-                 hist_bits=12, layers=None, gas=None):
+                 hist_bits=12, layers=None, gas=None, pm=None):
     """One KDK step (global) or one substep (hierarchical) on this rank's
     rows (build_sharded_step).
 
@@ -321,7 +389,9 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
     al_close, with eta_eps, max_dloga, dloga_tick, maxbin for the bins'
     re-derivation; with gas the tables hk_open, hk_close, dlg_open,
     dlg_close, dlg_full and dloga_full, courant_fac, fac3; the source
-    terms add redshift, uvbg and (star formation) the random key.
+    terms add redshift, uvbg and (star formation) the random key; with
+    hybrid neutrinos nu_tracer.  pm: :class:`PMOptions` of the global
+    step's PM.
 
     Only the rows closing their bin are force targets when hierarchical
     (the tree, and the density solve with the rank's own closing gas); the
@@ -330,11 +400,13 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
     bin.  Returns (st', stats): stats summed over ranks (vsum, count,
     min_mass, max_acc, hist, n_valid; hierarchical: min_act_bin,
     bin_hist, n_closing; gas: min_h_over_sig, min_h_over_dth and, with
-    star formation, sfr.txt's sums).  With gas, (None, {"strip_ok":
+    star formation, sfr.txt's sums; global: pk, the power bins when
+    pm.nbins).  With gas, (None, {"strip_ok":
     False}) when the density strip was too narrow: run the step again
     from the same st with gas.margin widened."""
     from ..utils.constants import GAMMA
     lay = layers or Layers(None, mesh.device)
+    pm = pm or PMOptions()
     dev = mesh.device
     f32 = np.float32
     st = dict(st)
@@ -381,6 +453,8 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
                                 mesh, bounds)
     st = dict(zip(keys, cols))
     n = st["ipos"].shape[0]
+    # the mass that sources gravity (tree and PM)
+    gsrc = _source_mass(st, scal)
 
     # ---- ghost strips: the tree's (and the density's) sources near the
     # slab faces; with gas as wide as the gas's largest hsml times the
@@ -392,15 +466,15 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
                              ** (1.0 / GAMMA), 0.0)
         w1 = strip_width(global_hmax_box(st["hsml"], g, mesh, boxsize),
                          gas.margin, rcut_box)
-        payload = (st["ipos"], st["mass"], st["vel"], st["hsml"], entvar, g)
+        payload = (st["ipos"], gsrc, st["vel"], st["hsml"], entvar, g)
     else:
         w1 = float(f32(rcut_box))
-        payload = (st["ipos"], st["mass"])
+        payload = (st["ipos"], gsrc)
     gh = ghost_strips_multi(payload, st["ipos"], mesh, bounds, w1,
                             ghost_hops(bounds, w1))
     ng = gh[0].shape[0]
     ipos_a = torch.cat([st["ipos"], gh[0]])
-    mass_a = torch.cat([st["mass"], gh[1]])
+    mass_a = torch.cat([gsrc, gh[1]])
     amag_a = torch.cat([st["amag"], st["amag"].new_zeros(ng)])
 
     lay("Tree")
@@ -428,9 +502,13 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
         res = tree_force_retry(tg, ipos_a, mass_a, amag_a,
                                with_potential=with_potential)
         lay("PMgrav")
-        acc_pm, pm_pot = pm_force_multi(st["ipos"], st["mass"], nmesh,
-                                        boxsize, gconst, asmth, mesh,
-                                        with_potential)
+        nu_logk, nu_fac = pm.table(st["ipos"], gsrc, scal["atime"], dev)
+        acc_pm, pm_pot, pk = pm_force_multi(
+            st["ipos"], gsrc, nmesh, boxsize, gconst, asmth, mesh,
+            with_potential, nu_logk=nu_logk, nu_fac=nu_fac, nbins=pm.nbins)
+        if scal.get("nu_tracer"):
+            # the tracers receive no PM force
+            acc_pm = torch.where((st["ptype"] == 2)[:, None], 0.0, acc_pm)
         if with_potential:
             st["pm_pot"] = pm_pot
             st["potential"] = res.potential[:n] * g_over_box + pm_pot
@@ -555,6 +633,8 @@ def sharded_step(st, bounds, scal, mesh, *, tg, nmesh, boxsize, gconst,
     stats["max_acc"] = float(coll.pmax(amax, mesh))
     stats["hist"] = count_histogram(st["ipos"], mesh, hist_bits)
     stats["n_valid"] = int(coll.psum(torch.tensor(n, device=dev), mesh))
+    if not hierarchical:
+        stats["pk"] = pk
     if gas is not None:
         g = st["gas_mask"]
         inf = float("inf")

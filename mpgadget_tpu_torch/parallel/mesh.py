@@ -95,8 +95,8 @@ def sharded_pm_step(mesh, nmesh, boxsize, gconst, asmth):
     def step(ipos, vel, mass, pid, dkick, ddrift):
         (ipos, vel, mass, pid), _ = exchange_to_slabs(
             (ipos, vel, mass, pid), ipos, mesh, bounds)
-        acc, _ = pm_force_slab(ipos, mass, nmesh, boxsize, gconst, asmth,
-                               mesh)
+        acc, _, _ = pm_force_slab(ipos, mass, nmesh, boxsize, gconst,
+                                  asmth, mesh)
         vel = kick(vel, acc, dkick)
         ipos = drift(ipos, vel, ddrift, 1.0 / boxsize)
         return ipos, vel, mass, pid

@@ -14,10 +14,12 @@ Green's function cannot drift between the two paths.
 
 import math
 
+import numpy as np
 import torch
 
 from ..ops.cic import _cell_frac_col
-from ..pm.gravity import potential_transfer_fac, force_transfer_fac, _sinc
+from ..pm.gravity import (potential_transfer_fac, force_transfer_fac, _sinc,
+                          _power_bins, interp)
 from . import collectives as coll
 
 
@@ -138,15 +140,45 @@ def cic_readout_slab(local_mesh, ipos, mesh):
     return out if vec else out[:, 0]
 
 
+def slab_modes(nmesh, mesh, device):
+    """(kx, ky, kz, k2, deconv) of this rank's pencil: the integer modes,
+    their squared magnitude and the CIC deconvolution."""
+    kx, ky, kz = _kmodes_slab(nmesh, nmesh // mesh.size, mesh.rank, device)
+    return kx, ky, kz, kx * kx + ky * ky + kz * kz, _deconv_slab(kx, ky, kz,
+                                                                 nmesh)
+
+
+def nu_scale(rho_k, k2, nu_logk, nu_fac, boxsize):
+    """The modes times the neutrino linear-response table interpolated at
+    log |k| (k2 > 0; potential_transfer, gravpm.c:415-436), as
+    pm/gravity._pm_force_kernel on one device."""
+    kmag = torch.sqrt(k2) * float(np.float32(2 * np.pi)
+                                  / np.float32(boxsize))
+    fac_nu = interp(torch.log(torch.clamp(kmag, min=1e-30)), nu_logk,
+                    nu_fac)
+    return rho_k * torch.where(k2 > 0, fac_nu, 1.0)
+
+
+def slab_power(rho_k, kz, k2, deconv, nmesh, nbins, mesh):
+    """The in-line power bins of this rank's pencil summed over ranks
+    (powerspectrum_add_mode at scale; the JAX package's _bin_reduce and
+    psums): (p, n, k) float64 arrays of nbins and the zero mode's norm,
+    which only rank 0 holds (ky = 0).  pm/gravity._finalize_power turns
+    them into a PowerSpectrum."""
+    p, n, k, norm = _power_bins(rho_k, k2, kz, deconv, nmesh, nbins)
+    norm = torch.tensor([norm if mesh.rank == 0 else 0.0],
+                        dtype=torch.float64, device=p.device)
+    tot = coll.psum(torch.cat([p, n, k, norm]), mesh).cpu().numpy()
+    return (tot[:nbins], tot[nbins:2 * nbins], tot[2 * nbins:3 * nbins],
+            float(tot[-1]))
+
+
 def pm_meshes(rho_k, nmesh, boxsize, gconst, asmth, mesh,
               with_potential=False):
     """Green's function and the 3 (4 with the potential) inverse pencil
     transforms of a forward-transformed density: the stacked real slab
     meshes (nx_loc, N, N, 3 or 4)."""
-    S, s = mesh.size, mesh.rank
-    kx, ky, kz = _kmodes_slab(nmesh, nmesh // S, s, rho_k.device)
-    k2 = kx * kx + ky * ky + kz * kz
-    deconv = _deconv_slab(kx, ky, kz, nmesh)
+    kx, ky, kz, k2, deconv = slab_modes(nmesh, mesh, rho_k.device)
     pot_k = rho_k * potential_transfer_fac(k2, deconv, nmesh, boxsize,
                                            gconst, asmth)
     meshes = [pencil_c2r(pot_k * (1j * force_transfer_fac(
@@ -157,13 +189,34 @@ def pm_meshes(rho_k, nmesh, boxsize, gconst, asmth, mesh,
 
 
 def pm_force_slab(ipos, weights, nmesh, boxsize, gconst, asmth, mesh,
-                  compute_potential=False):
+                  compute_potential=False, nu_logk=None, nu_fac=None,
+                  nbins=0):
     """Sharded PM gravity of rows that lie in this rank's geometric slab:
-    deposit -> pencil FFT -> Green's function -> 3 (4) inverse transforms
-    -> stacked readout.  Returns (accel [n,3], potential [n] or None) in
-    internal units, as pm/gravity._pm_force_kernel on one device."""
+    deposit -> pencil FFT -> [neutrino table] -> Green's function -> 3 (4)
+    inverse transforms -> stacked readout.  nu_logk/nu_fac: the neutrino
+    linear-response table (float32 tensors), multiplying the modes before
+    the power bins; nbins > 0 also bins the total-matter power, summed
+    over ranks (:func:`slab_power`).  Returns (accel [n,3], potential [n]
+    or None, (p, n, k, norm) or None) in internal units, as
+    pm/gravity._pm_force_kernel on one device."""
     rho_k = pencil_r2c(cic_deposit_slab(ipos, weights, nmesh, mesh), mesh)
+    pk = None
+    if nu_logk is not None or nbins:
+        _, _, kz, k2, deconv = slab_modes(nmesh, mesh, rho_k.device)
+        if nu_logk is not None:
+            rho_k = nu_scale(rho_k, k2, nu_logk, nu_fac, boxsize)
+        if nbins:
+            pk = slab_power(rho_k, kz, k2, deconv, nmesh, nbins, mesh)
     stacked = pm_meshes(rho_k, nmesh, boxsize, gconst, asmth, mesh,
                         compute_potential)
     out = cic_readout_slab(stacked, ipos, mesh)
-    return out[:, :3], (out[:, 3] if compute_potential else None)
+    return out[:, :3], (out[:, 3] if compute_potential else None), pk
+
+
+def slab_measure_power(ipos, weights, nmesh, mesh, nbins):
+    """The power bins of the deposit of rows in this rank's geometric slab
+    (measure_power_spectrum, powerspectrum.c:163-180, at scale): deposit,
+    pencil FFT, :func:`slab_power`."""
+    rho_k = pencil_r2c(cic_deposit_slab(ipos, weights, nmesh, mesh), mesh)
+    _, _, kz, k2, deconv = slab_modes(nmesh, mesh, rho_k.device)
+    return slab_power(rho_k, kz, k2, deconv, nmesh, nbins, mesh)

@@ -11,7 +11,9 @@ same rows as one written by one writer, after a sort by ID.  The gas
 (type 0) and star (type 4) blocks are those of the single writer's
 registry (io/registry.py) that the sharded state carries, with the
 derived InternalEnergy of the gas; with metal return the Metals of gas and
-stars and the stars' return bookkeeping, with black holes their blocks.
+stars and the stars' return bookkeeping, with black holes their blocks,
+with QSO lightup and the excursion set the gas's HeIIIIonized, J21 and
+ZReionized, with massive neutrinos the delta_tot history.
 """
 
 import os
@@ -71,6 +73,9 @@ def species_block_table(st, t, *, atime, boxsize, ipos_offset):
                   ("DelayTime", "delay_time", "<f4", None),
                   ("Metallicity", "metallicity", "<f4", None),
                   ("Metals", "metals", "<f4", None),
+                  ("HeIIIIonized", "he_iii_ionized", "u1", None),
+                  ("J21", "local_j21", "<f4", None),
+                  ("ZReionized", "zreion", "<f4", None),
                   ("InternalEnergy", ("entropy", "density"), "<f4", u_tr)]
     elif t == 4:
         table += [("StarFormationTime", "formation_time", "<f4", None),
@@ -191,6 +196,10 @@ def write_snapshot_sharded(sim, mesh, st, label=None):
                 sim.cfg.units.UnitVelocity_in_cm_per_s),
             RSDFactor=1.0 / (atime * hubble))
         snap_io.write_header(bf, header)
+        if sim._nu_table_state is not None:
+            # the neutrino delta_tot history (every rank holds the same)
+            snap_io.write_neutrino_state(
+                bf, sim._nu_table_state.state_dict())
         with open(os.path.join(sim.cfg.output_dir, "Snapshots.txt"),
                   "a") as fh:
             fh.write(f"{label:03d} {atime}\n")

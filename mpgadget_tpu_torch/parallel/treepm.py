@@ -77,8 +77,8 @@ def sharded_treepm_step(mesh, *, nmesh, boxsize, gconst, asmth, rcut, tg):
             tg, torch.cat([ipos, g_ipos]), torch.cat([mass, g_mass]),
             torch.cat([amag, amag.new_zeros(ng)]))
         # 4. the sharded PM long-range force
-        acc_pm, _ = pm_force_slab(ipos, mass, nmesh, boxsize, gconst,
-                                  asmth, mesh)
+        acc_pm, _, _ = pm_force_slab(ipos, mass, nmesh, boxsize, gconst,
+                                     asmth, mesh)
         acc = res.accel[:n] + acc_pm
         amag = torch.sqrt(torch.sum(acc * acc, dim=-1))
         vel = kick(vel, acc, dkick)

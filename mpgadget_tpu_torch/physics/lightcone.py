@@ -13,7 +13,9 @@ angular-resolution rule, lightcone.c:200-210), drawn per (particle,
 replica) by the JAX package's uint32 hash of the ID.  torch has no uint32
 arithmetic: the hash is carried in int64 and masked to 32 bits after every
 add and multiply.  The horizon test is one elementwise pass per replica
-that straddles the shell; only the crossing rows go to the host.
+that straddles the shell; only the crossing rows go to the host.  In the
+sharded run each rank tests its own rows and appends to its own stripe
+(``Lightcone(..., task=rank)``, :meth:`Lightcone.compute_sharded`).
 """
 
 import os
@@ -74,6 +76,26 @@ def cross_mask(pos, vel, rep, ddrift, hd_prev2, hd2, hd_prev, hd,
 
 def _f32(x):
     return float(np.float32(x))
+
+
+def rank_crossers(ipos, vel, ptype, pid, off, boxsize, rep, ddrift,
+                  hd_prev2, hd2, hd_prev, hd, samplefrac):
+    """The sharded light cone's crossing test of one rank's rows
+    (build_sharded_cross of the JAX package, lightcone_compute at scale,
+    lightcone.c:176-221: each rank tests only its own rows, as the
+    reference does): the type-1 rows that cross the shell of replica rep,
+    as float64 (x, y, z) host rows.  ipos: int64 [n, 3] holding [0, 2^32)
+    with the random offset off (3 ints) still applied; positions go to
+    float32 directly, as the JAX package's sharded path (its
+    single-device path rounds through float64); the scalars are rounded
+    to float32 here."""
+    o = torch.as_tensor(np.asarray(off, np.int64), device=ipos.device)
+    pos = ((ipos - o[None, :]) & MASK32).to(torch.float32) \
+        * float(2.0 ** -32) * _f32(boxsize)
+    hit, p3 = cross_mask(pos, vel, rep, _f32(ddrift), _f32(hd_prev2),
+                         _f32(hd2), _f32(hd_prev), _f32(hd),
+                         _f32(samplefrac), pid)
+    return p3[hit & (ptype == 1)].cpu().numpy().astype(np.float64)
 
 
 class Lightcone:
@@ -142,6 +164,36 @@ class Lightcone:
                     if d1 <= self.hd_prev2 and d2 >= self.hd2:
                         reps.append((rx * L, ry * L, rz * L))
         return reps
+
+    def append_rows(self, rows_xyz):
+        """Append crossing rows (float64 x, y, z on the host) to this
+        task's stripe with the current SampleFraction column (the raw
+        append of lightcone_cross, for the sharded path, whose ranks find
+        their own crossers); returns the rows written."""
+        if len(rows_xyz) == 0:
+            return 0
+        out = np.concatenate(
+            [np.asarray(rows_xyz, np.float64),
+             np.full((len(rows_xyz), 1), self.sample_fraction)], axis=1)
+        self.fd.write(out.tobytes())
+        self.fd.flush()
+        self.n_written += len(rows_xyz)
+        return len(rows_xyz)
+
+    def compute_sharded(self, a, ddrift, ipos, vel, ptype, pid, off):
+        """lightcone_compute on one rank's rows (:func:`rank_crossers` for
+        each replica straddling the shell), appended to this task's
+        stripe; returns the rows written."""
+        self.set_time(a)
+        if self.sample_fraction <= 0:
+            return 0
+        wrote = 0
+        for rep in self.replicas():
+            wrote += self.append_rows(rank_crossers(
+                ipos, vel, ptype, pid, off, self.boxsize, rep, ddrift,
+                self.hd_prev2, self.hd2, self.hd_prev, self.hd,
+                self.sample_fraction))
+        return wrote
 
     def compute(self, a, ddrift, pos, vel, is_dm, pid):
         """Write the particles crossing the horizon this step

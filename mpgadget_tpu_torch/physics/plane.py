@@ -13,7 +13,9 @@ is a float32 ``torch.fft.rfft2`` with the reference's multipole factor
 -2 (b0 b1/chi^2) / (4 pi^2 l^2) and 1-pixel Gaussian smoothing.  The
 optional PM massive-neutrino correction plane (plane.c:389-447) is not
 implemented, as in the JAX package; a warning is printed when it would
-apply.
+apply.  The sharded run projects each rank's rows and sums the counts
+over ranks, so that its planes are the host path's bit for bit; rank 0
+solves and writes them.
 """
 
 import os
@@ -91,12 +93,25 @@ def lensing_potential_fft(density, b0, b1, chi, smooth=1.0):
 
 
 def cut_plane(ipos, weights, n_tot, boxsize, CP, atime, normal, center,
-              thickness, resolution, chi):
+              thickness, resolution, chi, mesh=None, solve=True):
     """One lensing-potential plane (cutPlaneGaussianGrid,
-    lenstools.c:233-320).  Returns (plane f64[res,res], n_on_plane)."""
+    lenstools.c:233-320).  With mesh (the sharded run's ShardMesh) each
+    rank projects its own rows and the counts are summed over ranks (one
+    all-reduce; integer counts in float32, exact below 2^24), so the plane
+    is the one of all rows together; solve=False skips the Poisson solve
+    (ranks that write nothing).  Returns (plane f64[res,res] or None,
+    n_on_plane)."""
     counts, n_plane = project_slab(
         ipos, weights, normal, float(np.float32(center / boxsize)),
         float(np.float32(0.5 * thickness / boxsize)), resolution)
+    if mesh is not None:
+        from ..parallel import collectives as coll
+        tot = coll.psum(torch.cat([counts.reshape(-1), torch.tensor(
+            [float(n_plane)], device=counts.device)]), mesh)
+        counts = tot[:-1].reshape(resolution, resolution)
+        n_plane = int(tot[-1])
+    if not solve:
+        return None, n_plane
     cell = boxsize / resolution
     norm_fac = (boxsize ** 3
                 / (cell * cell * thickness)) / max(float(n_tot), 1.0)
@@ -113,10 +128,17 @@ def cut_plane(ipos, weights, n_tot, boxsize, CP, atime, normal, center,
             * density_norm, n_plane)
 
 
-def write_planes(sim, snapnum, params: PlaneParams):
+def write_planes(sim, snapnum, params: PlaneParams, ipos=None,
+                 weights=None, n_tot=None, write=True, mesh=None):
     """Compute and write all (cut, normal) planes (write_plane,
     plane.c:572-668) of sim's particles, with the internal random offset
-    removed."""
+    removed.
+
+    ipos/weights/n_tot default to sim.pdata's rows; the sharded run
+    passes a rank's rows instead (unshifted positions, their weights, the
+    rows over all ranks) with its mesh, over which the projected counts
+    are summed, and ``write`` true on rank 0 alone, which then solves and
+    writes the FITS files.  Returns the files written."""
     from ..io.fits import write_fits_image
     boxsize = sim.cfg.boxsize
     thickness = params.thickness if params.thickness > 0 else boxsize
@@ -127,21 +149,25 @@ def write_planes(sim, snapnum, params: PlaneParams):
     atime = sim.atime
     chi = comoving_distance(sim.CP, atime, 1.0,
                             sim.cfg.units.UnitVelocity_in_cm_per_s)
-    if params.massive_nu_correction \
+    if write and params.massive_nu_correction \
             and getattr(sim.CP, "MassiveNuLinRespOn", False):
         print("PlaneMassiveNuCorrection: PM neutrino-correction plane "
               "not yet implemented; writing particle planes only")
-    weights = sim.pdata.valid.to(torch.float32)
-    n_tot = int(sim.pdata.num_valid)
-    ip = sim._unshifted_ipos()
+    if ipos is None:
+        weights = sim.pdata.valid.to(torch.float32)
+        n_tot = int(sim.pdata.num_valid)
+        ipos = sim._unshifted_ipos()
     ulen = sim.cfg.units.UnitLength_in_cm
     redshift = 1.0 / atime - 1.0
     written = []
     for ci, cut in enumerate(cuts):
         for normal in params.normals:
             plane, n_plane = cut_plane(
-                ip, weights, n_tot, boxsize, sim.CP, atime, int(normal),
-                float(cut), thickness, params.resolution, chi)
+                ipos, weights, n_tot, boxsize, sim.CP, atime, int(normal),
+                float(cut), thickness, params.resolution, chi, mesh=mesh,
+                solve=write)
+            if not write:
+                continue
             fname = os.path.join(
                 sim.cfg.output_dir,
                 f"snap{snapnum}_potentialPlane{ci}_normal{normal}.fits")

@@ -132,31 +132,45 @@ def bubble_r2(ipos, center):
 
 
 def _ionize_bubble(ipos, is_gas, ionized, density, entropy, center,
-                   radius_box, du_code, a3inv):
+                   radius_box, du_code, a3inv, mesh=None):
     """Mark and heat the un-ionized gas within radius_box of center (the
     ionize_ngbiter analog as one dense mask).  du_code: internal energy
     injected per unit mass, internal units; center, radius_box, du_code
-    and a3inv float32 values.  Returns (ionized, entropy, rows hit)."""
+    and a3inv float32 values.  Returns (ionized, entropy, rows hit, over
+    the ranks of mesh when given)."""
     r2 = bubble_r2(ipos, center)
     rad = torch.tensor(radius_box, dtype=torch.float32, device=ipos.device)
     hit = is_gas & (~ionized) & (r2 < rad * rad)
     new_ent = entropy + density.new_tensor(du_code) / _entropy_to_u(
         density * a3inv)
     return (ionized | hit, torch.where(hit, new_ent, entropy),
-            int(hit.sum()))
+            int(_total(hit.sum(), mesh)))
+
+
+def _total(x, mesh):
+    """x (a count) summed over the ranks of mesh (None: this device's)."""
+    if mesh is None:
+        return x
+    from ..parallel import collectives as coll
+    return coll.psum(x, mesh)
 
 
 def place_bubbles(ipos, gas, ionized, density, entropy, cat,
                   hist: HeIIHistory, params: QSOParams, atime, boxsize,
-                  random_seed, output_dir, write=True):
+                  random_seed, output_dir, write=True, mesh=None):
     """Advance helium reionization one PM step on the columns
     (do_heiii_reionization, cooling_qso_lightup.c:642-660): QSO bubbles
     placed one after another around FOF halos until the desired HeIII
     fraction is met, or a flash ionization past finish_frac.  cat: the FOF
     catalogue ("masses", "cm").  ``write`` gates the helium.txt append.
-    Returns (ionized, entropy, bubbles)."""
+    With mesh (the sharded run's ShardMesh) the columns are one rank's
+    rows: the gas count, the ionized count and each bubble's ionized rows
+    are summed over ranks (one all-reduce each), while the catalogue and
+    the numpy draws are the same on every rank, so every rank places the
+    same bubbles.  Returns (ionized, entropy, bubbles)."""
     desired = desired_heiii_frac(hist, atime)
-    counts = torch.stack([gas.sum(), (ionized & gas).sum()]).cpu()
+    counts = _total(torch.stack([gas.sum(), (ionized & gas).sum()]),
+                    mesh).cpu()
     n_gas = int(counts[0])
     if n_gas == 0:
         return ionized, entropy, 0
@@ -173,7 +187,7 @@ def place_bubbles(ipos, gas, ionized, density, entropy, cat,
         ion2, ent2, nion = _ionize_bubble(
             ipos, gas, ionized, density, entropy,
             torch.zeros(3, dtype=torch.float32, device=dev), 2.0, du_code,
-            a3inv)
+            a3inv, mesh)
         if write:
             with open(helium_txt, "a") as fh:
                 fh.write(f"{atime:g} flash 0 0 0 1.0 {nion}\n")
@@ -202,7 +216,7 @@ def place_bubbles(ipos, gas, ionized, density, entropy, cat,
                                  device=dev)
         ionized, entropy, nion = _ionize_bubble(
             ipos, gas, ionized, density, entropy, center,
-            float(np.float32(radius / boxsize)), du_code, a3inv)
+            float(np.float32(radius / boxsize)), du_code, a3inv, mesh)
         cur += nion / n_gas
         nbub += 1
         if write:

@@ -17,6 +17,9 @@ the FFTs, sin and cos round otherwise, so a cell whose f_coll lies within
 a few ulps of the barrier may flip (``ladder``'s margin says how close
 each cell came).
 
+In the sharded run each rank deposits its own rows, the grids are summed
+over ranks and the ladder runs on every rank (calculate_uvbg's mesh).
+
 J21 is read back to the gas (the max over the CIC cloud) and converted to
 photoionization and heating rates with the power-law-spectrum closed forms
 (the J21CoeffFile analog): for J_nu = J21 1e-21 (nu/nu_HI)^-alpha and
@@ -160,13 +163,17 @@ def ladder(mass_k, star_k, sfr_k, radii, rtoms, nmesh, boxsize, filter_type,
 
 
 def calculate_uvbg(ipos, mass, valid, is_gas, is_star, sfr, fesc,
-                   params: UVBGParams, CP, units, boxsize, atime):
+                   params: UVBGParams, CP, units, boxsize, atime,
+                   mesh=None):
     """The full excursion set: deposits + ladder + global xHI figures.
 
     fesc: per-row escape fraction (weighting the stellar mass and SFR
     deposits; init_particle_uvbg analog, computed by the caller from FOF
-    halo masses).  Returns a dict with the grids ("xhi", "j21", "margin")
-    and the volume- and mass-weighted global xHI."""
+    halo masses).  With mesh (the sharded run's ShardMesh) the rows are
+    one rank's: its three CIC deposits of the whole uvbg_dim^3 grid are
+    summed over ranks in one all-reduce and the ladder runs on every
+    rank.  Returns a dict with the grids ("xhi", "j21", "margin") and the
+    volume- and mass-weighted global xHI."""
     nmesh = params.uvbg_dim
     w_mass = torch.where(valid, mass, 0.0)
     w_star = torch.where(valid & is_star, mass * fesc, 0.0)
@@ -174,6 +181,10 @@ def calculate_uvbg(ipos, mass, valid, is_gas, is_star, sfr, fesc,
     mass_grid = cic_deposit(ipos, w_mass, nmesh)
     star_grid = cic_deposit(ipos, w_star, nmesh)
     sfr_grid = cic_deposit(ipos, w_sfr, nmesh)
+    if mesh is not None:
+        from ..parallel import collectives as coll
+        mass_grid, star_grid, sfr_grid = coll.psum(torch.stack(
+            [mass_grid, star_grid, sfr_grid]), mesh).unbind(0)
     mass_k = torch.fft.rfftn(mass_grid)
     star_k = torch.fft.rfftn(star_grid)
     sfr_k = torch.fft.rfftn(sfr_grid)

@@ -232,15 +232,16 @@ def check_supported(cfg: SimConfig, has_gas: bool):
 
 def check_sharded_supported(cfg: SimConfig, has_gas: bool):
     """Refuse, before the first step, what the sharded driver
-    (Simulation.run_sharded) does not carry.  It carries the gas
-    (HydroOn), cooling with the tables it takes (TreeCoolFile,
-    MetalCoolFile, UVFluctuationFile), star formation, the winds (sh03
-    in the step, vs08 and ofjt10 from the new stars' neighbours), black
-    holes and metal return.  As the JAX package's run_sharded, it refuses
-    winds without star formation or subgrid winds other than sh03's fixed
-    efficiency, and metal return without star formation (star rows).  It
-    refuses, still to come, QSO lightup, the excursion set and the
-    dark-matter options.  The single-device run() carries them all."""
+    (Simulation.run_sharded) does not carry.  It carries every switch of
+    the shipped examples: the gas (HydroOn), cooling with the tables it
+    takes (TreeCoolFile, MetalCoolFile, UVFluctuationFile), star
+    formation, the winds (sh03 in the step, vs08 and ofjt10 from the new
+    stars' neighbours), black holes, metal return, QSO lightup, the
+    excursion set, massive and hybrid neutrinos, the light cone and the
+    lensing planes.  As the JAX package's run_sharded, it refuses winds
+    without star formation or subgrid winds other than sh03's fixed
+    efficiency, and metal return without star formation (star rows); the
+    single-device run() carries those too."""
     from .physics import winds as windmod
     if has_gas and cfg.hydro_on and cfg.wind_on:
         subgrid = bool(cfg.wind_model & windmod.WIND_SUBGRID)
@@ -258,17 +259,6 @@ def check_sharded_supported(cfg: SimConfig, has_gas: bool):
                          "driver (star rows), as in the JAX package's "
                          "run_sharded; run it with MPG_SHARDED=0 on one "
                          "device")
-    gas = [("QSOLightupOn", cfg.qso_lightup_on),
-           ("ExcursionSetReionOn", cfg.excursion_set_on)]
-    other = [("MassiveNuLinRespOn", cfg.massive_nu_lin_resp_on),
-             ("HybridNeutrinosOn", cfg.hybrid_neutrinos_on),
-             ("LightconeOn", cfg.lightcone_on),
-             ("PlaneOutputList", bool(cfg.plane_output_list))]
-    for name, on in (gas if has_gas else []) + other:
-        if on:
-            raise ValueError(f"{name} is not yet ported to the sharded "
-                             "driver; run it with MPG_SHARDED=0 on one "
-                             "device")
 
 
 class Simulation:
@@ -508,12 +498,7 @@ class Simulation:
                                 accel)
         self.walltime.stop("PMgrav")
         if self.cfg.massive_nu_lin_resp_on:
-            # the modes were scaled by nufac (total matter) but the
-            # zero-mode norm is still the CDM mass squared: rescale so that
-            # the output is the total matter power (gravpm.c:442-447)
-            onu = self.CP.ONu.nopart(self.atime) * self.atime ** 3
-            fac = self.CP.Omega0 / (self.CP.Omega0 - onu)
-            ps.power = ps.power / (fac * fac)
+            self._total_matter_power(ps, self.atime)
         self.pdata = self.pdata.replace(grav_pm=accel)
         if pot is not None:
             self.pdata = self.pdata.replace(potential=pot)
@@ -533,20 +518,37 @@ class Simulation:
         (compute_neutrino_power, gravpm.c:307-330): a deposit, FFT and
         binning of its own for delta_cdm, then the host table's step."""
         from .pm.gravity import measure_power
+        ps = measure_power(self.pdata.ipos, weights, self.pm_cfg)
+        return self._nu_table_step(ps, self.atime)
+
+    def _nu_table_step(self, ps, atime):
+        """The host table's step at atime from the CDM power ps (a
+        PowerSpectrum of the unscaled deposit); the first call makes the
+        table, with the history a snapshot carried.  Returns (logk,
+        nufac)."""
         from .physics.neutrinos_lra import DeltaTotTable
         from .utils import constants as C
-        ps = measure_power(self.pdata.ipos, weights, self.pm_cfg)
         good = ps.nmodes > 0
         scale = self.cfg.units.UnitLength_in_cm / C.CM_PER_MPC
         k_int = ps.k[good] * scale          # internal 1/length
         delta = np.sqrt(np.maximum(ps.power[good], 0.0))
         if self._nu_table_state is None:
             self._nu_table_state = DeltaTotTable(
-                self.CP, k_int, delta, self.atime, self.cfg.units)
+                self.CP, k_int, delta, atime, self.cfg.units)
             if self._nu_restore is not None:
                 # snapshot-embedded history (neutrinos_lra.c:379-452)
                 self._nu_table_state.load_state(self._nu_restore)
-        return self._nu_table_state.step(self.atime, delta)
+        return self._nu_table_state.step(atime, delta)
+
+    def _total_matter_power(self, ps, atime):
+        """With massive neutrinos the modes were scaled by nufac (total
+        matter) but the zero-mode norm is still the CDM mass squared:
+        rescale ps so that it is the total matter power
+        (gravpm.c:442-447)."""
+        onu = self.CP.ONu.nopart(atime) * atime ** 3
+        fac = self.CP.Omega0 / (self.CP.Omega0 - onu)
+        ps.power = ps.power / (fac * fac)
+        return ps
 
     def _make_tree_gravity(self):
         from .gravity.treepm import TreeGravity
@@ -1868,8 +1870,7 @@ class Simulation:
     def run_sharded(self, mesh, max_steps=None, verbose=True,
                     hierarchical=False, layer_sync=False):
         """Multi-rank main loop (run.c:358-800 at scale; the JAX package's
-        run_sharded with its light cone, planes, QSO lightup, excursion
-        set and neutrinos left for a later slice).
+        run_sharded).
 
         mesh: parallel.mesh.ShardMesh of this rank.  Every rank holds the
         whole host state (read from the same IC, as every MPI rank reads
@@ -1883,26 +1884,40 @@ class Simulation:
         step runs the sharded density and hydro force, the entropy
         integration, and cooling or cooling with star formation (the new
         stars appended to the rank that formed them, sh03's subgrid winds
-        before they spawn); a density strip too narrow for the converged
-        hsml runs the same step again with a strip 1.5 times wider, which
-        the rest of the run keeps.  After each global step, or each PM
-        step of the hierarchical run, the subgrid passes run in the JAX
-        package's order: the neighbour winds of the new stars (vs08,
-        ofjt10: parallel/winds.py), the black holes (parallel/blackhole.py,
-        which takes swallowed gas and merged BHs out of the rows) and the
-        metal return (parallel/metals.py); decoupled wind gas feels no
-        hydro force (the single-device rule).  Timestep statistics are
-        summed over ranks, so no step gathers rows.  Sync points write
-        striped snapshots (parallel/snapshot.py) and, with SnapshotWithFOF,
-        the distributed FOF's PIG (parallel/fof.py), after which
-        BlackHoleOn seeds a BH in each halo above the seeding thresholds
-        that holds none (parallel/fof.seed_convert).  Rank 0 writes sfr.txt
-        from the sums over ranks, a line for each step that formed stellar
-        mass (total_sm > 0, sfr_eff.c:356).  The host mirror (self.pdata,
+        before they spawn; during the excursion set's epoch the cooling
+        reads each row's J21 rates); a density strip too narrow for the
+        converged hsml runs the same step again with a strip 1.5 times
+        wider, which the rest of the run keeps.  The PM bins the power of
+        every PM step (rank 0 writes the powerspectrum file after the
+        step, as the single-device loop); with MassiveNuLinRespOn the
+        modes are scaled by the neutrino table, which each rank steps on
+        the host from the CDM power of the rows' deposit summed over
+        ranks (the snapshots carry its history); with HybridNeutrinosOn
+        the type-2 rows neither source gravity (tree and PM) nor feel the
+        PM force before NuPartTime.  After each global step and each
+        substep the light cone's crossers of each rank's rows go to that
+        rank's stripe.  After each global step, or each PM step of the
+        hierarchical run, the passes run in the JAX package's order: the
+        neighbour winds of the new stars (vs08, ofjt10:
+        parallel/winds.py), the black holes (parallel/blackhole.py, which
+        takes swallowed gas and merged BHs out of the rows), the metal
+        return (parallel/metals.py), QSO helium reionization (bubbles
+        around the halos of the distributed catalogue, the HeIII flag a
+        column of the rows; rank 0 appends to helium.txt), the excursion
+        set (the grids' deposits summed over ranks; J21 and zreion columns
+        of the rows) and the lensing planes (each rank's counts summed
+        over ranks, rank 0 writes); decoupled wind gas feels no hydro
+        force (the single-device rule).  Timestep statistics are summed
+        over ranks, so no step gathers rows.  Sync points write striped
+        snapshots (parallel/snapshot.py) and, with SnapshotWithFOF, the
+        distributed FOF's PIG (parallel/fof.py), after which BlackHoleOn
+        seeds a BH in each halo above the seeding thresholds that holds
+        none (parallel/fof.seed_convert).  Rank 0 writes sfr.txt from the
+        sums over ranks, a line for each step that formed stellar mass
+        (total_sm > 0, sfr_eff.c:356).  The host mirror (self.pdata,
         self.sph, self.stars, self.bh) is refreshed from every rank's rows
-        at the end.  No per-step power spectrum is written, nor
-        blackholes.txt or BH-Details (the JAX package's sharded run writes
-        none of them either).
+        at the end.  Neither blackholes.txt nor BH-Details is written (the
+        JAX package's sharded run writes neither).
 
         layer_sync=True synchronises the device at each layer boundary of
         the step, so that ``self.walltime`` splits the step's seconds by
@@ -1910,14 +1925,17 @@ class Simulation:
         ``self.sharded_rows`` this rank's rows by type at the end and
         ``self.sharded_formed`` the stars this rank formed;
         ``self.wind_kicks``, ``bh_swallowed``, ``bh_mergers`` and
-        ``bh_seeded`` count over all ranks.  Raises ValueError before the
-        first step for a switch this driver does not carry
+        ``bh_seeded`` count over all ranks, ``qso_bubbles`` and
+        ``uvbg_updates`` as in run().  Raises ValueError before the first
+        step for a combination this driver does not carry
         (check_sharded_supported)."""
         check_sharded_supported(self.cfg, self.has_gas)
         from .parallel import collectives as coll
         from .parallel.decomp import balanced_boundaries
-        from .parallel.driver import (MAXB, GasStep, Layers, assign_bins,
+        from .parallel.driver import (MAXB, GasStep, Layers, PMOptions,
+                                      assign_bins, measure_power_multi,
                                       pm_refresh, sharded_step)
+        from .pm.gravity import _finalize_power
         from .parallel.fof import SEED_NONE, seed_convert, sharded_fof
         from .parallel.mesh import (default_n_local, fetch_global,
                                     shard_particles)
@@ -1951,6 +1969,11 @@ class Simulation:
         # the BH reposition reads the potential column (bhdynfric.c:199)
         with_potential = bool(self.cfg.output_potential
                               or (with_bh and self.cfg.bh_reposition))
+        with_nu = bool(self.cfg.massive_nu_lin_resp_on)
+        # QSO lightup and the excursion set carry per-row columns (the
+        # HeIII flag; J21 and zreion) in the rows
+        with_qso = bool(with_gas and self.cfg.qso_lightup_on)
+        with_excursion = bool(with_gas and self.cfg.excursion_set_on)
         os.makedirs(self.cfg.output_dir, exist_ok=True)
         if with_gas and not self._gas_initialized:
             if self._gas_restore:
@@ -1995,6 +2018,11 @@ class Simulation:
             if self._cooling is None:
                 self._init_cooling()
             cols.update(ne=self.sph.ne, metallicity=self.sph.metallicity)
+        if with_qso:
+            cols["he_iii_ionized"] = self.sph.he_iii_ionized
+        if with_excursion:
+            cols.update(local_j21=self.sph.local_j21,
+                        zreion=self.sph.zreion)
         if with_sfr:
             if self._sfr is None:
                 self._init_sfr()
@@ -2045,10 +2073,21 @@ class Simulation:
         bounds = balanced_boundaries(np.bincount(
             x >> (32 - hist_bits), minlength=1 << hist_bits), S)
 
+        def nu_response(ipos, weights, atime):
+            """The neutrino table of a PM step from the CDM power of the
+            rows' deposit summed over ranks (the same on every rank)."""
+            nm = self.cfg.nmesh
+            return self._nu_table_step(_finalize_power(
+                *measure_power_multi(ipos, weights, nm, mesh, nm),
+                self.pm_cfg), atime)
+
+        # every PM step bins the power (the powerspectrum files)
         common = dict(nmesh=self.cfg.nmesh, boxsize=self.cfg.boxsize,
                       gconst=self.CP.GravInternal, asmth=self.cfg.asmth,
                       with_potential=with_potential, hist_bits=hist_bits,
-                      layers=lay)
+                      layers=lay, pm=PMOptions(
+                          nbins=self.cfg.nmesh,
+                          nu_response=nu_response if with_nu else None))
         f32 = np.float32
         gas = None
         if with_gas:
@@ -2186,6 +2225,10 @@ class Simulation:
                     names.update(ne="ne", metallicity="metallicity")
                 if with_sfr:
                     names.update(sfr="sfr", delay_time="delay_time")
+                if with_qso:
+                    names["he_iii_ionized"] = "he_iii_ionized"
+                if with_excursion:
+                    names.update(local_j21="local_j21", zreion="zreion")
                 self.sph = sph.replace(**{f: put(getattr(sph, f), k)
                                           for f, k in names.items()})
             if with_sfr:
@@ -2369,7 +2412,8 @@ class Simulation:
                 "eta_eps": 2 * par_ts.ErrTolIntAccuracy * a1s * soft_h,
                 "max_dloga": par_ts.MaxSizeTimestep,
                 "dloga_tick": float(self.timeline._interval_dloga(ti)),
-                "maxbin": maxbin}
+                "maxbin": maxbin,
+                "nu_tracer": self.CP.hybrid_nu_tracer(a1s)}
             if with_gas:
                 scal.update(
                     hk_open=hko, hk_close=hkc, dlg_open=dlo, dlg_close=dlc,
@@ -2440,6 +2484,189 @@ class Simulation:
                 metal_margin = ms["margin"]
             lay(None)
 
+        def apply_lightcone(ta, tb):
+            """The light cone after a global step or a substep
+            (lightcone_compute, lightcone.c:176-221 at scale): each rank
+            tests its own rows against each replica's shell and appends
+            the crossers to its own stripe (task = rank)."""
+            if not self.cfg.lightcone_on:
+                return
+            from .physics.lightcone import Lightcone
+            if self._lightcone is None:
+                self._lightcone = Lightcone(
+                    self.CP, self.time_ic,
+                    self.cfg.units.UnitVelocity_in_cm_per_s,
+                    self.cfg.output_dir, self.cfg.boxsize, task=mesh.rank)
+            lay("Lightcone")
+            self._lightcone.compute_sharded(
+                float(np.exp(loga(tb))), self.tf.drift(ta, tb), st["ipos"],
+                st["vel"], st["ptype"], st["pid"], self._ipos_offset)
+            lay(None)
+
+        step_cat = {}
+
+        def sharded_cat():
+            """The distributed catalogue of the rows as the step left them
+            (their owners per ``owned``), made once a PM step for QSO
+            lightup and the excursion set: (cat, sorted_labels,
+            labels)."""
+            if "cat" not in step_cat:
+                npart = int(coll.psum((st["ptype"] == 1).sum(), mesh))
+                params = FOFParams(
+                    linking_length=self.cfg.fof_linking_length,
+                    min_group_length=self.cfg.fof_min_group_length,
+                    primary_link_types=self.cfg.fof_primary_link_types,
+                    secondary_link_types=self.cfg.fof_secondary_link_types)
+                lay("FOF")
+                step_cat["cat"] = sharded_fof(
+                    mesh, st, owned, boxsize=self.cfg.boxsize,
+                    mean_sep=self.cfg.boxsize / max(1.0, np.cbrt(npart)),
+                    params=params)
+                lay(None)
+            return step_cat["cat"]
+
+        def apply_qso(t0, t1):
+            """Helium reionization on the rows (cooling_qso_lightup.c at
+            scale): the long-mean-free-path heating elementwise on each
+            rank's gas, then bubbles around the halos of the distributed
+            catalogue, placed alike on every rank (counts summed over
+            ranks); rank 0 appends to helium.txt."""
+            from .physics import qso_lightup as qmod
+            if self._heii_hist is None:     # (check_supported: a file)
+                self._heii_hist = qmod.load_heii_reion_hist(
+                    self.cfg.reion_hist_file)
+                self._qso_params = qmod.QSOParams(
+                    min_mass=self.cfg.qso_min_mass,
+                    max_mass=self.cfg.qso_max_mass,
+                    mean_bubble=self.cfg.qso_mean_bubble,
+                    var_bubble=self.cfg.qso_var_bubble,
+                    finish_frac=self.cfg.qso_finish_frac,
+                    heiii_start=self._heii_hist.zstart)
+            hist = self._heii_hist
+            par = self._qso_params.with_units(
+                self.cfg.units.UnitInternalEnergy_in_cgs)
+            a1 = float(np.exp(loga(t1)))
+            if 1.0 / a1 - 1.0 > par.heiii_start or a1 > hist.aend:
+                return
+            dloga = loga(t1) - loga(t0)
+            rate = qmod.lmfp_heating(hist, par, a1)
+            gas_rows = st["gas_mask"]
+            ionized = st["he_iii_ionized"] > 0
+            lay("HeIII")
+            if rate > 0 and dloga > 0:
+                dt_s = (dloga / self.CP.hubble_function(a1)
+                        * self.cfg.units.UnitTime_in_s / self.CP.HubbleParam)
+                st["entropy"] = qmod.lmfp_heat_entropy(
+                    st["entropy"], st["density"], gas_rows & ~ionized, rate,
+                    dt_s, a1, self.cfg.units, self.CP.HubbleParam)
+            cat = sharded_cat()[0]
+            lay("HeIII")
+            ion, ent, nbub = qmod.place_bubbles(
+                st["ipos"], gas_rows, ionized, st["density"], st["entropy"],
+                cat, hist, par, a1, self.cfg.boxsize, self.cfg.random_seed,
+                self.cfg.output_dir, write=mesh.rank == 0, mesh=mesh)
+            st["he_iii_ionized"] = ion.to(torch.uint8)
+            st["entropy"] = ent.to(torch.float32)
+            lay(None)
+            self.qso_bubbles.append((a1, nbub))
+
+        def apply_excursion(t1):
+            """The excursion-set UVBG update at the UVBGTimestep cadence
+            (calculate_uvbg, uvbg.c:506-594 at scale): halo masses from
+            the distributed catalogue, each rank's CIC deposits summed
+            over ranks, the ladder on every rank, the J21 readout on each
+            rank's rows."""
+            from .parallel.fof import group_index
+            from .physics import uvbg as uvmod
+            cfg = self.cfg
+            a1 = float(np.exp(loga(t1)))
+            z = 1.0 / a1 - 1.0
+            if not (cfg.excursion_set_zstop <= z <= cfg.excursion_set_zstart):
+                return
+            p = self._excursion_params()
+            t_myr = float(self._age_table(a1))
+            if t_myr - self._uvbg_last_myr < cfg.uvbg_timestep_myr:
+                return
+            self._uvbg_last_myr = t_myr
+            cat, sorted_labels, labels = sharded_cat()
+            lay("UVBG")
+            gi = group_index(labels, sorted_labels)
+            masses = torch.as_tensor(np.asarray(cat["masses"], np.float32),
+                                     device=mesh.device)
+            halo_mass = torch.where(gi >= 0, masses[torch.clamp(gi, min=0)],
+                                    0.0) if masses.numel() else \
+                torch.zeros_like(st["mass"])
+            fesc = uvmod.escape_fractions(
+                halo_mass, p.escape_frac_norm, p.escape_frac_scaling,
+                cfg.units.UnitMass_in_g, self.CP.HubbleParam)
+            gas_rows = st["gas_mask"]
+            sfr = st["sfr"] if "sfr" in st else torch.zeros_like(st["mass"])
+            out = uvmod.calculate_uvbg(
+                st["ipos"], st["mass"], torch.ones_like(gas_rows), gas_rows,
+                st["ptype"] == 4, sfr, fesc, p, self.CP, cfg.units,
+                cfg.boxsize, a1, mesh=mesh)
+            j21_p = uvmod.readout_j21_max(out["j21"], st["ipos"])
+            newly = gas_rows & (j21_p > st["local_j21"]) \
+                & (st["zreion"] < 0)
+            st["local_j21"] = torch.where(
+                gas_rows, torch.maximum(st["local_j21"], j21_p),
+                st["local_j21"])
+            st["zreion"] = torch.where(newly, float(np.float32(z)),
+                                       st["zreion"])
+            lay(None)
+            vol = out["volume_weighted_global_xHI"]
+            mxhi = out["mass_weighted_global_xHI"]
+            self.uvbg_updates.append((z, vol, mxhi))
+            if verbose and mesh.rank == 0:
+                message(f"[UVBG] z={z:.2f} vol xHI={vol:.4f} mass "
+                        f"xHI={mxhi:.4f}")
+
+        def maybe_planes():
+            """Lensing potential planes of the rows (write_plane,
+            plane.c:572 at scale): each rank projects its own rows, the
+            counts are summed over ranks, rank 0 solves and writes."""
+            from .physics.plane import write_planes
+            self._ensure_plane_params()
+            atime = self.atime
+            for i, t in enumerate(self._plane_times):
+                if i in self._planes_done or t > atime + 1e-9:
+                    continue
+                lay("Planes")
+                off = torch.as_tensor(self._ipos_offset.astype(np.int64),
+                                      device=mesh.device)
+                n_tot = int(coll.psum(torch.tensor(
+                    st["ipos"].shape[0], device=mesh.device), mesh))
+                write_planes(self, i, self._plane_params,
+                             ipos=(st["ipos"] - off[None, :]) & 0xFFFFFFFF,
+                             weights=torch.ones_like(st["mass"]),
+                             n_tot=n_tot, write=mesh.rank == 0, mesh=mesh)
+                lay(None)
+                self._planes_done.add(i)
+
+        def aux_passes(t0, t1):
+            """After the subgrid passes, in the JAX package's order: QSO
+            lightup, the excursion set, the planes."""
+            step_cat.clear()
+            if with_qso:
+                apply_qso(t0, t1)
+            if with_excursion:
+                apply_excursion(t1)
+            if self.cfg.plane_output_list:
+                maybe_planes()
+            step_cat.clear()
+
+        def write_power(pk):
+            """The PM step's total-matter P(k), summed over ranks: rank 0
+            writes the powerspectrum file, as the single-device loop does
+            after each step."""
+            ps = _finalize_power(*pk, self.pm_cfg)
+            if with_nu:
+                self._total_matter_power(ps, self.atime)
+            self.last_power = ps
+            if mesh.rank == 0:
+                ps.save(self.cfg.output_dir, self.atime,
+                        self.CP.GrowthFactor(self.atime, 1.0))
+
         def log_step(t_start, n_sub, n_closing, c0):
             self.sharded_log.append(dict(
                 a=self.atime, substeps=n_sub, n_closing=n_closing,
@@ -2479,7 +2706,8 @@ class Simulation:
                 scal = {"dk1": self.tf.gravkick(t0, mid),
                         "ddrift": self.tf.drift(t0, t1),
                         "dk2": self.tf.gravkick(mid, t1), "atime": a1,
-                        "hubble": float(self.CP.hubble_function(a1))}
+                        "hubble": float(self.CP.hubble_function(a1)),
+                        "nu_tracer": self.CP.hybrid_nu_tracer(a1)}
                 if with_gas:
                     scal.update(hk1=self.tf.hydrokick(t0, mid),
                                 dloga1=loga(mid) - loga(t0),
@@ -2489,9 +2717,11 @@ class Simulation:
                 owned = bounds
                 st, stats = step(st, source_scalars(scal, t0, a1))
                 self.ti_current = t1
+                apply_lightcone(t0, t1)
                 self.force_evals += stats["n_valid"]
                 n_sub, n_closing = 1, [stats["n_valid"]]
                 hist = stats["hist"]
+                pk = stats["pk"]
                 write_sfr_line(stats)
             else:
                 # opening PM half kick with the carried long-range field
@@ -2528,6 +2758,7 @@ class Simulation:
                                                      a1s, pop))
                     ti += dti_s
                     self.ti_current = ti
+                    apply_lightcone(ti - dti_s, ti)
                     n_sub += 1
                     n_closing.append(sstats["n_closing"])
                     self.force_evals += sstats["n_closing"]
@@ -2537,14 +2768,20 @@ class Simulation:
                     minb = sstats["min_act_bin"]
                     pop = sstats["bin_hist"]
                 # PM refresh and closing half kick at t1
+                a1 = float(np.exp(loga(t1)))
                 upd, pm_stats = pm_refresh(
-                    st, mesh, {"fac": self.tf.gravkick(mid, t1)}, **common)
+                    st, mesh, {"fac": self.tf.gravkick(mid, t1), "atime": a1,
+                               "nu_tracer": self.CP.hybrid_nu_tracer(a1)},
+                    **common)
                 st.update(upd)
                 hist = pm_stats["hist"]
+                pk = pm_stats["pk"]
             nsteps += 1
             subgrid_passes(t0, t1)
+            aux_passes(t0, t1)
             log_step(step_t0, n_sub, n_closing, c0)
             sync_outputs()
+            write_power(pk)
             # the next step's boundaries: the passes and the outputs above
             # read the rows where this step's exchange put them (owned)
             bounds = balanced_boundaries(hist.cpu().numpy(), S)
@@ -2559,12 +2796,22 @@ class Simulation:
         mirror_to_host()
         return nsteps
 
-    def _sharded_uvbg(self, uv, ipos, redshift):
+    def _sharded_uvbg(self, uv, st, redshift):
         """The UV background of a rank's rows: the step's global rates,
-        gated row by row by the UV fluctuation table when there is one."""
-        from .physics.cooling import local_uvbg
+        gated row by row by the UV fluctuation table when there is one,
+        and during the excursion set's epoch the rates of each row's J21
+        (the JAX package's excursion_uv; redshift the step's, in
+        float32)."""
+        from .physics.cooling import UVBG, local_uvbg
+        from .physics.uvbg import j21_to_rates
         if self._uvf is not None:
-            return local_uvbg(uv, self._uvf.zreion(ipos), redshift)
+            uv = local_uvbg(uv, self._uvf.zreion(st["ipos"]), redshift)
+        if "local_j21" in st and (self.cfg.excursion_set_zstop <= redshift
+                                  <= self.cfg.excursion_set_zstart):
+            g, e = j21_to_rates(st["local_j21"], self.cfg.alpha_uv)
+            uv = UVBG(gJH0=g[0], gJHe0=g[1], gJHep=g[2], epsH0=e[0],
+                      epsHe0=e[1], epsHep=e[2],
+                      self_shield_dens=uv.self_shield_dens)
         return uv
 
     def _sharded_sfr_fn(self):
@@ -2577,7 +2824,7 @@ class Simulation:
 
         def sfr_fn(st, gas, dloga, scal):
             z = scal["redshift"]
-            uv = self._sharded_uvbg(scal["uvbg"], st["ipos"], z)
+            uv = self._sharded_uvbg(scal["uvbg"], st, z)
 
             def cool_fn(u, rho_phys, dt, ne, rows, metallicity):
                 return do_cooling(self._cooling, z, u, rho_phys, dt, uv, ne,
@@ -2626,7 +2873,7 @@ class Simulation:
 
         def cooling_fn(st, gas, dloga, scal):
             z = scal["redshift"]
-            uv = self._sharded_uvbg(scal["uvbg"], st["ipos"], z)
+            uv = self._sharded_uvbg(scal["uvbg"], st, z)
             a = np.float32(scal["atime"])
             rho_phys = torch.clamp(st["density"], min=1e-30) / float(
                 a * a * a)
@@ -2652,27 +2899,7 @@ class Simulation:
         cfg = self.cfg
         if not (cfg.excursion_set_zstop <= z <= cfg.excursion_set_zstart):
             return
-        if self._uvbg_params is None:
-            self._uvbg_params = uvmod.UVBGParams(
-                uvbg_dim=cfg.uvbg_dim, r_bubble_max=cfg.reion_r_bubble_max,
-                r_bubble_min=cfg.reion_r_bubble_min,
-                delta_r_factor=cfg.reion_delta_r_factor,
-                filter_type=cfg.reion_filter_type,
-                rtom_filter_type=cfg.rtom_filter_type,
-                nion_phot_per_bary=cfg.reion_nion_phot_per_bary,
-                alpha_uv=cfg.alpha_uv,
-                escape_frac_norm=cfg.escape_fraction_norm,
-                escape_frac_scaling=cfg.escape_fraction_scaling,
-                zstart=cfg.excursion_set_zstart,
-                zstop=cfg.excursion_set_zstop,
-                timestep_myr=cfg.uvbg_timestep_myr,
-                use_particle_sfr=cfg.reion_use_particle_sfr,
-                sfr_timescale=cfg.reion_sfr_timescale)
-            if self._age_table is None:
-                from .physics.metal_return import AgeTable
-                self._age_table = AgeTable(
-                    self.CP.hubble_function, cfg.units, self.CP.HubbleParam,
-                    device=self.device)
+        p = self._excursion_params()
         t_myr = float(self._age_table(atime))
         if t_myr - self._uvbg_last_myr < cfg.uvbg_timestep_myr:
             return
@@ -2684,7 +2911,6 @@ class Simulation:
         halo_mass = np.zeros(self.pdata.capacity, np.float32)
         ok = gi >= 0
         halo_mass[ok] = np.asarray(cat["masses"])[gi[ok]]
-        p = self._uvbg_params
         fesc = uvmod.escape_fractions(
             torch.as_tensor(halo_mass, device=self.device),
             p.escape_frac_norm, p.escape_frac_scaling,
@@ -2707,6 +2933,34 @@ class Simulation:
         mass = out["mass_weighted_global_xHI"]
         self.uvbg_updates.append((z, vol, mass))
         print(f"[UVBG] z={z:.2f} vol xHI={vol:.4f} mass xHI={mass:.4f}")
+
+    def _excursion_params(self):
+        """The excursion set's UVBGParams and the age table of its
+        cadence, made at its first update."""
+        from .physics import uvbg as uvmod
+        cfg = self.cfg
+        if self._uvbg_params is None:
+            self._uvbg_params = uvmod.UVBGParams(
+                uvbg_dim=cfg.uvbg_dim, r_bubble_max=cfg.reion_r_bubble_max,
+                r_bubble_min=cfg.reion_r_bubble_min,
+                delta_r_factor=cfg.reion_delta_r_factor,
+                filter_type=cfg.reion_filter_type,
+                rtom_filter_type=cfg.rtom_filter_type,
+                nion_phot_per_bary=cfg.reion_nion_phot_per_bary,
+                alpha_uv=cfg.alpha_uv,
+                escape_frac_norm=cfg.escape_fraction_norm,
+                escape_frac_scaling=cfg.escape_fraction_scaling,
+                zstart=cfg.excursion_set_zstart,
+                zstop=cfg.excursion_set_zstop,
+                timestep_myr=cfg.uvbg_timestep_myr,
+                use_particle_sfr=cfg.reion_use_particle_sfr,
+                sfr_timescale=cfg.reion_sfr_timescale)
+        if self._age_table is None:
+            from .physics.metal_return import AgeTable
+            self._age_table = AgeTable(
+                self.CP.hubble_function, cfg.units, self.CP.HubbleParam,
+                device=self.device)
+        return self._uvbg_params
 
     def _run_qso_lightup(self, dloga=0.0):
         """Helium reionization for one PM step of dloga: the long-mean-free-

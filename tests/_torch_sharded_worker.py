@@ -6,7 +6,11 @@ starts in a few seconds.
 
 ``spawn(target, size, *args)`` starts ``size`` ranks of ``target(rank,
 size, *args)`` with torch.multiprocessing and waits for them; a rank that
-fails fails the call and ends the others.
+fails fails the call and ends the others.  The ranks have a deadline
+(SPAWN_DEADLINE seconds, or ``deadline=``): past it they are killed and
+the call raises, so that a rank stuck in a collective fails its test and
+no more.  A rendezvous that fails (the free port taken between its choice
+and rank 0's bind) is retried on another port.
 """
 
 import copy
@@ -93,23 +97,64 @@ def _free_port():
     return port
 
 
+SPAWN_DEADLINE = 300.0    # seconds for one spawn's ranks
+RENDEZVOUS_EXIT = 75      # a rank's exit code when it could not join
+RENDEZVOUS_TRIES = 3
+PG_TIMEOUT = 240.0        # the gloo group's timeout for a collective
+
+
 def _entry(rank, size, port, target, args):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(size),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(port))
+                      MASTER_PORT=str(port),
+                      MPG_DIST_TIMEOUT=str(PG_TIMEOUT))
     from mpgadget_tpu_torch.main import init_distributed
     from mpgadget_tpu_torch.parallel import collectives as coll
-    init_distributed("cpu")
+    try:
+        init_distributed("cpu")
+    except Exception as e:      # the rendezvous: retried by spawn
+        print(f"rank {rank}: rendezvous on port {port} failed: {e}",
+              file=sys.stderr)
+        sys.exit(RENDEZVOUS_EXIT)
     try:
         target(rank, size, *args)
     finally:
         coll.destroy_process_group()
 
 
-def spawn(target, size, *args):
-    mp.start_processes(_entry, args=(size, _free_port(), target, args),
-                       nprocs=size, start_method="spawn")
+def _kill(ctx):
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def spawn(target, size, *args, deadline=SPAWN_DEADLINE):
+    """Run target(rank, size, *args) on ``size`` gloo ranks; raises if a
+    rank fails or the ranks pass ``deadline`` seconds (then killed)."""
+    import time
+    from torch.multiprocessing import ProcessExitedException
+    t_end = time.monotonic() + deadline
+    for attempt in range(RENDEZVOUS_TRIES):
+        ctx = mp.start_processes(_entry, args=(size, _free_port(), target,
+                                               args),
+                                 nprocs=size, start_method="spawn",
+                                 join=False)
+        try:
+            while not ctx.join(timeout=max(0.1, min(
+                    5.0, t_end - time.monotonic()))):
+                if time.monotonic() > t_end:
+                    _kill(ctx)
+                    raise TimeoutError(
+                        f"{target.__name__} on {size} ranks passed its "
+                        f"deadline of {deadline:.0f} s; ranks killed")
+            return
+        except ProcessExitedException as e:
+            _kill(ctx)
+            if e.exit_code != RENDEZVOUS_EXIT \
+                    or attempt == RENDEZVOUS_TRIES - 1:
+                raise
 
 
 def _mesh():
@@ -178,8 +223,8 @@ def module_cases(rank, size, outdir):
     out["sort_pid"] = arr["pid"].numpy()
 
     # the multi-hop PM force of the balanced rows
-    acc, _ = pm_force_multi(st["ipos"], st["mass"], NMESH_PM, BOX, G, ASMTH,
-                            mesh)
+    acc, _, _ = pm_force_multi(st["ipos"], st["mass"], NMESH_PM, BOX, G,
+                               ASMTH, mesh)
     out["pm_acc"] = acc.numpy()
     out["pm_pid"] = st["pid"].numpy()
 
@@ -1036,3 +1081,555 @@ def star_run_cases(rank, size, outdir, modes):
                                             for e in sim.sharded_log]))
             res["decoupled_checks"] = np.asarray(checks, np.float64)
             np.savez(os.path.join(outdir, f"star_{mode}.npz"), **res)
+
+
+# ---- the sharded options (QSO lightup, excursion set, planes, light cone,
+# hybrid and massive neutrinos) --------------------------------------------
+
+def _pkg(pkg, name):
+    import importlib
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def _dev_kw(pkg):
+    return {"device": "cpu"} if pkg.endswith("_torch") else {}
+
+
+def option_units(pkg):
+    U = _pkg(pkg, "utils")
+    return U.get_unitsystem(U.constants.CM_PER_KPC, 1.989e43, 1e5)
+
+
+def _simulation(pkg, pos, vel, mass, ptype, box, cp, cfg_kw, time_ic):
+    """Either package's Simulation of the given rows (IDs from 1)."""
+    run = _pkg(pkg, "run")
+    pd = _pkg(pkg, "particles").ParticleData.from_numpy(
+        pos, vel, mass, ptype, np.arange(len(pos)) + 1, box, **_dev_kw(pkg))
+    return run.Simulation(cp, pd, run.SimConfig(boxsize=box, **cfg_kw),
+                          time_ic=time_ic)
+
+
+# tests/test_parallel.py's run_sharded light cone case: 10^3 DM in a 1
+# Gpc/h box at z ~ 1.2, the horizon sweeping through the replicas
+LC_BOX = 1.0e6
+
+
+def lightcone_sim(pkg, outdir, hierarchical=False):
+    rng = np.random.RandomState(5)
+    ng = 10
+    n = ng ** 3
+    grid = (np.stack(np.meshgrid(*[np.arange(ng)] * 3),
+                     axis=-1).reshape(-1, 3) + 0.5) / ng * LC_BOX
+    pos = np.mod(grid + rng.uniform(-0.02, 0.02, (n, 3)) * LC_BOX, LC_BOX)
+    vel = rng.randn(n, 3).astype(np.float64) * 100.0
+    units = option_units(pkg)
+    cp = _pkg(pkg, "cosmology").Cosmology(
+        Omega0=0.3, OmegaLambda=0.7, HubbleParam=0.7, OmegaBaryon=0.05,
+        TimeBegin=0.45).init_units(units)
+    TL, TS = _pkg(pkg, "timeline"), _pkg(pkg, "timestep")
+    kw = dict(nmesh=16, output_dir=str(outdir),
+              timeline=TL.Timeline([0.48], TimeIC=0.45, TimeMax=0.48),
+              units=units, hydro_on=False, tree_grav_on=True,
+              random_particle_offset=0.0, lightcone_on=True,
+              split_gravity_timesteps=hierarchical,
+              timestep=TS.TimestepParams(MaxSizeTimestep=0.02))
+    return _simulation(pkg, pos, vel, np.full(n, 10.0), np.ones(n, np.int32),
+                       LC_BOX, cp, kw, 0.45)
+
+
+def lightcone_rows(outdir):
+    """Every stripe's rows (x, y, z, SampleFraction), stripe by stripe."""
+    rows = [np.fromfile(f, np.float64).reshape(-1, 4) for f in sorted(
+        Path(outdir).glob("lightcone/*/*.raw"))]
+    return np.concatenate(rows) if rows else np.zeros((0, 4))
+
+
+# tests/test_parallel.py's test_run_sharded_aux_physics case: one massive
+# DM halo straddling a slab boundary, gas inside its future QSO bubble and
+# background gas pushed out of it, stars in the halo; QSO lightup, the
+# excursion set and lensing planes on one step from a = 0.1
+AUX_BOX = 8000.0
+AUX_R_BUB = 600.0
+AUX_HALO = np.array([AUX_BOX / 2, AUX_BOX / 3, AUX_BOX / 3])
+
+
+def write_heii_hist(path):
+    """The case's HeII table, spanning the run's z ~ 9 epoch."""
+    with open(path, "w") as fh:
+        fh.write("1.7\n150.0\n")
+        for z, x, lm in [(12.0, 0.0, 0.0), (10.0, 0.02, 1e-33),
+                         (8.0, 0.6, 2e-33), (6.0, 0.999, 1e-33)]:
+            fh.write(f"{z} {x} {lm}\n")
+
+
+def aux_rows():
+    rng = np.random.RandomState(11)
+    box = AUX_BOX
+    ng = 8
+    n_bg = ng ** 3
+    grid = (np.stack(np.meshgrid(*[np.arange(ng)] * 3),
+                     axis=-1).reshape(-1, 3) + 0.5) / ng * box
+    n_halo, n_in = 64, 48
+    pos = np.concatenate([
+        grid + rng.uniform(-40, 40, (n_bg, 3)),
+        AUX_HALO + rng.randn(n_halo, 3) * 60.0,
+        AUX_HALO + rng.randn(n_in, 3) * 0.3 * AUX_R_BUB / 3,
+        grid + box / ng / 2 + rng.uniform(-40, 40, (n_bg, 3)),
+        AUX_HALO + rng.randn(16, 3) * 50.0]) % box
+    lo = n_bg + n_halo + n_in
+    d_bg = pos[lo:lo + n_bg] - AUX_HALO
+    d_bg -= np.round(d_bg / box) * box
+    rr = np.sqrt((d_bg ** 2).sum(1))
+    close = rr < 2.0 * AUX_R_BUB
+    shift = np.where(close[:, None], 2.5 * AUX_R_BUB
+                     * d_bg / np.maximum(rr, 1.0)[:, None], 0.0)
+    pos[lo:lo + n_bg] = (pos[lo:lo + n_bg] + shift) % box
+    ptype = np.concatenate([
+        np.ones(n_bg + n_halo, np.int32), np.zeros(n_in, np.int32),
+        np.zeros(n_bg, np.int32), np.full(16, 4, np.int32)])
+    mass = np.where(ptype == 1, 50.0, np.where(ptype == 4, 10.0, 1.0))
+    return pos, ptype, mass
+
+
+def aux_sim(pkg, outdir, hist_path):
+    pos, ptype, mass = aux_rows()
+    n = len(pos)
+    units = option_units(pkg)
+    cp = _pkg(pkg, "cosmology").Cosmology(
+        Omega0=0.3, OmegaLambda=0.7, HubbleParam=0.7, OmegaBaryon=0.05,
+        TimeBegin=0.1).init_units(units)
+    kw = dict(nmesh=16, output_dir=str(outdir),
+              timeline=_pkg(pkg, "timeline").Timeline(
+                  [0.102], TimeIC=0.1, TimeMax=0.102),
+              units=units, hydro_on=True, tree_grav_on=True,
+              cooling_on=True, random_particle_offset=0.0,
+              qso_lightup_on=True, reion_hist_file=str(hist_path),
+              qso_min_mass=1000.0, qso_max_mass=1e8,
+              qso_mean_bubble=AUX_R_BUB, qso_var_bubble=0.0,
+              excursion_set_on=True, excursion_set_zstart=12.0,
+              excursion_set_zstop=5.0, uvbg_dim=32,
+              reion_use_particle_sfr=False,
+              reion_nion_phot_per_bary=10.0, reion_r_bubble_max=3000.0,
+              plane_output_list="0.1", plane_resolution=64,
+              fof_min_group_length=32)
+    return _simulation(pkg, pos, np.zeros((n, 3)), mass, ptype, AUX_BOX, cp,
+                       kw, 0.1)
+
+
+# a small hybrid-neutrino run: 8^3 DM on a jittered lattice and 8^3 fast
+# type-2 tracers, 64 Mpc/h, from a = 0.1 to 0.11 with NuPartTime 0.105, so
+# that the tracers first neither source gravity nor feel the PM force and
+# then do both
+HYB_BOX = 64000.0
+HYB_PART_TIME = 0.105
+
+
+def hybrid_sim(pkg, outdir, hierarchical):
+    rng = np.random.RandomState(23)
+    ng = 8
+    n = ng ** 3
+    grid = (np.stack(np.meshgrid(*[np.arange(ng)] * 3),
+                     axis=-1).reshape(-1, 3) + 0.5) / ng * HYB_BOX
+    pos = np.concatenate([grid + rng.normal(0, 600.0, (n, 3)),
+                          rng.uniform(0, HYB_BOX, (n, 3))]) % HYB_BOX
+    vel = np.concatenate([rng.normal(0, 30.0, (n, 3)),
+                          rng.normal(0, 600.0, (n, 3))])
+    ptype = np.concatenate([np.ones(n, np.int32), np.full(n, 2, np.int32)])
+    mass = np.where(ptype == 1, 30.0, 1.0)
+    units = option_units(pkg)
+    cp = _pkg(pkg, "cosmology").Cosmology(
+        Omega0=0.3, OmegaLambda=0.7, HubbleParam=0.7, OmegaBaryon=0.05,
+        MNu=(0.2, 0.2, 0.2), HybridNeutrinosOn=True,
+        HybridNuPartTime=HYB_PART_TIME, TimeBegin=0.1).init_units(units)
+    kw = dict(nmesh=16, output_dir=str(outdir),
+              timeline=_pkg(pkg, "timeline").Timeline(
+                  [0.11], TimeIC=0.1, TimeMax=0.11),
+              units=units, hydro_on=False, tree_grav_on=True,
+              random_particle_offset=0.0, hybrid_neutrinos_on=True,
+              hybrid_nu_part_time=HYB_PART_TIME,
+              split_gravity_timesteps=hierarchical,
+              timestep=_pkg(pkg, "timestep").TimestepParams(
+                  MaxSizeTimestep=0.01))
+    return _simulation(pkg, pos, vel, mass, ptype, HYB_BOX, cp, kw, 0.1)
+
+
+def nu_table():
+    """A neutrino linear-response table (logk, fac), float32: 1 + 5% of a
+    smooth bump over the box's modes."""
+    logk = np.linspace(np.log(2 * np.pi / BOX * 0.5),
+                       np.log(2 * np.pi / BOX * NMESH_PM), 24)
+    fac = 1.0 + 0.05 * np.sin(np.linspace(0.0, 3.0, 24))
+    return logk.astype(np.float32), fac.astype(np.float32)
+
+
+LC_TIMES = (0.452, 0.46)   # the module case's shell: set_time at each
+
+
+def lightcone_module_inputs():
+    """lightcone_sim's rows with ids, in box units of LC_BOX."""
+    rng = np.random.RandomState(5)
+    ng = 10
+    n = ng ** 3
+    grid = (np.stack(np.meshgrid(*[np.arange(ng)] * 3),
+                     axis=-1).reshape(-1, 3) + 0.5) / ng
+    x = np.mod(grid + rng.uniform(-0.02, 0.02, (n, 3)), 1.0)
+    return dict(ipos=(x * 2.0 ** 32).astype(np.uint32),
+                vel=(rng.randn(n, 3) * 100.0).astype(np.float32),
+                pid=np.arange(1, n + 1),
+                ptype=np.where(np.arange(n) % 7 == 3, 2, 1).astype(np.int32))
+
+
+def lightcone_shell(pkg, outdir):
+    """(Lightcone after LC_TIMES, its replicas, ddrift) of either
+    package (the distance tables are the same numpy code)."""
+    units = option_units(pkg)
+    cp = _pkg(pkg, "cosmology").Cosmology(
+        Omega0=0.3, OmegaLambda=0.7, HubbleParam=0.7, OmegaBaryon=0.05,
+        TimeBegin=0.45).init_units(units)
+    lc = _pkg(pkg, "physics.lightcone").Lightcone(
+        cp, 0.45, units.UnitVelocity_in_cm_per_s, str(outdir), LC_BOX)
+    for a in LC_TIMES:
+        lc.set_time(a)
+    return lc, lc.replicas(), 0.05
+
+
+PLANE_ATIME = 0.4
+PLANE_BOX = 200000.0
+
+
+def plane_sim(pkg, ipos, outdir, mesh_rows=None):
+    """A stand-in of the Simulation that write_planes reads: box, units,
+    cosmology, a, output directory, and for the host path the rows."""
+    from types import SimpleNamespace
+    units = option_units(pkg)
+    cp = _pkg(pkg, "cosmology").Cosmology(
+        Omega0=0.3, OmegaLambda=0.7, HubbleParam=0.7, OmegaBaryon=0.05,
+        TimeBegin=0.1).init_units(units)
+    n = len(ipos)
+    if pkg.endswith("_torch"):
+        ip = torch.as_tensor(np.asarray(ipos).astype(np.int64))
+        pdata = SimpleNamespace(valid=torch.ones(n, dtype=torch.bool),
+                                num_valid=n, ipos=ip)
+    else:
+        import jax.numpy as jnp
+        pdata = SimpleNamespace(valid=jnp.ones(n, bool), num_valid=n,
+                                ipos=jnp.asarray(ipos))
+    sim = SimpleNamespace(
+        cfg=SimpleNamespace(boxsize=PLANE_BOX, units=units,
+                            output_dir=str(outdir)),
+        CP=cp, atime=PLANE_ATIME, pdata=pdata,
+        _ipos_offset=np.zeros(3, np.uint32))
+    sim._unshifted_ipos = lambda: pdata.ipos
+    return sim
+
+
+def plane_params(pkg):
+    return _pkg(pkg, "physics.plane").PlaneParams(
+        output_times=[PLANE_ATIME], resolution=64,
+        thickness=PLANE_BOX / 4, normals=[0, 1, 2])
+
+
+QSO_CAT = {"masses": np.array([5000.0, 50.0, 3000.0, 2.0e4, 1500.0]),
+           "cm": np.array([AUX_HALO, [100.0, 7900.0, 4000.0],
+                           [6000.0, 1000.0, 7000.0],
+                           [2000.0, 5000.0, 600.0],
+                           [7800.0, 7800.0, 7800.0]])}
+QSO_ATIME = 0.1
+QSO_PARAMS = dict(min_mass=1000.0, max_mass=1e8, mean_bubble=AUX_R_BUB,
+                  var_bubble=200.0 ** 2, finish_frac=0.995)
+
+
+def qso_inputs():
+    """aux_rows with a density and entropy per row (float32), in ID
+    order."""
+    pos, ptype, mass = aux_rows()
+    rng = np.random.RandomState(12)
+    n = len(pos)
+    return dict(ipos=(pos / AUX_BOX * 2.0 ** 32).astype(np.uint32),
+                gas=ptype == 0, ionized=np.zeros(n, bool),
+                density=(1e-8 * (1 + rng.rand(n))).astype(np.float32),
+                entropy=(1e3 * (1 + rng.rand(n))).astype(np.float32),
+                mass=mass.astype(np.float32), ptype=ptype,
+                pid=np.arange(1, n + 1))
+
+
+def uvbg_case(pkg):
+    """(UVBGParams, Cosmology, units, per-row fesc and sfr) of the module
+    case: aux_sim's excursion set, the halo rows' escape fraction from
+    a halo mass of 5000."""
+    U = _pkg(pkg, "physics.uvbg")
+    units = option_units(pkg)
+    cp = _pkg(pkg, "cosmology").Cosmology(
+        Omega0=0.3, OmegaLambda=0.7, HubbleParam=0.7, OmegaBaryon=0.05,
+        TimeBegin=0.1).init_units(units)
+    par = U.UVBGParams(uvbg_dim=32, r_bubble_max=3000.0, r_bubble_min=406.8,
+                       delta_r_factor=1.1, nion_phot_per_bary=10.0,
+                       alpha_uv=3.0, escape_frac_norm=0.2,
+                       escape_frac_scaling=0.5, zstart=12.0, zstop=5.0,
+                       use_particle_sfr=True)
+    d = qso_inputs()
+    x = d["ipos"].astype(np.float64) / 2.0 ** 32 * AUX_BOX - AUX_HALO
+    x -= np.round(x / AUX_BOX) * AUX_BOX
+    near = np.sqrt((x ** 2).sum(1)) < 300.0
+    halo_mass = np.where(near, 5000.0, 0.0).astype(np.float32)
+    sfr = np.where(d["gas"] & near, 1e-2, 0.0).astype(np.float32)
+    return par, cp, units, halo_mass, sfr
+
+
+def option_module_cases(rank, size, outdir):
+    """The sharded options' modules of tests/test_torch_sharded_options.py
+    on this rank; writes outdir/opt_r<rank>.npz: the PM with the neutrino
+    table and the power bins, the sharded measure_power, the light cone's
+    crossers per replica, the planes (rank 0 also writes the host path's),
+    the QSO bubbles and the excursion set's grids and readout."""
+    from mpgadget_tpu_torch.parallel import decomp
+    from mpgadget_tpu_torch.parallel.driver import (measure_power_multi,
+                                                    pm_force_multi)
+    from mpgadget_tpu_torch.parallel.mesh import shard_particles
+    from mpgadget_tpu_torch.physics import qso_lightup as qmod
+    from mpgadget_tpu_torch.physics import uvbg as umod
+    from mpgadget_tpu_torch.physics.lightcone import rank_crossers
+    from mpgadget_tpu_torch.physics.plane import write_planes
+    mesh = _mesh()
+    S = size
+    out = {}
+
+    def rows(d, keys):
+        n = len(d["pid"])
+        return shard_particles(_cols(d, keys), np.ones(n, bool), mesh,
+                               n // S)
+
+    # ---- PM with the neutrino table and the power bins (balanced rows) ----
+    d = module_inputs()
+    st0 = shard_particles(_cols(d, ("ipos", "pid", "mass")),
+                          np.ones(N, bool), mesh, n_local_of(S))
+    hist = decomp.count_histogram(st0["ipos"], mesh).numpy()
+    bounds = decomp.balanced_boundaries(hist, S)
+    st, _ = decomp.exchange_to_slabs(dict(st0), st0["ipos"], mesh, bounds)
+    logk, fac = (torch.as_tensor(a) for a in nu_table())
+    acc, _, pk = pm_force_multi(st["ipos"], st["mass"], NMESH_PM, BOX, G,
+                                ASMTH, mesh, nu_logk=logk, nu_fac=fac,
+                                nbins=NMESH_PM)
+    out["pm_pid"] = st["pid"].numpy()
+    out["pm_acc"] = acc.numpy()
+    for k, v in zip(("p", "n", "k", "norm"), pk):
+        out[f"pm_pk_{k}"] = np.asarray(v)
+    for k, v in zip(("p", "n", "k", "norm"), measure_power_multi(
+            st["ipos"], st["mass"], NMESH_PM, mesh, NMESH_PM)):
+        out[f"mp_{k}"] = np.asarray(v)
+
+    # ---- the light cone's crossers of this rank's rows, per replica ----
+    d = lightcone_module_inputs()
+    st = rows(d, d.keys())
+    lc, reps, ddrift = lightcone_shell("mpgadget_tpu_torch",
+                                       os.path.join(outdir, f"lc{rank}"))
+    out["lc_nrep"] = np.int64(len(reps))
+    for i, rep in enumerate(reps):
+        out[f"lc_rows_{i}"] = rank_crossers(
+            st["ipos"], st["vel"], st["ptype"], st["pid"], (0, 0, 0),
+            LC_BOX, rep, ddrift, lc.hd_prev2, lc.hd2, lc.hd_prev, lc.hd,
+            lc.sample_fraction)
+
+    # ---- planes: this rank's rows (module_inputs), counts summed ----
+    d = module_inputs()
+    st = rows(d, ("ipos", "pid"))
+    pdir = os.path.join(outdir, "planes")
+    if rank == 0:
+        os.makedirs(pdir + "/host", exist_ok=True)
+        os.makedirs(pdir + "/sharded", exist_ok=True)
+        # the host path, every row on this rank alone
+        write_planes(plane_sim("mpgadget_tpu_torch", d["ipos"],
+                               pdir + "/host"), 0,
+                     plane_params("mpgadget_tpu_torch"))
+    from mpgadget_tpu_torch.parallel import collectives as coll
+    coll.barrier(mesh)
+    write_planes(plane_sim("mpgadget_tpu_torch", d["ipos"],
+                           pdir + "/sharded"), 0,
+                 plane_params("mpgadget_tpu_torch"), ipos=st["ipos"],
+                 weights=torch.ones(st["ipos"].shape[0]), n_tot=N,
+                 write=rank == 0, mesh=mesh)
+
+    # ---- QSO bubbles over ranks ----
+    d = qso_inputs()
+    st = rows(d, d.keys())
+    hist_path = os.path.join(outdir, f"heii{rank}.txt")
+    write_heii_hist(hist_path)
+    hist = qmod.load_heii_reion_hist(hist_path)
+    par = qmod.QSOParams(heiii_start=hist.zstart, **QSO_PARAMS).with_units(
+        option_units("mpgadget_tpu_torch").UnitInternalEnergy_in_cgs)
+    qdir = os.path.join(outdir, "qso")
+    os.makedirs(qdir, exist_ok=True)
+    ion, ent, nbub = qmod.place_bubbles(
+        st["ipos"], st["gas"], st["ionized"], st["density"], st["entropy"],
+        QSO_CAT, hist, par, QSO_ATIME, AUX_BOX, 42, qdir, write=rank == 0,
+        mesh=mesh)
+    out["qso_pid"] = st["pid"].numpy()
+    out["qso_ionized"] = ion.numpy()
+    out["qso_entropy"] = ent.numpy()
+    out["qso_nbub"] = np.int64(nbub)
+
+    # ---- the excursion set over ranks ----
+    par, cp, units, halo_mass, sfr = uvbg_case("mpgadget_tpu_torch")
+    d.update(halo_mass=halo_mass, sfr=sfr)
+    st = rows(d, d.keys())
+    fesc = umod.escape_fractions(st["halo_mass"], par.escape_frac_norm,
+                                 par.escape_frac_scaling,
+                                 units.UnitMass_in_g, cp.HubbleParam)
+    res = umod.calculate_uvbg(
+        st["ipos"], st["mass"], torch.ones_like(st["gas"]), st["gas"],
+        st["ptype"] == 4, st["sfr"], fesc, par, cp, units, AUX_BOX, 0.1,
+        mesh=mesh)
+    j21_p = umod.readout_j21_max(res["j21"], st["ipos"])
+    out["uvbg_j21"] = res["j21"].numpy()
+    out["uvbg_xhi"] = res["xhi"].numpy()
+    out["uvbg_vol"] = np.float64(res["volume_weighted_global_xHI"])
+    out["uvbg_mass"] = np.float64(res["mass_weighted_global_xHI"])
+    out["uvbg_pid"] = st["pid"].numpy()
+    out["uvbg_j21_rows"] = j21_p.numpy()
+    np.savez(os.path.join(outdir, f"opt_r{rank}.npz"), **out)
+
+
+# a small massive-neutrino run: the parity IC (24^3, Nmesh 48) with one
+# massive species, hierarchical, no random box shift (RandomParticleOffset
+# 0, so that the single-device loop's PM force sees the rows where the
+# sharded run's does), to NU_TIME_MAX with a snapshot there
+NU_TIME_MAX = 0.115
+NU_EXTRA = """
+MassiveNuLinRespOn = 1
+MNue = 0.2
+RandomParticleOffset = 0
+"""
+
+
+def nu_paramtext(out):
+    return run_paramtext(PARITY_IC, out, extra=NU_EXTRA).replace(
+        f"OutputList = {RUN_OUTPUTS}", f"OutputList = {NU_TIME_MAX}").replace(
+        f"TimeMax = {RUN_TMAX}", f"TimeMax = {NU_TIME_MAX}")
+
+
+def powerspectra(outdir):
+    """Every powerspectrum file of a run, in a order: {a: (k, P)}."""
+    out = {}
+    for f in sorted(Path(outdir).glob("powerspectrum-*.txt")):
+        rows = np.loadtxt(f, ndmin=2)
+        out[float(f.stem.split("-", 1)[1])] = (rows[:, 0], rows[:, 1])
+    return out
+
+
+def nu_outputs(sim, outdir):
+    """What the neutrino record keeps of a run (either package): each
+    step's P(k) and the delta_tot history."""
+    out = {}
+    for i, (a, (k, p)) in enumerate(sorted(powerspectra(outdir).items())):
+        out[f"pk{i}_a"] = np.float64(a)
+        out[f"pk{i}_k"], out[f"pk{i}_p"] = k, p
+    st = sim._nu_table_state.state_dict()
+    out["scalefact"] = np.asarray(st["scalefact"])
+    out["delta_tot"] = np.asarray(st["delta_tot"])
+    return out
+
+
+def hybrid_state(sim):
+    """The final rows of a hybrid run by ID (either package)."""
+    pd = sim.pdata
+    v = _host(pd.valid)
+    cols = {k: _host(getattr(pd, k))[v] for k in ("pid", "ipos", "vel",
+                                                 "ptype")}
+    o = np.argsort(cols["pid"])
+    out = {k: c[o] for k, c in cols.items()}
+    out["ipos"] = out["ipos"].astype(np.int64)
+    out["atime"] = np.float64(sim.atime)
+    return out
+
+
+def aux_outputs(sim, outdir):
+    """What the aux record keeps of a run (either package): the ionized
+    and reionized IDs, J21 by ID, helium.txt, the planes."""
+    from mpgadget_tpu_torch.io.fits import read_fits_image
+    pd = sim.pdata
+    v = _host(pd.valid)
+    pid = _host(pd.pid)[v]
+    o = np.argsort(pid)
+    gas = (_host(pd.ptype)[v] == 0)[o]
+    out = {"pid": pid[o], "gas": gas,
+           "ionized": (_host(sim.sph.he_iii_ionized)[v] > 0)[o],
+           "j21": _host(sim.sph.local_j21)[v][o],
+           "zreion": _host(sim.sph.zreion)[v][o],
+           "helium": np.array((Path(outdir) / "helium.txt").read_text()
+                              .splitlines(), dtype=str)}
+    for f in sorted(Path(outdir).glob("snap0_*.fits")):
+        out[f"plane_{f.stem}"] = np.asarray(read_fits_image(str(f))[0],
+                                            np.float64)
+    return out
+
+
+OPTION_RUNS = ("lc", "aux", "hyb_global", "hyb_hier", "nu")
+
+
+def option_run_cases(rank, size, outdir, cases):
+    """run_sharded of each option run on this rank; rank 0 writes
+    run_<case>.npz.  The hybrid runs record, at every PM refresh of each
+    rank (the hierarchical run's), a, whether the tracers were passive
+    then and the largest PM acceleration of its type-2 rows
+    (tracer_pm_<case>_r<rank>.npy)."""
+    from mpgadget_tpu_torch.main import build_simulation
+    from mpgadget_tpu_torch.params import create_gadget_parameter_set
+    from mpgadget_tpu_torch.parallel import collectives as coll
+    from mpgadget_tpu_torch.parallel import driver
+    mesh = _mesh()
+    seen = []
+    real_refresh = driver.pm_refresh
+
+    def refresh(st, mesh, scal, **kw):
+        upd, stats = real_refresh(st, mesh, scal, **kw)
+        t2 = st["ptype"] == 2
+        seen.append((float(scal["atime"]), bool(scal.get("nu_tracer")),
+                     float(upd["pm_acc"][t2].abs().max()) if t2.any()
+                     else 0.0))
+        return upd, stats
+
+    driver.pm_refresh = refresh
+    for case in cases:
+        out = os.path.join(outdir, case)
+        seen.clear()
+        if case == "lc":
+            sim = lightcone_sim("mpgadget_tpu_torch", out)
+        elif case == "aux":
+            if rank == 0:
+                os.makedirs(out, exist_ok=True)
+                write_heii_hist(os.path.join(outdir, "heii.txt"))
+            coll.barrier(mesh)
+            sim = aux_sim("mpgadget_tpu_torch", out,
+                          os.path.join(outdir, "heii.txt"))
+        elif case.startswith("hyb"):
+            sim = hybrid_sim("mpgadget_tpu_torch", out, case == "hyb_hier")
+        else:
+            ps = create_gadget_parameter_set()
+            ps.parse_string(nu_paramtext(out))
+            sim = build_simulation(ps, device="cpu")[0]
+        hier = bool(sim.cfg.split_gravity_timesteps)
+        sim.run_sharded(mesh, hierarchical=hier, verbose=False,
+                        max_steps=1 if case == "aux" else None)
+        if case.startswith("hyb"):
+            np.save(os.path.join(outdir, f"tracer_pm_{case}_r{rank}.npy"),
+                    np.asarray(seen, np.float64))
+        if rank != 0:
+            continue
+        if case == "lc":
+            res = {"rows": lightcone_rows(out)}
+        elif case == "aux":
+            res = aux_outputs(sim, out)
+            # the planes' host path on the final rows (the host mirror),
+            # the state they were written from
+            from mpgadget_tpu_torch.physics.plane import write_planes
+            sim.cfg.output_dir = os.path.join(out, "host")
+            os.makedirs(sim.cfg.output_dir)
+            write_planes(sim, 0, sim._plane_params)
+            sim.cfg.output_dir = out
+        elif case.startswith("hyb"):
+            res = hybrid_state(sim)
+        else:
+            res = nu_outputs(sim, out)
+        res["nsteps"] = np.int64(len(sim.sharded_log))
+        np.savez(os.path.join(outdir, f"run_{case}.npz"), **res)
+    driver.pm_refresh = real_refresh

@@ -182,18 +182,21 @@ def test_fof_membership_matches_jax_and_single_device(ranks):
 
 
 def test_parallel_imports_no_jax_and_one_collectives_module():
-    """parallel/ and utils/log import nothing of JAX, and
+    """parallel/, utils/log and the physics modules that the sharded
+    driver's options run over ranks import nothing of JAX, and
     parallel/collectives.py is the only module of the port that names
     torch.distributed."""
     import re
     import subprocess
     import sys
     repo = Path(__file__).resolve().parents[1]
-    mods = ["collectives", "mesh", "decomp", "sort", "pfft", "treepm",
-            "driver", "fof", "snapshot", "sph"]
+    mods = ["parallel." + m for m in (
+        "collectives", "mesh", "decomp", "sort", "pfft", "treepm", "driver",
+        "fof", "snapshot", "sph", "winds", "blackhole", "metals")] + [
+        "physics." + m for m in ("lightcone", "plane", "qso_lightup", "uvbg",
+                                 "neutrinos_lra")] + ["run", "main"]
     code = ("import sys; import mpgadget_tpu_torch.utils.log; "
-            + "; ".join(f"import mpgadget_tpu_torch.parallel.{m}"
-                        for m in mods)
+            + "; ".join(f"import mpgadget_tpu_torch.{m}" for m in mods)
             + "; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mpgadget_tpu.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -240,40 +240,35 @@ DM_SWITCHES = {"MassiveNuLinRespOn": "massive_nu_lin_resp_on",
                "PlaneOutputList": "plane_output_list"}
 
 
-# carried by the sharded driver since its gas and its subgrid physics: each
-# is admitted alone, and a switch it does not carry beside it is still
-# refused
-CARRIED_GAS = ("HydroOn", "CoolingOn", "StarformationOn", "WindOn",
-               "BlackHoleOn", "MetalReturnOn")
-
-
+# Every switch is carried by the sharded driver since its options (QSO
+# lightup, the excursion set, the dark-matter options): each is admitted
+# alone, and beside it the combination that the JAX package's run_sharded
+# refuses, metal return without star formation, is still refused before
+# the first step.
 @pytest.mark.parametrize("switch", GAS_SWITCHES + tuple(DM_SWITCHES))
 def test_run_sharded_refuses_what_it_does_not_carry(switch, tmp_path):
     from mpgadget_tpu_torch.main import build_simulation
     from mpgadget_tpu_torch.params import create_gadget_parameter_set
     from mpgadget_tpu_torch.parallel.mesh import make_sim_mesh
     from mpgadget_tpu_torch.run import check_sharded_supported
-    gas = switch in GAS_SWITCHES
-    ic = REPO / "tests" / ("torch_subgrid" if gas else "torch_parity") / "IC"
+    ic = REPO / "tests" / "torch_subgrid" / "IC"
     ps = create_gadget_parameter_set()
     ps.parse_string(W.run_paramtext(ic, tmp_path))
-    if gas:
-        for s in GAS_SWITCHES:
-            ps.set(s, 1 if s == switch else 0)
-        # the single-device check wants QSOLightupOn's table named
-        ps.set("ReionHistFile", str(tmp_path / "HeIIhist.txt"))
+    for s in GAS_SWITCHES:
+        ps.set(s, 1 if s == switch else 0)
+    # the single-device check wants QSOLightupOn's table named
+    ps.set("ReionHistFile", str(tmp_path / "HeIIhist.txt"))
     sim, _ = build_simulation(ps, device="cpu")
-    if not gas:
+    if switch in DM_SWITCHES:
         setattr(sim.cfg, DM_SWITCHES[switch],
                 "0.2" if switch == "PlaneOutputList" else True)
-    refused = switch
-    if switch in CARRIED_GAS:
-        check_sharded_supported(sim.cfg, True)
-        sim.cfg.qso_lightup_on = True
-        refused = "QSOLightupOn"
+    check_sharded_supported(sim.cfg, sim.has_gas)
+    sim.cfg.hydro_on, sim.cfg.metal_return_on = True, True
+    sim.cfg.starformation_on = False
     calls = sim.tree_force_calls
-    with pytest.raises(ValueError, match=f"{refused} is not yet ported to "
-                                         "the sharded driver"):
+    # (with WindOn on, winds without star formation are refused first)
+    with pytest.raises(ValueError, match="needs StarformationOn in the "
+                                         "sharded driver"):
         sim.run_sharded(make_sim_mesh("cpu"))
     assert sim.tree_force_calls == calls and sim.ti_current == 0
 
