@@ -296,7 +296,30 @@ fails the run (non-zero exit, no result line) if it fails:
    HeIII rows each inside the bubble that ionized it, the mass, the last
    snapshot's J21, ZReionized and HeIIIIonized blocks read back; per
    configuration and run the PM steps, seconds, collectives and rank 0's
-   walltime by layer (Lightcone, Planes, HeIII, UVBG, PMgrav).
+   walltime by layer (Lightcone, Planes, HeIII, UVBG, PMgrav);
+31. the tools and the examples' checkers (tools_phase): each tool of
+   mpgadget_tpu_torch/tools runs as this script with --no-jax in a process
+   of its own, in which any import of jax, jaxlib or mpgadget_tpu fails,
+   TOOL_PROCESSES at a time, and its exit code is checked: (a)
+   make_class_power --backend eh on copies of examples/dm-small's, lya's
+   and travis's paramfile.genic, then genic's CLI on dm-small's and lya's
+   unchanged (64^3; 32^3 gas + 32^3 DM): each IC held to phase 9's / 16's
+   from the Eisenstein-Hu override, the same realisation, velocities by
+   norm and positions' rms over the spacing within IC_TABLE_TOL; (b)
+   check_examples' functions one by one on the outputs of phases 10, 16,
+   23 and 25 (dm-small's and travis's input spectra the tables of (a)),
+   printing those run and those left out with the reason (dm-small's
+   check_hmf: the largest halo below the reference's 9e12 Msun, as phase
+   10 prints; lya's redshift check: the depth cut; its IGM and ionization
+   checks: no UV background); (c) compare_snap on the card on phase 22's
+   two runs' final snapshots, displacements within COMPARE_POS_TOL of the
+   box and the P(k) ratio within PARITY_PK_RTOL of 1; (d) hmf_from_fof and
+   plot_gsmf on dm-small's and star-small's last PIGs, their counts those
+   of the PIG (pig_check); (e) make_HI_reionization_table at phase 26's
+   box with --ngrid 16 read back: Nmesh, BoxSize, finite, the median
+   within 0.5 of --zbar; (f) make_yield_tables --npz equal to
+   physics/yield_tables' arrays, convert_from_gadget_1 on a Gadget-1 file
+   written here read back, convert_hdf5 where h5py is installed.
 
 Every phase prints its seconds ("phase N (...): s of the smoke"), and
 the line "phase seconds:" sums them before the kernel table.
@@ -6220,12 +6243,471 @@ def cooling_entry(lya, k6, new, k6r):
         "library_ms": None}
 
 
+# -- phase 31: the tools and the examples' checkers -------------------------
+#
+# Each tool runs as this script with --no-jax in a process of its own,
+# which fails any import of jax, jaxlib or mpgadget_tpu (NoJax) and then
+# runs the tool as python -m does, or calls one of its functions.
+
+TOOLS = "mpgadget_tpu_torch.tools."
+TOOL_PROCESSES = 8       # tool processes at a time
+TOOL_TIMEOUT = 600       # seconds for one tool process
+BLOCKED = ("jax", "jaxlib", "mpgadget_tpu")
+# (a): genic's IC from make_class_power's table against phase 9's / 16's
+# IC from the Eisenstein-Hu override, per species: the velocities' gap by
+# norm, relative, and the positions' rms gap over the mean spacing, about
+# three times the card's 2.0e-5 and 1.7e-5 for dm-small (lya: 9.6e-6 and
+# 7.5e-7): the table's log-log interpolation
+IC_TABLE_TOL = {"vel": 6e-5, "pos": 5e-5}
+# (c): the two parity runs' final positions, the largest distance in box
+# units, about ten times the card's 4.4e-8 (the sums in no fixed order;
+# PARITY_PK_RTOL leaves the same room over their P(k))
+COMPARE_POS_TOL = 5e-7
+REION_ZBAR = 7.5         # (e): make_HI_reionization_table's --zbar
+REION_NGRID = 16
+
+
+class NoJax:
+    """A sys.meta_path finder that fails every import of BLOCKED."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked: the port imports no JAX")
+        return None
+
+
+def no_jax(argv):
+    """chip_smoke.py --no-jax CALLS RESULTS: under NoJax, each entry of the
+    json list in CALLS in order: {"module", "argv"} runs the module as
+    python -m does, {"module", "call", "args"} calls one of its functions;
+    the calls' results are pickled to RESULTS as a list."""
+    import importlib
+    import pickle
+    import runpy
+    sys.meta_path.insert(0, NoJax())
+    with open(argv[0]) as fh:
+        calls = json.load(fh)
+    results = []
+    for c in calls:
+        if "call" in c:
+            print(f"== {c['module']}.{c['call']}{tuple(c['args'])}",
+                  flush=True)
+            fn = getattr(importlib.import_module(c["module"]), c["call"])
+            results.append(fn(*c["args"]))
+        else:
+            print(f"== python -m {c['module']} {' '.join(c['argv'])}",
+                  flush=True)
+            sys.argv = [c["module"]] + c["argv"]
+            runpy.run_module(c["module"], run_name="__main__",
+                             alter_sys=True)
+            results.append(None)
+    bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+    check(not bad, f"imported {bad}")
+    with open(argv[1], "wb") as fh:
+        pickle.dump(results, fh)
+    return 0
+
+
+def tool(name, *argv):
+    return {"module": TOOLS + name, "argv": [str(a) for a in argv]}
+
+
+def tool_call(name, fn, *args):
+    return {"module": TOOLS + name, "call": fn, "args": list(args)}
+
+
+def run_tools(jobs, workdir):
+    """jobs: {name: (cwd, [calls], names of the jobs it waits for)}; each
+    job is this script with --no-jax in a process of its own,
+    TOOL_PROCESSES at a time, each started in order once those it waits
+    for have ended.  Fails the smoke if a job fails.  Returns {name:
+    (stdout, results, seconds)}."""
+    import pickle
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    todo = list(jobs.items())
+    running, done, ended = {}, {}, set()
+    while todo or running:
+        ready = [job for job in todo if ended.issuperset(job[1][2])]
+        while ready and len(running) < TOOL_PROCESSES:
+            job = ready.pop(0)
+            todo.remove(job)
+            name, (cwd, calls, _) = job
+            stem = os.path.join(workdir, "job-" + name.replace(" ", "-"))
+            with open(stem + ".json", "w") as fh:
+                json.dump(calls, fh)
+            out = open(stem + ".log", "w+")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--no-jax", stem + ".json", stem + ".pkl"], cwd=cwd,
+                env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+            running[name] = (proc, out, stem, time.perf_counter())
+        time.sleep(0.05)
+        for name, (proc, out, stem, t0) in list(running.items()):
+            secs = time.perf_counter() - t0
+            if proc.poll() is None and secs < TOOL_TIMEOUT:
+                continue
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            del running[name]
+            ended.add(name)
+            out.seek(0)
+            text = out.read()
+            out.close()
+            if proc.returncode != 0:
+                try:
+                    check(False, f"tool job {name} failed (exit "
+                          f"{proc.returncode} after {secs:.1f} s): "
+                          f"{text[-3000:]}")
+                except SmokeFailure:
+                    for p, o, _, _ in running.values():
+                        p.kill()
+                        p.wait()
+                        o.close()
+                    raise
+                continue        # a rehearsal's lenient check
+            with open(stem + ".pkl", "rb") as fh:
+                done[name] = (text, pickle.load(fh), secs)
+    return done
+
+
+def last_output(outdir, prefix):
+    names = sorted(f for f in os.listdir(outdir) if f.startswith(prefix))
+    check(names, f"no {prefix}* in {outdir}")
+    return os.path.join(outdir, names[-1])
+
+
+def ic_species(path):
+    """{ptype: (positions, velocities, IDs) sorted by ID} of an IC, and its
+    box."""
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.io import snapshot as snap_io
+    bf = BigFile(path)
+    hdr = snap_io.read_header(bf)
+    out = {}
+    for t in range(6):
+        if int(hdr.TotNumPart[t]):
+            sp = snap_io.read_species(bf, t, hdr)
+            order = np.argsort(sp["pid"])
+            out[t] = sp["pos"][order], sp["vel"][order], sp["pid"][order]
+    return out, hdr.BoxSize
+
+
+def ic_gap(table_ic, eh_ic, ngrid):
+    """Per species (velocities' gap by norm relative, positions' rms gap
+    over the mean spacing) of two ICs of one realisation."""
+    import numpy as np
+    a, box = ic_species(table_ic)
+    b, _ = ic_species(eh_ic)
+    check(sorted(a) == sorted(b), f"species {sorted(a)} / {sorted(b)}")
+    gaps = {}
+    for t in a:
+        (pa, va, ida), (pb, vb, idb) = a[t], b[t]
+        check(np.array_equal(ida, idb), f"type {t}: the ICs' IDs differ")
+        d = pa - pb
+        d -= np.round(d / box) * box
+        gaps[t] = (float(np.linalg.norm(va - vb) / np.linalg.norm(vb)),
+                   float(np.sqrt((d ** 2).sum(axis=1).mean())
+                         / (box / ngrid)))
+    return gaps
+
+
+def write_gadget1(path, seed=4):
+    """A Gadget-1 file (tests/test_tools.py's): 4 gas particles with a mass
+    block and u, 8 DM with MassTable 2.5, a = 0.25.  Returns its arrays."""
+    import struct
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n0, n1 = 4, 8
+    npart = [n0, n1, 0, 0, 0, 0]
+    a = 0.25
+    arrays = dict(pos=rng.uniform(0, 1000.0, (n0 + n1, 3)).astype("<f4"),
+                  vel=rng.randn(n0 + n1, 3).astype("<f4"),
+                  ids=np.arange(1, n0 + n1 + 1, dtype="<u4"),
+                  mass=np.full(n0, 0.5, "<f4"),
+                  u=np.linspace(10, 40, n0).astype("<f4"), a=a, n0=n0)
+    hdr = struct.pack("<6i", *npart) + struct.pack(
+        "<6d", 0.0, 2.5, 0, 0, 0, 0)
+    hdr += struct.pack("<dd", a, 1 / a - 1) + struct.pack("<2i", 0, 0)
+    hdr += struct.pack("<6I", *npart) + struct.pack("<2i", 0, 1)
+    hdr += struct.pack("<4d", 1000.0, 0.3, 0.7, 0.7)
+    hdr += struct.pack("<2i", 0, 0) + struct.pack("<6I", 0, 0, 0, 0, 0, 0)
+    hdr += b"\x00" * (256 - len(hdr))
+    with open(path, "wb") as fh:
+        for p in (hdr, arrays["pos"].tobytes(), arrays["vel"].tobytes(),
+                  arrays["ids"].tobytes(), arrays["mass"].tobytes(),
+                  arrays["u"].tobytes()):
+            fh.write(struct.pack("<i", len(p)) + p + struct.pack("<i", len(p)))
+    return arrays
+
+
+def table_rows(stdout, job):
+    """The count column (the last) summed over a halo tool's rows."""
+    rows = [ln.split() for ln in stdout.splitlines()
+            if ln and not ln.startswith(("#", "=="))]
+    check(all(len(r) == 3 for r in rows), f"{job}: rows {rows[:3]}")
+    return sum(int(r[-1]) for r in rows)
+
+
+def tools_phase(workdir, dm, lya, star, travis, parity, device="cuda",
+                ngrid=None):
+    """Phase 31 (module docstring).  dm, lya, star, travis: the work
+    directories of phases 9-10, 16, 23 and 25; parity: phase 22's two
+    runs' output directories.  A rehearsal on the CPU passes device "cpu"
+    (the tools get --device cpu, genic runs as run_genic) and ngrid, {example:
+    Ngrid} written into the paramfile copies to match its smaller phases.
+    Returns a dict."""
+    import importlib.util
+    import shutil
+    import numpy as np
+    from mpgadget_tpu_torch.io.bigfile import BigFile
+    from mpgadget_tpu_torch.params import create_genic_parameter_set
+    from mpgadget_tpu_torch.physics import yield_tables as yt
+    from mpgadget_tpu_torch.tools import check_examples as ce
+
+    # (a) the shipped paramfile.genic of dm-small and lya, and travis's
+    # (its table feeds travis's checker), copied unchanged
+    params = {}
+    for ex in ("dm-small", "lya", "travis"):
+        d = os.path.join(workdir, ex)
+        os.makedirs(d)
+        pf = shutil.copy(os.path.join(HERE, "examples", ex,
+                                      "paramfile.genic"), d)
+        if ngrid:               # a smaller rehearsal on the CPU
+            paramfile_copy(pf, pf, {"Ngrid": ngrid[ex]})
+        ps = create_genic_parameter_set()
+        ps.parse_file(pf)
+        params[ex] = (d, pf, os.path.join(d, ps["FileWithInputSpectrum"]),
+                      os.path.join(d, ps["OutputDir"], ps["FileBase"]),
+                      ps["Ngrid"])
+    out = {k: os.path.join(v, "output")
+           for k, v in (("dm-small", dm), ("lya", lya), ("star-small", star),
+                        ("travis", travis))}
+    pigs = {ex: last_output(out[ex], "PIG_") for ex in ("dm-small",
+                                                        "star-small")}
+    parts = [last_output(p, "PART_") for p in parity]
+    lya_snap = BigFile(last_output(out["lya"], "PART_"))
+    lya_z = 1.0 / float(np.asarray(lya_snap.open("Header").attrs["Time"])
+                        .reshape(-1)[0]) - 1.0
+    lya_ne = float(np.median(lya_snap.open("0/ElectronAbundance").read()))
+    dm_pig = BigFile(pigs["dm-small"])
+    dm_hh = float(np.asarray(dm_pig.open("Header").attrs["HubbleParam"])
+                  .reshape(-1)[0])
+    dm_mass = dm_pig.open("FOFGroups/Mass").read()
+    dm_max = float(dm_mass.max() * 1e10 / dm_hh) if len(dm_mass) else 0.0
+    # (b) the checks each checker runs here, and those it leaves out
+    left_out = {
+        ("dm-small", "check_hmf"): f"the last PIG's largest halo "
+        f"{dm_max:.6e} Msun, the reference's 9e12 not reached with the "
+        "Eisenstein-Hu spectrum at 64^3 (phase 10: not enforced)",
+        ("lya", "check_lya_redshift"): f"the last snapshot at z "
+        f"{lya_z:.4f}: the run stops at a = {LYA_TIME_MAX} (LYA_TIME_MAX, "
+        "the depth cut), the check asks z < 3.1",
+        ("lya", "check_lya_igm"): "no UV background (TreeCoolFile empty: "
+        "TREECOOL_ep_2018p is absent), so no photo-heated IGM to fit "
+        "T0 and gamma to",
+        ("lya", "check_lya_ionized"): f"the median electron abundance "
+        f"{lya_ne:.6g}: no UV background ionizes the gas (TreeCoolFile "
+        "empty)",
+        ("travis", "check_linear_growth"): None}    # after the table
+    checks = {"dm-small": (("check_power", out["dm-small"],
+                            params["dm-small"][2]),
+                           ("check_hmf", out["dm-small"])),
+              "lya": tuple((f.__name__, out["lya"]) for f in ce.LYA_PARTS),
+              "star-small": (("check_sfr_history", out["star-small"]),
+                             ("check_stars_in_snapshot", out["star-small"])),
+              "travis": (("check_linear_growth", out["travis"],
+                          params["travis"][2]),
+                         ("check_gas_state", out["travis"]))}
+    ran = {ex: [c for c in cs if (ex, c[0]) not in left_out]
+           for ex, cs in checks.items()}
+
+    def checker(ex, after=()):
+        return (workdir, [tool_call("check_examples", *c) for c in ran[ex]],
+                after)
+
+    box_mpc = 5.0      # phase 26's box (star-small, 5000 kpc/h)
+    g1 = write_gadget1(os.path.join(workdir, "gadget1"))
+    # the tables first: genic and dm-small's checks wait for theirs
+    genic = "mpgadget_tpu_torch.genic.main"
+    jobs = {f"make_class_power {ex}": (params[ex][0], [tool(
+        "make_class_power", params[ex][1], "--backend", "eh")], ())
+        for ex in params}
+    for ex in ("dm-small", "lya"):
+        jobs[f"genic {ex}"] = (params[ex][0], [
+            {"module": genic, "argv": [params[ex][1]]} if device == "cuda"
+            else {"module": genic, "call": "run_genic",
+                  "args": [params[ex][1], None, "cpu"]}],
+            (f"make_class_power {ex}",))
+    jobs["check_examples dm-small"] = checker(
+        "dm-small", ("make_class_power dm-small",))
+    for ex in ("lya", "star-small", "travis"):
+        jobs[f"check_examples {ex}"] = checker(ex)
+    for ex, pig in pigs.items():
+        jobs[f"hmf_from_fof {ex}"] = (workdir, [tool("hmf_from_fof", pig)],
+                                      ())
+        jobs[f"plot_gsmf {ex}"] = (workdir, [tool("plot_gsmf", pig)], ())
+    jobs["compare_snap"] = (workdir, [tool_call(
+        "compare_snap", "compare", *parts, 1, device)], ())
+    jobs["make_HI_reionization_table"] = (workdir, [tool(
+        "make_HI_reionization_table", os.path.join(workdir, "zreion"),
+        "--ngrid", REION_NGRID, "--box", box_mpc, "--zbar", REION_ZBAR,
+        "--device", device)], ())
+    jobs["make_yield_tables"] = (workdir, [tool(
+        "make_yield_tables", "--npz", os.path.join(workdir, "yields.npz"),
+        "--device", device)], ())
+    jobs["convert_from_gadget_1"] = (workdir, [tool(
+        "convert_from_gadget_1", os.path.join(workdir, "gadget1"),
+        os.path.join(workdir, "gadget1_bf"))], ())
+    h5 = importlib.util.find_spec("h5py") is not None
+    if h5:
+        jobs["convert_hdf5"] = (workdir, [tool(
+            "convert_hdf5", parts[0], os.path.join(workdir, "part.hdf5"))],
+            ())
+    t0 = time.perf_counter()
+    got = run_tools(jobs, workdir)
+    t_tools = time.perf_counter() - t0
+    # travis's first output against the table over check_linear_growth's
+    # large-scale bins (on the card 0.39 to 1.58 of their mean, rtol 0.25)
+    kk0, pk0, _ = ce._read_power(ce._power_files(out["travis"])[0],
+                                 ndesired=16)
+    lin = np.loadtxt(params["travis"][2])
+    shape = pk0[:5] / np.interp(kk0[:5], lin[:, 0], lin[:, 1])
+    left_out[("travis", "check_linear_growth")] = (
+        "its first output's P(k) over the table at k = "
+        + ", ".join(f"{k:.1f}" for k in kk0[:5]) + " h/Mpc is "
+        + ", ".join(f"{r:.3f}" for r in shape / shape.mean())
+        + " of their mean (rtol 0.25): the Eisenstein-Hu stand-in gives gas "
+        "and dark matter the total-matter spectrum where the paramfile "
+        "asks for CLASS's transfer functions (DifferentTransferFunctions "
+        "1, class_tk_99.dat absent), and the EH table ends at "
+        f"{lin[-1, 0]:.1f} h/Mpc (np.interp holds its last value beyond)")
+    print("phase 31 tool processes (seconds, each its own process under "
+          "the import blocker): " + ", ".join(
+              f"{k} {v[2]:.3f}" for k, v in got.items())
+          + f"; all in {t_tools:.3f} s", flush=True)
+
+    # (a)
+    ic_gaps = {}
+    for ex, eh_ic in (("dm-small", os.path.join(dm, "IC", "IC")),
+                      ("lya", os.path.join(lya, "output", "IC"))):
+        d, pf, spec, ic, ngrid = params[ex]
+        with open(spec) as fh:
+            head = fh.readline().strip()
+        gaps = ic_gap(ic, eh_ic, ngrid)
+        ic_gaps[ex] = gaps
+        print(f"tools (a) {ex}: make_class_power wrote {spec} ({head}, "
+              f"{len(np.loadtxt(spec))} rows); genic on the shipped "
+              f"paramfile.genic unchanged ({got['genic ' + ex][2]:.3f} s) "
+              f"against phase {9 if ex == 'dm-small' else 16}'s IC from the "
+              "Eisenstein-Hu override, per type (velocities by norm, "
+              "positions' rms over the spacing): "
+              + ", ".join(f"{t}: {v:.3e}, {p:.3e}"
+                          for t, (v, p) in gaps.items())
+              + f" (tolerances {IC_TABLE_TOL['vel']:g}, "
+              f"{IC_TABLE_TOL['pos']:g})", flush=True)
+        for t, (v, p) in gaps.items():
+            check(v <= IC_TABLE_TOL["vel"] and p <= IC_TABLE_TOL["pos"],
+                  f"{ex} type {t}: the table's IC off the override's by "
+                  f"{v:.3e} (velocities), {p:.3e} (positions)")
+    # (b)
+    for ex, cs in checks.items():
+        print(f"tools (b) check_examples {ex}: ran "
+              + ", ".join(c[0] for c in ran[ex]) + "; left out "
+              + ("; ".join(f"{c[0]} ({left_out[(ex, c[0])]})" for c in cs
+                           if (ex, c[0]) in left_out) or "none"), flush=True)
+    # (c)
+    dr, ratio = got["compare_snap"][1][0]
+    box = float(np.asarray(BigFile(parts[0]).open("Header").attrs["BoxSize"])
+                .reshape(-1)[0])
+    pk_dev = float(np.abs(ratio - 1).max())
+    print(f"tools (c) compare_snap {parts[0]} against {parts[1]} on "
+          f"{device}: {len(dr)} particles, displacement max "
+          f"{dr.max() / box:.3e} and rms "
+          f"{np.sqrt((dr ** 2).mean()) / box:.3e} of the box (tolerance "
+          f"{COMPARE_POS_TOL:g}), P(k) ratio over {len(ratio)} bins off 1 "
+          f"by {pk_dev:.3e} at most (PARITY_PK_RTOL {PARITY_PK_RTOL:g})",
+          flush=True)
+    check(dr.max() <= COMPARE_POS_TOL * box,
+          f"compare_snap: displacement {dr.max()} of a {box} box")
+    check(len(ratio) > 0 and pk_dev <= PARITY_PK_RTOL,
+          f"compare_snap: P(k) ratio off 1 by {pk_dev:.3e}")
+    # (d)
+    halos = {}
+    for ex, pig in pigs.items():
+        ng = pig_check(pig, 1)[0]
+        bf = BigFile(pig)
+        starry = int((bf.open("FOFGroups/MassByType").read()[:, 4] > 0)
+                     .sum()) if ng else 0
+        nh = table_rows(got[f"hmf_from_fof {ex}"][0], "hmf_from_fof")
+        ns = table_rows(got[f"plot_gsmf {ex}"][0], "plot_gsmf")
+        halos[ex] = (ng, nh, starry, ns)
+        print(f"tools (d) {ex} {os.path.basename(pig)}: hmf_from_fof counts "
+              f"{nh} halos, the PIG holds {ng}; plot_gsmf counts {ns} with "
+              f"stars, the PIG {starry}", flush=True)
+        check(nh == ng and ns == starry, f"{ex}: the halo tools count "
+              f"{nh} and {ns} groups against {ng} and {starry}")
+    # (e)
+    blk = BigFile(os.path.join(workdir, "zreion")).open("Zreion_Table")
+    zre = blk.read()
+    med = float(np.median(zre))
+    print(f"tools (e) make_HI_reionization_table --ngrid {REION_NGRID} --box "
+          f"{box_mpc:g}: Nmesh {np.asarray(blk.attrs['Nmesh']).tolist()}, "
+          f"BoxSize {np.asarray(blk.attrs['BoxSize']).tolist()}, "
+          f"{zre.size} values in [{zre.min():.4f}, {zre.max():.4f}], median "
+          f"{med:.4f} (--zbar {REION_ZBAR})", flush=True)
+    check(int(np.asarray(blk.attrs["Nmesh"]).reshape(-1)[0]) == REION_NGRID
+          and float(np.asarray(blk.attrs["BoxSize"]).reshape(-1)[0])
+          == box_mpc and zre.size == REION_NGRID ** 3
+          and bool(np.isfinite(zre).all()) and abs(med - REION_ZBAR) <= 0.5,
+          "make_HI_reionization_table's table")
+    # (f)
+    with np.load(os.path.join(workdir, "yields.npz")) as z:
+        want = dict(snii_masses=yt.SNII_MASSES, snii_z=yt.SNII_Z,
+                    agb_masses=yt.AGB_MASSES, agb_z=yt.AGB_Z)
+        for name, grids in (("snii", yt._SNII), ("agb", yt._AGB)):
+            want.update({f"{name}_{k}": np.asarray(v)
+                         for k, v in grids.items()})
+        check(sorted(z.files) == sorted(want) and all(
+            np.array_equal(z[k], want[k]) for k in want),
+            "make_yield_tables' npz against physics/yield_tables")
+        nyield = len(z.files)
+    bf = BigFile(os.path.join(workdir, "gadget1_bf"))
+    n0 = g1["n0"]
+    check(np.allclose(bf.open("1/Position").read(), g1["pos"][n0:],
+                      rtol=1e-6)
+          and np.allclose(bf.open("1/Velocity").read(),
+                          g1["vel"][n0:] * np.sqrt(g1["a"]), rtol=1e-6)
+          and np.allclose(bf.open("0/Mass").read(), g1["mass"], rtol=1e-6)
+          and np.allclose(bf.open("0/InternalEnergy").read(), g1["u"],
+                          rtol=1e-6)
+          and np.array_equal(bf.open("1/ID").read(), g1["ids"][n0:]),
+          "convert_from_gadget_1's bigfile does not read back")
+    print(f"tools (f) make_yield_tables --npz: {nyield} arrays equal to "
+          "physics/yield_tables'; convert_from_gadget_1: the Gadget-1 file's "
+          "positions, velocities (x sqrt(a)), IDs, gas masses and u read "
+          "back; convert_hdf5 " + ("ran on " + parts[0] if h5 else
+                                   "left out: h5py is not installed here"),
+          flush=True)
+    return dict(gaps=ic_gaps, jobs={k: v[2] for k, v in got.items()},
+                halos=halos, pk_dev=pk_dev, median=med,
+                left_out=sorted(left_out))
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mpgadget_tpu_torch")):
         print("chip_smoke.py: mpgadget_tpu_torch/ is not beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--no-jax"]:         # a tool process of phase 31
+        try:
+            return no_jax(sys.argv[2:])
+        except SmokeFailure as e:
+            print(f"chip_smoke.py --no-jax: FAILED: {e}", file=sys.stderr)
+            return 1
     import torch
     if sys.argv[1:2] == ["--sharded-rank"] and sys.argv[4:5] == ["cpu"]:
         return sharded_rank(sys.argv[2:])      # a rehearsal's rank
@@ -6375,8 +6857,8 @@ def run():
     hyb = timed("20 (hybrid)", hybrid_phase, os.path.join(keep.name, "hyb"))
     lcone = timed("21 (light cone)", lightcone_phase,
                   os.path.join(keep.name, "lc"))
-    with tempfile.TemporaryDirectory() as work:
-        par = timed("22 (parity)", parity_phase, work)
+    par = timed("22 (parity)", parity_phase, os.path.join(keep.name,
+                                                           "parity"))
     dm_paths = {"neutrinos": nu, "hybrid": hyb, "lightcone": lcone,
                 "parity_1": par["runs"][0], "parity_2": par["runs"][1]}
     hsteps = hres["step_seconds"]
@@ -6503,22 +6985,27 @@ def run():
     print(f"phases 27-30 in {t2730:.3f} s: their launches' processes "
           f"outside every run (start and exit) {outside:.3f} s", flush=True)
     shd, l28, p29, p30 = (got[lb] for lb in labels)
-    keep.cleanup()
     report_sharded(shd, card)
     report_sharded(l28["configs"], card,
                    f"lya (2 x {lya['ngas']} particles, TimeMax "
                    f"{LYA_TIME_MAX})")
     report_global(glob, card)
-    with tempfile.TemporaryDirectory() as work:
-        t0 = time.perf_counter()
-        trav = timed("25 (travis)", travis_phase, work)
-        t25 = time.perf_counter() - t0
+    work_travis = os.path.join(keep.name, "travis")
+    os.makedirs(work_travis)
+    t0 = time.perf_counter()
+    trav = timed("25 (travis)", travis_phase, work_travis)
+    t25 = time.perf_counter() - t0
     report_travis(trav, card)
     report_reion(reion, card)
     print(f"phases 23-26: {t23:.3f} s, {t24:.3f} s, {t25:.3f} s and "
           f"{t26:.3f} s of the smoke", flush=True)
     report_star_sharded(p29, card)
     report_options_sharded(p30, card)
+    work = os.path.join(keep.name, "tools")
+    os.makedirs(work)
+    timed("31 (tools)", tools_phase, work, work_dm, work_lya, work_star,
+          work_travis, [r["out"] for r in par["runs"]])
+    keep.cleanup()
     total = time.perf_counter() - t_run
     print("phase seconds: " + json.dumps(
         {k: round(v, 3) for k, v in PHASE_SECONDS.items()})

@@ -66,3 +66,48 @@ def bits32(key):
     the block function's two words at counter (0, 0)."""
     x0, x1 = threefry2x32(key, np.zeros(1, np.uint32), np.zeros(1, np.uint32))
     return int(x0[0] ^ x1[0])
+
+
+def random_bits(key, n):
+    """``jax.random.bits(key, (n,), uint32)`` (partitionable), flattened
+    in C order, for n < 2**32: the xor of the block function's two words
+    at counter (0, i) for element i."""
+    x0, x1 = threefry2x32(key, np.zeros(n, np.uint32),
+                          np.arange(n, dtype=np.uint32))
+    return x0 ^ x1
+
+
+# XLA's float32 erf_inv (M. Giles' single-precision polynomials in
+# w = -log1p(-x^2), below and above w = 5), which jax.random.normal calls
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x):
+    w = -np.log1p(-x * x)
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0))
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = np.where(lt, np.float32(a), np.float32(b)) + p * w
+    return np.where(np.abs(x) == 1, x * np.finfo(np.float32).max, p * x)
+
+
+def normal(key, shape):
+    """``jax.random.normal(key, shape, float32)`` (partitionable) as a
+    float32 numpy array: a uniform in (-1, 1) from the top 23 bits of
+    each word, then sqrt(2) erfinv.  The words are JAX's bit for bit;
+    the erfinv rounds as XLA's to an ulp or two (numpy's log1p)."""
+    n = int(np.prod(shape))
+    bits = random_bits(key, n)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    one = np.float32(1.0)
+    fl = ((bits >> np.uint32(9)) | one.view(np.uint32)).view(np.float32) - one
+    u = np.maximum(lo, fl * (one - lo) + lo)
+    with np.errstate(over="ignore"):
+        z = np.float32(np.sqrt(2.0)) * _erfinv32(u)
+    return z.reshape(shape)

@@ -1,9 +1,10 @@
 """K6's procedure on the CPU: csrc/cooling.cu compiled for the host.
 
 There is no card here, so this compiles the kernel's own source with the
-host's C++ compiler against a small stand-in for the CUDA runtime (each
-thread of a block a std::thread, __shfl_sync an exchange within the lane
-group), and csrc/cooling_simple.cu (the first design, a thread a row, no
+host's C++ compiler against a small stand-in for the CUDA runtime (the
+lanes of a lane group fibers on the calling thread, __shfl_sync an
+exchange within the group at which each lane passes control to the
+next), and csrc/cooling_simple.cu (the first design, a thread a row, no
 early exit) the same way.  Both run the same C entry points on the same
 inputs; the redesign must equal the first design bit for bit, as
 tests/test_torch_cuda.py holds them on a card.  This checks the
@@ -37,7 +38,8 @@ HOST_CUDA = r"""
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
-#include <thread>
+#include <functional>
+#include <ucontext.h>
 #include <vector>
 #define __host__
 #define __device__
@@ -56,22 +58,24 @@ inline long long __double_as_longlong(double x) {
     long long u; std::memcpy(&u, &x, 8); return u; }
 using std::exp; using std::log; using std::pow; using std::sqrt;
 template <typename T> T __ldg(const T* p) { return *p; }
-struct LaneGroup {   // a barrier of the group's n threads, and their slots
-    std::atomic<int> count{0}, gen{0};
-    int n = 1;
+struct LaneGroup {   // the group's lanes, fibers, and their slots
+    int n = 1, done = 0;
+    ucontext_t* ctx = nullptr;
+    ucontext_t home;
     unsigned char slot[32][8];
-    void wait() {
-        int g = gen.load();
-        if (count.fetch_add(1) + 1 == n) {
-            count.store(0);
-            gen.fetch_add(1);
-        } else {
-            while (gen.load() == g) std::this_thread::yield();
-        }
-    }
+    void wait();
 };
 inline thread_local LaneGroup* lane_group;
 inline thread_local int lane_index;
+// a barrier of the group: every lane passes it the same number of times,
+// in turn, so each passes control to the next and resumes when all have
+inline void LaneGroup::wait() {
+    int me = lane_index;
+    dim3 t = threadIdx;
+    swapcontext(&ctx[me], &ctx[(me + 1) % n]);
+    lane_index = me;
+    threadIdx = t;
+}
 template <typename T> T __shfl_sync(unsigned, T v, int src, int width) {
     std::memcpy(lane_group->slot[lane_index], &v, sizeof(T));
     lane_group->wait();
@@ -79,28 +83,46 @@ template <typename T> T __shfl_sync(unsigned, T v, int src, int width) {
     lane_group->wait();
     return r;
 }
+inline thread_local std::function<void(int)>* lane_entry;
+inline void lane_start(int k) { (*lane_entry)(k); }
 template <typename F, typename... A>
 void host_launch(int lanes, unsigned blocks, int threads, int, cudaStream_t,
                  F f, A... args) {
-    // one lane group at a time: a thread a lane where lanes exchange values,
-    // the calling thread where a row has one lane
+    // one lane group at a time: a fiber a lane where lanes exchange
+    // values, the calling thread where a row has one lane
+    std::vector<ucontext_t> ctx(lanes);
+    std::vector<std::vector<char>> stacks(lanes,
+                                          std::vector<char>(1 << 20));
     for (unsigned b = 0; b < blocks; ++b)
         for (int first = 0; first < threads; first += lanes) {
             LaneGroup group;
             group.n = lanes;
-            auto run = [&](int t) {
-                threadIdx.x = t; blockIdx.x = b; blockDim.x = threads;
-                lane_group = &group; lane_index = t - first;
+            group.ctx = ctx.data();
+            auto lane = [&](int k) {
+                threadIdx.x = first + k; blockIdx.x = b;
+                blockDim.x = threads;
+                lane_group = &group; lane_index = k;
                 f(args...);
             };
             if (lanes == 1) {
-                run(first);
+                lane(0);
                 continue;
             }
-            std::vector<std::thread> pool;
-            for (int t = first; t < first + lanes; ++t)
-                pool.emplace_back(run, t);
-            for (auto& th : pool) th.join();
+            std::function<void(int)> run = [&](int k) {
+                lane(k);
+                if (++group.done == lanes)      // the last lane to return
+                    setcontext(&group.home);
+                swapcontext(&ctx[k], &ctx[(k + 1) % lanes]);
+            };
+            lane_entry = &run;
+            for (int k = 0; k < lanes; ++k) {
+                getcontext(&ctx[k]);
+                ctx[k].uc_stack.ss_sp = stacks[k].data();
+                ctx[k].uc_stack.ss_size = stacks[k].size();
+                ctx[k].uc_link = &group.home;
+                makecontext(&ctx[k], (void (*)())lane_start, 1, k);
+            }
+            swapcontext(&group.home, &ctx[0]);
         }
 }
 """

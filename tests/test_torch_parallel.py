@@ -182,9 +182,9 @@ def test_fof_membership_matches_jax_and_single_device(ranks):
 
 
 def test_parallel_imports_no_jax_and_one_collectives_module():
-    """parallel/, utils/log and the physics modules that the sharded
-    driver's options run over ranks import nothing of JAX, and
-    parallel/collectives.py is the only module of the port that names
+    """parallel/, utils/log, the physics modules that the sharded
+    driver's options run over ranks and the tools import nothing of JAX,
+    and parallel/collectives.py is the only module of the port that names
     torch.distributed."""
     import re
     import subprocess
@@ -194,7 +194,12 @@ def test_parallel_imports_no_jax_and_one_collectives_module():
         "collectives", "mesh", "decomp", "sort", "pfft", "treepm", "driver",
         "fof", "snapshot", "sph", "winds", "blackhole", "metals")] + [
         "physics." + m for m in ("lightcone", "plane", "qso_lightup", "uvbg",
-                                 "neutrinos_lra")] + ["run", "main"]
+                                 "neutrinos_lra")] + ["run", "main"] + [
+        "tools." + m for m in (
+            "hmf_from_fof", "plot_gsmf", "convert_from_gadget_1",
+            "convert_hdf5", "compare_snap", "make_class_power",
+            "make_HI_reionization_table", "make_yield_tables",
+            "check_examples")]
     code = ("import sys; import mpgadget_tpu_torch.utils.log; "
             + "; ".join(f"import mpgadget_tpu_torch.{m}" for m in mods)
             + "; bad = [m for m in sys.modules if m == 'jax' or "
